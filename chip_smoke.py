@@ -1,0 +1,508 @@
+#!/usr/bin/env python3
+"""GPU smoke run of repro_torch: the port's serving path on one card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+sm_90a) and then, failing with a non-zero exit on any error:
+
+  1. holds each kernel against its plain PyTorch version on the card at
+     the serving shapes of qwen2-1.5b (bf16, T=16, B=8, C=16 and C=1, plus
+     a window, a softcap and a page-straddling chunk), and times kernel,
+     plain version and one PyTorch library call (a yardstick the port
+     never calls) with CUDA events;
+  2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
+     greedy) at full width through ``ServeClient`` with one POSIX and one
+     STRICT session, and checks that every serve step launched both
+     kernels on every layer;
+  3. runs one mixed prefill+decode ``serve_step`` of the full model twice
+     from cloned caches, with the kernels and with the plain versions,
+     and compares logits and pools.
+
+TF32 is switched off for matmuls and cuDNN, so float32 products are full
+float32.  The last line is ``{"ok": true, "device": {...}}``; the line
+before it lists the kernels with their launch counts, times and bounds.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+
+# qwen2-1.5b serving shapes of phase 2
+B, T, KV, H, D = 8, 16, 2, 12, 128
+MAX_SEQ = 1024
+PAGES_PER_SEQ = MAX_SEQ // T
+P = B * PAGES_PER_SEQ
+LONGEST = 480 + 32               # the smoke run's longest context
+TRACE_DIR = ROOT / "build" / "repro_torch_kernels" / "traces"
+ATTN_TOL = 2e-2                  # bf16 out: about one ulp of values O(1)
+PATH_REL_TOL = 5e-2              # phase 3: 28 bf16 layers, see PERF.md
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event-timed calls of ``fn``: the time one
+    call holds the stream, host-side wrapper work included."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_events(prof) -> list:
+    """Kernel / memcpy / memset intervals of a torch.profiler run, read
+    from its Chrome trace (ts and dur in microseconds)."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "profile.tmp.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    path.unlink()
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` (sum of its kernels' durations from
+    a CUPTI trace); 0.0 when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e["dur"] for e in device_events(prof)) / reps / 1e3
+
+
+def timings(**fns) -> dict:
+    """For each named callable: device ms per call (CUPTI) as ``<name>``
+    and the event-timed call as ``<name>_call``.  A profile that records no
+    device work is taken once more; if it stays empty, ``<name>`` falls
+    back to the event-timed call and ``<name>_timing`` says so."""
+    out = {}
+    for name, fn in fns.items():
+        call = time_ms(fn)
+        dev = device_ms(fn) or device_ms(fn)
+        out[name] = dev if dev > 0 else call
+        out[name + "_call"] = call
+        out[name + "_timing"] = "cupti" if dev > 0 else "events"
+    return out
+
+
+def page_table(rng: np.random.Generator, idle=()) -> torch.Tensor:
+    """Distinct random pages per slot (never the null page 0); idle slots
+    get an all-zero row, as the engine leaves them."""
+    # P - 1 usable pages for B * PAGES_PER_SEQ entries: the last entry of
+    # the last row (position >= 1008, past every context here) stays 0
+    perm = np.concatenate([rng.permutation(np.arange(1, P)), [0]])
+    pt = perm.reshape(B, PAGES_PER_SEQ).astype(np.int32)
+    for b in idle:
+        pt[b] = 0
+    return torch.from_numpy(pt).cuda()
+
+
+def randn(rng, *shape, dtype=torch.bfloat16) -> torch.Tensor:
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def kv_append_case(rng, C: int, name: str) -> dict:
+    from repro_torch.kernels import kv_append_chunk
+    from repro_torch.models.attention import paged_chunk_ids
+
+    pt = page_table(rng, idle=(B - 1,))
+    lengths = torch.from_numpy(
+        rng.integers(0, LONGEST - C, B).astype(np.int32)).cuda()
+    lengths[B - 1] = 0
+    _, pids, sids = paged_chunk_ids(pt, lengths, C, T)
+    pool = randn(rng, P, T, KV, D)
+    new = randn(rng, B, C, KV, D)
+    out_k = kv_append_chunk(pool.clone(), new, pids, sids)
+    out_r = kv_append_chunk(pool.clone(), new, pids, sids, impl="ref")
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[1:], out_r[1:]):
+        raise AssertionError(f"{name}: kernel != plain version off page 0")
+    err = float((out_k[1:].float() - out_r[1:].float()).abs().max())
+    work = pool.clone()
+    pl, sl = pids.long(), sids.long()
+    t = timings(
+        ms=lambda: kv_append_chunk(work, new, pids, sids),
+        plain_ms=lambda: kv_append_chunk(work, new, pids, sids, impl="ref"),
+        library_ms=lambda: work.index_put_((pl, sl), new))
+    nbytes = 2 * new.numel() * new.element_size() + 2 * pids.numel() * 4
+    return {"case": name, "C": C, "max_abs_err": err, **t,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "flops": 0}
+
+
+def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
+                   straddle=False, table_pages=PAGES_PER_SEQ) -> dict:
+    """``table_pages`` < PAGES_PER_SEQ narrows the page table (a table of
+    at most 64 keys runs the kernel's single-split path)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention_chunk
+
+    pt = page_table(rng)[:, :table_pages].contiguous()
+    longest = min(LONGEST, table_pages * T)
+    if straddle:   # every chunk starts mid-page and crosses a boundary
+        starts = rng.integers(1, (longest - C) // T, B) * T - T // 2
+    else:
+        starts = rng.integers(0, longest - C + 1, B)
+    lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
+    q = randn(rng, B, C, H, D)
+    pk = randn(rng, P, T, KV, D)
+    pv = randn(rng, P, T, KV, D)
+    kw = dict(window=window, softcap=softcap)
+    out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
+    out_r = paged_attention_chunk(q, pk, pv, pt, lengths, impl="ref", **kw)
+    torch.cuda.synchronize()
+    diff = (out_k.float() - out_r.float()).abs()
+    err = float(diff.max())
+    if not torch.allclose(out_k.float(), out_r.float(), atol=ATTN_TOL,
+                          rtol=ATTN_TOL) or not torch.isfinite(out_k).all():
+        raise AssertionError(f"{name}: kernel vs plain max |err| {err}")
+    fns = dict(
+        ms=lambda: paged_attention_chunk(q, pk, pv, pt, lengths, **kw),
+        plain_ms=lambda: paged_attention_chunk(q, pk, pv, pt, lengths,
+                                               impl="ref", **kw))
+    if softcap is None:
+        # yardstick: SDPA over the pages gathered beforehand (gather and
+        # mask construction are outside the timed call)
+        S = table_pages * T
+        k = pk[pt.long()].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
+        v = pv[pt.long()].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
+        kpos = torch.arange(S, device="cuda")[None, None, :]
+        qpos = lengths.long()[:, None, None] + \
+            torch.arange(C, device="cuda")[None, :, None]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        m4 = mask[:, None]
+        fns["library_ms"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m4)
+    t = {"library_ms": None, **timings(**fns)}
+    # work this run's data needs: pages each sequence walks, causal keys
+    st = starts.astype(np.int64)
+    hi = np.minimum(table_pages, -(-(st + C) // T))
+    lo = np.zeros_like(hi) if window is None else \
+        np.maximum(st - window, 0) // T
+    pages = int((hi - lo).sum())
+    esz = q.element_size()
+    nbytes = (pages * T * KV * D * esz * 2 + 2 * q.numel() * esz
+              + pages * 4 + B * 4)
+    visible = st[:, None] + np.arange(C)[None, :] + 1   # keys per query
+    if window is not None:
+        visible = np.minimum(visible, window)
+    flops = int(4 * H * D * visible.sum())
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_f = flops / BF16_FLOPS * 1e3
+    return {"case": name, "C": C, "max_abs_err": err, **t,
+            "bound_ms": max(bound_b, bound_f),
+            "bound_by": "bytes" if bound_b >= bound_f else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path at full width
+# ---------------------------------------------------------------------------
+
+
+def serve_main_path(api, params, cfg) -> dict:
+    from repro_torch.core import OP_KV_COMMIT, Mode, OpLog, PMDevice
+    from repro_torch.kernels import common
+    from repro_torch.serve import ServeClient
+
+    oplog = OpLog(PMDevice(size=16 * 1024 * 1024), base_block=1,
+                  num_blocks=64)
+    client = ServeClient(api, params, max_batch=8, max_seq=MAX_SEQ,
+                         page_tokens=T, oplog=oplog, device="cuda")
+    posix = client.open_session(mode=Mode.POSIX)
+    strict = client.open_session(mode=Mode.STRICT)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate(rng.integers(64, 481, 8)):
+        prompt = rng.integers(1, cfg.vocab, int(n)).tolist()
+        reqs.append(((strict if i % 2 else posix).submit(prompt, 32),
+                     i % 2 == 1))
+    eng = client.engine
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    prefill, decode = [], []
+    t_start = time.perf_counter()
+    while eng.waiting or eng.active:
+        wide = bool(eng.waiting) or any(r.in_prefill
+                                        for r in eng.active.values())
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        (prefill if wide else decode).append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    launches = dict(common.LAUNCHES)
+    steps = eng.steps
+    L = cfg.n_layers
+    for r, _ in reqs:
+        assert r.done and not r.truncated and len(r.output) == 32, r
+        assert all(0 <= t < cfg.vocab for t in r.output)
+    assert launches["kv_append_chunk"] == 2 * L * steps, (launches, steps)
+    assert launches["paged_attention_chunk"] == L * steps, (launches, steps)
+    strict_pages = sum((len(r.prompt) + 32 - 1) // T for r, s in reqs if s)
+    commits = [e for e in oplog.scan() if e.op == OP_KV_COMMIT]
+    assert len(commits) == strict_pages, (len(commits), strict_pages)
+    assert all(e.mode == int(Mode.STRICT) for e in commits)
+    out_tokens = sum(len(r.output) for r, _ in reqs)
+    return {"steps": steps, "prefill_steps": len(prefill),
+            "decode_steps": len(decode),
+            "prefill_step_ms_median": statistics.median(prefill),
+            "decode_step_ms_median": statistics.median(decode),
+            "wall_s": wall, "output_tokens": out_tokens,
+            "output_tokens_per_s": out_tokens / wall,
+            "tokens_processed": eng.tokens_processed,
+            "strict_commits": len(commits), "launches": launches,
+            "prompt_lens": [len(r.prompt) for r, _ in reqs]}
+
+
+def logits_d2h_ms(cfg) -> dict:
+    """Host cost of the engine's per-step logits pull ([B, C, V] bf16 to
+    the host and widened to float32 there), timed on the host clock."""
+    from repro_torch.serve.engine import ServingEngine
+    out = {}
+    for C in (16, 1):
+        x = torch.randn(B, C, cfg.vocab, device="cuda").to(torch.bfloat16)
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ServingEngine._logits_to_host(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"C{C}_ms"] = statistics.median(times[2:])
+        out[f"C{C}_bytes"] = x.numel() * x.element_size()
+    return out
+
+
+def profile_windows(api, params, cfg) -> dict:
+    """Where a step's time goes: a CUPTI trace over two all-prefill steps
+    and over four decode-only steps of 8 fresh requests.  Wall time is the
+    host clock around the window (ending in a synchronize); device busy
+    time is the union of kernel/copy intervals; idle share = 1 - busy/wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import ServeClient
+
+    client = ServeClient(api, params, max_batch=8, max_seq=MAX_SEQ,
+                         page_tokens=T, device="cuda")
+    sess = client.open_session()
+    rng = np.random.default_rng(2)
+    for n in rng.integers(64, 481, 8):
+        sess.submit(rng.integers(1, cfg.vocab, int(n)).tolist(), 40)
+    eng = client.engine
+    eng.step()
+
+    def window(n_steps: int) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ev = sorted(device_events(prof), key=lambda e: e["ts"])
+        busy, end = 0.0, -1e30
+        for e in ev:
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        by_name = {}
+        for e in ev:
+            key = e["name"][:70]
+            by_name[key] = by_name.get(key, 0.0) + e["dur"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        ours = {k: sum(e["dur"] for e in ev if k in e["name"]) / n_steps / 1e3
+                for k in ("kv_append_kernel", "paged_attention_kernel")}
+        return {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
+                "device_busy_ms_per_step": busy / n_steps / 1e3,
+                "idle_share": 1.0 - busy / wall_us if wall_us else None,
+                "kernels_ms_per_step": ours,
+                "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
+
+    out = {"prefill": window(2)}
+    while any(r.in_prefill for r in eng.active.values()):
+        eng.step()
+    out["decode"] = window(4)
+    for r in list(eng.active.values()) + list(eng.waiting):
+        eng.cancel(r)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the full step with kernels vs with the plain versions
+# ---------------------------------------------------------------------------
+
+
+def path_vs_plain(api, params, cfg) -> dict:
+    rng = np.random.default_rng(1)
+    caches = api.init_caches(B, MAX_SEQ, T, device="cuda")
+    caches["page_table"].copy_(page_table(rng, idle=(B - 1,)))
+    C = T
+    for _ in range(3):      # fill some context with the kernels
+        n = torch.tensor([16, 16, 16, 9, 16, 16, 16, 0], dtype=torch.int32,
+                         device="cuda")
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, C))
+                               .astype(np.int32)).cuda()
+        _, caches = api.serve_step(params, tok, caches, n)
+    n_new = [16, 1, 16, 1, 5, 16, 1, 0]           # mixed prefill + decode
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, C))
+                           .astype(np.int32)).cuda()
+    n = torch.tensor(n_new, dtype=torch.int32, device="cuda")
+
+    def clone(c):
+        return {"page_table": c["page_table"].clone(),
+                "lengths": c["lengths"].clone(),
+                "group": {k: tuple(t.clone() for t in v)
+                          for k, v in c["group"].items()},
+                "tail": {}}
+
+    lk, ck = api.serve_step(params, tok, clone(caches), n)
+    lr, cr = api.serve_step(params, tok, clone(caches), n, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(ck["lengths"], cr["lengths"])
+    worst, scale, agree, rows = 0.0, 0.0, 0, 0
+    for b, k in enumerate(n_new):
+        a, r = lk[b, :k].float(), lr[b, :k].float()
+        assert torch.isfinite(a).all()
+        worst = max(worst, float((a - r).abs().max())) if k else worst
+        scale = max(scale, float(r.abs().max())) if k else scale
+        agree += int((a.argmax(-1) == r.argmax(-1)).sum())
+        rows += k
+    pool_err, pool_scale = 0.0, 0.0
+    for pk, pr in zip(ck["group"]["b0_attn"], cr["group"]["b0_attn"]):
+        d = (pk[:, 1:].float() - pr[:, 1:].float()).abs().max()
+        pool_err = max(pool_err, float(d))
+        pool_scale = max(pool_scale, float(pr[:, 1:].float().abs().max()))
+    res = {"logits_max_abs_err": worst, "logits_max_abs": scale,
+           "argmax_agree": f"{agree}/{rows}", "pool_max_abs_err": pool_err,
+           "pool_max_abs": pool_scale}
+    if worst > PATH_REL_TOL * scale or pool_err > PATH_REL_TOL * pool_scale:
+        raise AssertionError(f"kernel path vs plain path: {res}")
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(f"nvidia-smi: {smi.stdout.strip()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    log("tf32: matmul off, cudnn off")
+
+    t0 = time.perf_counter()
+    common.library()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {common.BUILD_INFO.get('seconds', 0.0):.2f} s, "
+        f"cached={common.BUILD_INFO.get('cached')})")
+    for line in str(common.BUILD_INFO.get("log", "")).splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log("  ptxas", line.strip())
+
+    rng = np.random.default_rng(0)
+    cases = [
+        kv_append_case(rng, 16, "kv_append C=16"),
+        kv_append_case(rng, 1, "kv_append C=1"),
+        attention_case(rng, 16, "attention C=16"),
+        attention_case(rng, 1, "attention C=1 (decode)"),
+        attention_case(rng, 16, "attention C=16 window=256", window=256),
+        attention_case(rng, 16, "attention C=16 softcap=30", softcap=30.0),
+        attention_case(rng, 16, "attention C=16 straddling", straddle=True),
+        attention_case(rng, 16, "attention C=16 one split", table_pages=4),
+    ]
+    for c in cases:
+        log("phase1", json.dumps(c))
+
+    cfg = get_config("qwen2-1.5b")
+    api = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(api.init_specs(), gen, device="cuda")
+    params = cast_params(params, cfg)   # what the engine does at load
+    torch.cuda.synchronize()
+    main_path = serve_main_path(api, params, cfg)
+    log("phase2", json.dumps(main_path))
+    log("phase2 logits_d2h", json.dumps(logits_d2h_ms(cfg)))
+    log("phase2 profile", json.dumps(profile_windows(api, params, cfg)))
+    log("phase2 peak_mem_gb",
+        round(torch.cuda.max_memory_allocated() / 2**30, 3))
+
+    path = path_vs_plain(api, params, cfg)
+    log("phase3", json.dumps(path))
+
+    by = {c["case"]: c for c in cases}
+    launches = main_path["launches"]
+    kernels = []
+    for name, case, src, replaces in (
+            ("kv_append_chunk", "kv_append C=16",
+             "src/repro_torch/kernels/csrc/kv_append.cu",
+             "src/repro/kernels/kv_append/kernel.py:38"),
+            ("paged_attention_chunk", "attention C=16",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/kernel.py:96")):
+        c = by[case]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"],
+                        "library_ms": c["library_ms"],
+                        "call_ms": c["ms_call"],
+                        "timing": c["ms_timing"]})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""Decoder blocks on the serve path (port of ``repro/models/blocks.py``).
+
+This slice ports the ``"attn"`` kind with GQA and a dense MLP: pre-norm
+residual, cache = (pool_k, pool_v) paged pools.  MLA, MoE and the
+recurrent kinds raise ``NotImplementedError`` until their slices land
+(ROADMAP queue 1, item 2).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .attention import gqa_init, gqa_serve
+from .config import ModelConfig
+from .layers import mlp_apply, mlp_init, norm_apply, norm_init
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
+                                  "(ROADMAP queue 1, item 2.5)")
+    if cfg.mla:
+        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1, "
+                                  "item 2.4)")
+    if cfg.n_experts:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
+                                  "item 2.3)")
+
+
+def block_init(cfg: ModelConfig, kind: str) -> Dict:
+    _check_kind(cfg, kind)
+    return {"norm1": norm_init(cfg), "norm2": norm_init(cfg),
+            "attn": gqa_init(cfg), "mlp": mlp_init(cfg)}
+
+
+def block_serve(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                cache, page_table: torch.Tensor, lengths: torch.Tensor,
+                n_new: torch.Tensor, *, impl: Optional[str] = None):
+    """Chunked serve step.  x: [B, C, D]; ``lengths`` is the pre-chunk
+    sequence length and ``n_new`` the per-sequence valid-token count.
+    Returns (x, cache) with the cache's pools updated in place.  Attention
+    pools need no validity mask: pad tokens' K/V land in unpublished
+    staging slots or the null page, which nothing reads."""
+    _check_kind(cfg, kind)
+    del n_new            # only recurrent state consumes it
+    h = norm_apply(p["norm1"], cfg, x)
+    pool_k, pool_v = cache
+    h, pool_k, pool_v = gqa_serve(p["attn"], cfg, h, pool_k, pool_v,
+                                  page_table, lengths,
+                                  window=cfg.attn_window,
+                                  use_rope=cfg.rope_theta is not None,
+                                  impl=impl)
+    x = x + h
+    h = norm_apply(p["norm2"], cfg, x)
+    return x + mlp_apply(p["mlp"], cfg, h), (pool_k, pool_v)
+
+
+def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
+                     num_pages: int, page_tokens: int, *,
+                     device: torch.device, layers: int):
+    """Zeroed paged pools for ``layers`` stacked blocks ([L, P, T, KV, D]
+    each; ``batch`` sizes only recurrent state, which is not ported)."""
+    _check_kind(cfg, kind)
+    del batch
+    shape = (layers, num_pages, page_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))

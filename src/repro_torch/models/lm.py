@@ -1,0 +1,132 @@
+"""Decoder-only LM on the serve path (port of ``repro/models/lm.py``).
+
+Parameters and caches keep the reference's pytree layout: the period
+group's parameters and pools are stacked over layers (``params["group"]
+["b0_attn"]`` leaves carry a leading layer dim; pools are
+``[L, P, T, KV, D]``), page 0 of every pool is the null page.  Where JAX
+scans over the stacked layer index, the port runs a Python loop and hands
+each layer ``pool[l]`` views, which the kernels update in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..kernels.common import resolve_device
+from .blocks import block_cache_init, block_init, block_serve
+from .config import ModelConfig
+from .layers import norm_apply, norm_init
+from .spec import ParamSpec, tree_map_specs
+
+
+def _pattern_groups(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
+    """(period_pattern, n_full_groups).  The reference runs a non-periodic
+    tail of layers unrolled; only hybrid patterns have one, and they are
+    not ported yet."""
+    pattern = cfg.block_pattern or ("attn",)
+    n_full = cfg.n_layers // len(pattern)
+    if cfg.pattern_for_layers()[n_full * len(pattern):]:
+        raise NotImplementedError("layer patterns with a tail are not ported "
+                                  "yet (ROADMAP queue 1, item 2.5)")
+    return tuple(pattern), n_full
+
+
+def _stack_specs(tree: Any, n: int) -> Any:
+    return tree_map_specs(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.logical, s.dtype,
+                            s.init, s.scale), tree)
+
+
+def lm_init(cfg: ModelConfig) -> Dict:
+    pattern, n_full = _pattern_groups(cfg)
+    group = {f"b{i}_{kind}": block_init(cfg, kind)
+             for i, kind in enumerate(pattern)}
+    params: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed_tbl"),
+                           cfg.param_dtype, init="embed", scale=0.02),
+        "group": _stack_specs(group, n_full),
+        "final_norm": norm_init(cfg),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
+                                      ("embed", "vocab"), cfg.param_dtype,
+                                      scale=0.02)
+    return params
+
+
+def embed_tokens(params: Dict, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    if cfg.family == "hybrid":               # gemma-style embedding scale
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(cfg.dtype).T
+    return x @ params["lm_head"].to(cfg.dtype)
+
+
+def lm_init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                   page_tokens: int = 128, *, device="cuda") -> Dict:
+    """Zeroed decode caches on ``device``.  Pool sizing comes from
+    ``cfg.kv_pages_per_seq`` — the same formula the engine's
+    ``api.kv_geometry`` uses."""
+    dev = resolve_device(device)
+    pattern, n_full = _pattern_groups(cfg)
+    pages_per_seq = cfg.kv_pages_per_seq(max_seq, page_tokens)
+    num_pages = max(batch * pages_per_seq, 1)
+    return {
+        "page_table": (torch.arange(batch * pages_per_seq, dtype=torch.int32,
+                                    device=dev)
+                       .reshape(batch, pages_per_seq) % num_pages),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "group": {f"b{i}_{kind}": block_cache_init(
+                      cfg, kind, batch, num_pages, page_tokens, device=dev,
+                      layers=n_full)
+                  for i, kind in enumerate(pattern)} if n_full else {},
+        "tail": {},
+    }
+
+
+def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  caches: Dict, n_new: torch.Tensor, *,
+                  impl: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+    """Unified chunked serve step (prefill chunks AND decode in one
+    fixed-shape call).  tokens: [B, C] with tokens[b, :n_new[b]] valid;
+    positions run lengths[b] .. lengths[b]+C-1.  Returns
+    (logits [B, C, V], caches with lengths + n_new).
+
+    Unlike the pure JAX step, which donates the pools and returns new
+    ones, this step MUTATES the stacked ``[L, P, T, KV, D]`` pools of
+    ``caches`` in place, layer by layer, through ``pool[l]`` views; the
+    returned dict holds the same pool tensors and a new ``lengths``.
+    ``impl`` picks the kernels' implementation (``None``: by device;
+    ``"ref"``: the plain PyTorch versions)."""
+    pattern, n_full = _pattern_groups(cfg)
+    page_table = caches["page_table"]
+    lengths = caches["lengths"]
+    x = embed_tokens(params, cfg, tokens)
+
+    for layer in range(n_full):
+        for i, kind in enumerate(pattern):
+            key = f"b{i}_{kind}"
+            gp = {k: _index(v, layer) for k, v in params["group"][key].items()}
+            pools = tuple(t[layer] for t in caches["group"][key])
+            x, _ = block_serve(gp, cfg, kind, x, pools, page_table, lengths,
+                               n_new, impl=impl)
+    x = norm_apply(params["final_norm"], cfg, x)
+    new_caches = dict(caches)
+    new_caches["lengths"] = lengths + n_new
+    return unembed(params, cfg, x), new_caches
+
+
+def _index(tree: Any, layer: int) -> Any:
+    """Layer ``layer`` of a stacked parameter subtree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, layer) for k, v in tree.items()}
+    return tree[layer]

@@ -57,6 +57,11 @@ def _install_hypothesis_stub() -> None:
 
 _install_hypothesis_stub()
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+
 from repro.core import Mode, PMDevice, USplit, Volume, VolumeGeometry  # noqa: E402
 
 SMALL_GEOMETRY = VolumeGeometry(meta_blocks=64, journal_blocks=128,

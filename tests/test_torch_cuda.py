@@ -1,0 +1,164 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+over the code paths chip_smoke.py does not reach at the serving shapes:
+float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
+append copies), pages of 8 and 32 tokens, one and many context splits,
+MQA, window and softcap — and the SMOKE model's serve step and greedy
+engine output, kernel path against plain path.
+
+Needs a card: every test skips without one.  On the card, run
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports the JAX package,
+which the port's machine does not have)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import (common, kv_append_chunk,
+                                 paged_attention, paged_attention_chunk)
+from repro_torch.models import build_model, init_params
+from repro_torch.models.attention import paged_chunk_ids
+from repro_torch.serve import ServingEngine
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# kernel vs plain version: float32 differs only in summation order; bf16
+# outputs round once more, about one bf16 ulp of values O(1)
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev, DTYPES[dtype])
+
+
+ATTN_CASES = [
+    # B, C, H, KV, D, P, T, N, window, softcap, dtype
+    (3, 8, 8, 2, 64, 16, 16, 8, None, None, "float32"),   # splits > 1
+    (2, 4, 4, 2, 32, 8, 8, 4, None, None, "float32"),     # one split, T=8
+    (2, 5, 4, 1, 12, 8, 8, 4, None, None, "bfloat16"),    # D=12: scalar loads
+    (2, 5, 4, 2, 12, 8, 8, 4, None, None, "float32"),     # SMOKE head dim
+    (2, 4, 4, 2, 32, 8, 8, 8, 16, None, "bfloat16"),      # window
+    (2, 4, 4, 2, 32, 8, 8, 8, None, 30.0, "bfloat16"),    # softcap
+    (2, 3, 4, 2, 256, 8, 32, 6, None, None, "bfloat16"),  # D=256, T=32
+    (4, 1, 16, 1, 128, 32, 16, 8, None, None, "bfloat16"),  # MQA decode
+]
+
+
+@pytest.mark.parametrize("B,C,H,KV,D,P,T,N,window,softcap,dtype", ATTN_CASES)
+def test_paged_attention_kernel_matches_plain(cuda, B, C, H, KV, D, P, T, N,
+                                              window, softcap, dtype):
+    rng = np.random.default_rng(B * 1000 + C * 10 + D)
+    q = randn(rng, (B, C, H, D), dtype, cuda)
+    pk = randn(rng, (P, T, KV, D), dtype, cuda)
+    pv = randn(rng, (P, T, KV, D), dtype, cuda)
+    pt = torch.from_numpy(rng.integers(0, P, (B, N)).astype(np.int32)).to(cuda)
+    lens = torch.from_numpy(
+        rng.integers(0, N * T - C, B).astype(np.int32)).to(cuda)
+    kw = dict(window=window, softcap=softcap)
+    common.reset_launch_counts()
+    out = paged_attention_chunk(q, pk, pv, pt, lens, **kw)
+    ref = paged_attention_chunk(q, pk, pv, pt, lens, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["paged_attention_chunk"] == 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    dec = paged_attention(q[:, 0].contiguous(), pk, pv, pt, lens + 1, **kw)
+    torch.testing.assert_close(dec.float(), out[:, 0].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("KV,D,dtype", [
+    (2, 128, "bfloat16"),     # 512 B rows: 16-byte copies
+    (1, 12, "bfloat16"),      # 24 B rows: 8-byte copies
+    (1, 3, "float32"),        # 12 B rows: 4-byte copies
+    (1, 3, "bfloat16"),       # 6 B rows: 2-byte copies
+])
+def test_kv_append_kernel_matches_plain_off_page0(cuda, KV, D, dtype):
+    rng = np.random.default_rng(D)
+    B, C, P, T = 3, 6, 10, 4
+    pool = randn(rng, (P, T, KV, D), dtype, cuda)
+    new = randn(rng, (B, C, KV, D), dtype, cuda)
+    pt = torch.tensor([[1, 2, 5, 6], [3, 4, 7, 8], [9, 0, 0, 0]],
+                      dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 5, 2], dtype=torch.int32, device=cuda)
+    _, pids, sids = paged_chunk_ids(pt, lens, C, T)
+    out = kv_append_chunk(pool.clone(), new, pids, sids)
+    ref = kv_append_chunk(pool.clone(), new, pids, sids, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(out[1:], ref[1:])
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 1, 2, 320, device=cuda, dtype=torch.bfloat16)
+    pool = torch.zeros(4, 4, 1, 320, device=cuda, dtype=torch.bfloat16)
+    pt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    lens = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                  # D > 256
+        paged_attention_chunk(q, pool, pool, pt, lens)
+    with pytest.raises(TypeError):                   # fp16 is not taken
+        paged_attention_chunk(q[..., :64].half().contiguous(),
+                              pool[..., :64].half().contiguous(),
+                              pool[..., :64].half().contiguous(), pt, lens)
+    with pytest.raises(ValueError):                  # non-contiguous
+        kv_append_chunk(pool[..., :64], q[:, :, :1, :64], pt[:, :1],
+                        pt[:, :1])
+
+
+def _smoke(cuda):
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return cfg, api, init_params(api.init_specs(), gen, device=cuda)
+
+
+def test_smoke_serve_step_kernel_path_matches_plain_path(cuda):
+    cfg, api, params = _smoke(cuda)
+    caches = api.init_caches(3, 32, 8, device=cuda)
+    caches["page_table"].copy_(torch.tensor(
+        [[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], dtype=torch.int32))
+    caches["lengths"].copy_(torch.tensor([5, 3, 0], dtype=torch.int32))
+    tok = torch.randint(1, cfg.vocab, (3, 8), device=cuda, dtype=torch.int32)
+    n = torch.tensor([8, 6, 0], dtype=torch.int32, device=cuda)
+
+    def clone(c):
+        return {"page_table": c["page_table"].clone(),
+                "lengths": c["lengths"].clone(), "tail": {},
+                "group": {k: tuple(t.clone() for t in v)
+                          for k, v in c["group"].items()}}
+
+    lk, ck = api.serve_step(params, tok, clone(caches), n)
+    lr, cr = api.serve_step(params, tok, clone(caches), n, impl="ref")
+    for b, k in enumerate([8, 6, 0]):
+        torch.testing.assert_close(lk[b, :k], lr[b, :k], atol=1e-4, rtol=1e-4)
+    for a, r in zip(ck["group"]["b0_attn"], cr["group"]["b0_attn"]):
+        torch.testing.assert_close(a[:, 1:], r[:, 1:], atol=1e-4, rtol=1e-4)
+    assert torch.equal(ck["lengths"], cr["lengths"])
+
+
+def test_smoke_engine_on_card_streams_cpu_tokens(cuda):
+    cfg, api, params = _smoke(cuda)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServingEngine(api, params, max_batch=2, max_seq=64,
+                            page_tokens=8, device=dev)
+        reqs = [eng.submit([5, 6, 7, 8, 9, 10, 11, 12, 13], 6),
+                eng.submit([3, 4, 5], 6)]
+        eng.run_until_done()
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
