@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of repro_torch: the port's serving path on one card.
+"""GPU smoke run of repro_torch: the port's serving and training paths on
+one card.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,26 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
 sm_90a) and then, failing with a non-zero exit on any error:
 
   1. holds each kernel against its plain PyTorch version on the card at
-     the serving shapes of qwen2-1.5b (bf16, T=16, B=8, C=16 and C=1, plus
-     a window, a softcap and a page-straddling chunk), and times kernel,
-     plain version and one PyTorch library call (a yardstick the port
-     never calls) with CUDA events;
+     the shapes of qwen2-1.5b's paths: the serving kernels at bf16, T=16,
+     B=8, C=16 and C=1, plus a window, a softcap and a page-straddling
+     chunk; the flash kernel at the training shape (B=1, S=4096, H=12,
+     KV=2, D=128, causal, bf16), with a window, a softcap, non-causal, a
+     ragged S=1000 and one float32 case.  It times kernel, plain version
+     and one PyTorch library call (a yardstick the port never calls), and
+     the plain attention backward beside SDPA's;
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` with one POSIX and one
      STRICT session, and checks that every serve step launched both
-     kernels on every layer;
+     serving kernels on every layer;
   3. runs one mixed prefill+decode ``serve_step`` of the full model twice
      from cloned caches, with the kernels and with the plain versions,
-     and compares logits and pools.
+     and compares logits and pools;
+  4. trains qwen2-1.5b at full width with ``run_training``: 4 AdamW steps
+     of 4 microbatches of one 4096-token sequence, remat "full", and
+     checks finite losses and 2 x 28 x 4 flash launches per step (each
+     layer's forward runs again in the backward); profiles one step;
+  5. takes the loss and every grad of one microbatch twice from the same
+     parameters, through the kernel and through the plain version.
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -26,7 +36,9 @@ before it lists the kernels with their launch counts, times and bounds.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,6 +53,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # float32 outside the tensor cores
 
 # qwen2-1.5b serving shapes of phase 2
 B, T, KV, H, D = 8, 16, 2, 12, 128
@@ -51,6 +64,16 @@ LONGEST = 480 + 32               # the smoke run's longest context
 TRACE_DIR = ROOT / "build" / "repro_torch_kernels" / "traces"
 ATTN_TOL = 2e-2                  # bf16 out: about one ulp of values O(1)
 PATH_REL_TOL = 5e-2              # phase 3: 28 bf16 layers, see PERF.md
+# flash out (atol, rtol): bf16 kernel and plain version round float32
+# values that agree to ~1e-6 and so differ by at most one bf16 ulp
+# (2^-7 relative at the bottom of a binade; rtol covers two)
+FLASH_TOL = {torch.bfloat16: (4e-3, 1.6e-2), torch.float32: (2e-5, 2e-5)}
+LSE_ATOL = 1e-4                  # flash lse, float32 in both versions
+# phase 4-5: the training shape (configs/shapes.py TRAIN_4K's sequence)
+TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 4, 4
+LOSS_TOL = 1e-3                  # phase 5 |loss_kernel - loss_plain|
+GNORM_TOL = 1e-5                 # phase 5 relative global grad-norm gap
+LEAF_TOL = 5e-2                  # phase 5 per-leaf relative grad error
 
 
 def log(*a) -> None:
@@ -88,31 +111,44 @@ def device_events(prof) -> list:
             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn`` (sum of its kernels' durations from
-    a CUPTI trace); 0.0 when the profiler records no device activity."""
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``: the sum of its kernel / copy
+    durations in a CUPTI trace of ``reps`` calls.  None when that trace
+    does not hold ``reps`` times the events of a trace of one call, as
+    when the profiler drops events or records none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_call = len(device_events(prof))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e["dur"] for e in device_events(prof)) / reps / 1e3
+    ev = device_events(prof)
+    if per_call == 0 or len(ev) != reps * per_call:
+        log(f"  cupti: {len(ev)} device events for {reps} calls of "
+            f"{per_call}")
+        return None
+    return sum(e["dur"] for e in ev) / reps / 1e3
 
 
 def timings(**fns) -> dict:
     """For each named callable: device ms per call (CUPTI) as ``<name>``
-    and the event-timed call as ``<name>_call``.  A profile that records no
-    device work is taken once more; if it stays empty, ``<name>`` falls
-    back to the event-timed call and ``<name>_timing`` says so."""
+    and the event-timed call as ``<name>_call``.  A trace whose event count
+    is off is taken once more; if it stays off, ``<name>`` falls back to
+    the event-timed call and ``<name>_timing`` says so."""
     out = {}
     for name, fn in fns.items():
         call = time_ms(fn)
-        dev = device_ms(fn) or device_ms(fn)
-        out[name] = dev if dev > 0 else call
+        dev = device_ms(fn)
+        if dev is None:
+            dev = device_ms(fn)
+        out[name] = call if dev is None else dev
         out[name + "_call"] = call
-        out[name + "_timing"] = "cupti" if dev > 0 else "events"
+        out[name + "_timing"] = "events" if dev is None else "cupti"
     return out
 
 
@@ -235,6 +271,94 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
             "bytes": nbytes, "flops": flops}
 
 
+def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Keys the mask lets each query row see, summed over the rows."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_inputs(rng, S, dtype, D=128, Sk=None):
+    Sk = S if Sk is None else Sk
+    return (randn(rng, 1, S, H, D, dtype=dtype),
+            randn(rng, 1, Sk, KV, D, dtype=dtype),
+            randn(rng, 1, Sk, KV, D, dtype=dtype))
+
+
+def flash_case(rng, name: str, S: int, *, causal=True, window=None,
+               softcap=None, dtype=torch.bfloat16, D=128) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_fwd
+
+    q, k, v = flash_inputs(rng, S, dtype, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = attention_fwd(q, k, v, **kw)
+    ref, ref_lse = attention_fwd(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    err = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    if not (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+            and lse_err <= LSE_ATOL and torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: kernel vs plain max |err| {err}, "
+                             f"lse {lse_err}")
+    fns = dict(ms=lambda: attention_fwd(q, k, v, **kw),
+               plain_ms=lambda: attention_fwd(q, k, v, impl="ref", **kw))
+    if softcap is None:
+        # yardstick: SDPA on [B, H, S, D] views built outside the timed
+        # call (a window needs a mask, also built outside)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            fns["library_ms"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            m = pos[None, :] > pos[:, None] - window
+            if causal:
+                m &= pos[None, :] <= pos[:, None]
+            fns["library_ms"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m, enable_gqa=True)
+    t = {"library_ms": None, **timings(**fns)}
+    flops = 4 * H * D * visible_keys(S, S, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + lse.numel() * 4
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_f = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                       else FP32_FLOPS) * 1e3
+    return {"case": name, "S": S, "D": D, "dtype": str(dtype),
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
+            **t,
+            "bound_ms": max(bound_b, bound_f),
+            "bound_by": "bytes" if bound_b >= bound_f else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def flash_backward_times(rng) -> dict:
+    """The plain attention backward (the port's, on every device) beside
+    SDPA's backward, at the training shape; not a TPU kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_fwd, blockwise_bwd
+
+    q, k, v = flash_inputs(rng, TRAIN_S, torch.bfloat16)
+    out, lse = attention_fwd(q, k, v)
+    g = randn(rng, *q.shape)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    gt = g.transpose(1, 2)
+    t = timings(plain_ms=lambda: blockwise_bwd(q, k, v, out, lse, g),
+                library_ms=lambda: torch.autograd.grad(
+                    o_sdpa, (qt, kt, vt), gt, retain_graph=True))
+    # dQ, dK, dV: five products of the forward's size (s, dp, dq, dk, dv)
+    flops = 10 * H * 128 * visible_keys(TRAIN_S, TRAIN_S, True, None)
+    return {"case": "attention backward S=4096 causal", **t,
+            "bound_ms": flops / BF16_FLOPS * 1e3, "bound_by": "operations",
+            "flops": flops}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path at full width
 # ---------------------------------------------------------------------------
@@ -312,12 +436,44 @@ def logits_d2h_ms(cfg) -> dict:
     return out
 
 
-def profile_windows(api, params, cfg) -> dict:
-    """Where a step's time goes: a CUPTI trace over two all-prefill steps
-    and over four decode-only steps of 8 fresh requests.  Wall time is the
+def profiled_window(step, n_steps: int, ours) -> dict:
+    """A CUPTI trace over ``n_steps`` calls of ``step``.  Wall time is the
     host clock around the window (ending in a synchronize); device busy
-    time is the union of kernel/copy intervals; idle share = 1 - busy/wall."""
+    time is the union of kernel/copy intervals; idle share = 1 - busy/wall;
+    ``ours`` names kernels whose time is reported on its own."""
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = sorted(device_events(prof), key=lambda e: e["ts"])
+    busy, end = 0.0, -1e30
+    for e in ev:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    by_name = {}
+    for e in ev:
+        key = e["name"][:70]
+        by_name[key] = by_name.get(key, 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    mine = {k: sum(e["dur"] for e in ev if k in e["name"]) / n_steps / 1e3
+            for k in ours}
+    return {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
+            "device_busy_ms_per_step": busy / n_steps / 1e3,
+            "idle_share": 1.0 - busy / wall_us if wall_us else None,
+            "kernels_ms_per_step": mine,
+            "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
+
+
+def profile_windows(api, params, cfg) -> dict:
+    """Where a serve step's time goes: a CUPTI trace over two all-prefill
+    steps and over four decode-only steps of 8 fresh requests."""
     from repro_torch.serve import ServeClient
 
     client = ServeClient(api, params, max_batch=8, max_seq=MAX_SEQ,
@@ -330,32 +486,8 @@ def profile_windows(api, params, cfg) -> dict:
     eng.step()
 
     def window(n_steps: int) -> dict:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        ev = sorted(device_events(prof), key=lambda e: e["ts"])
-        busy, end = 0.0, -1e30
-        for e in ev:
-            lo, hi = e["ts"], e["ts"] + e["dur"]
-            if hi > end:
-                busy += hi - max(lo, end)
-                end = hi
-        by_name = {}
-        for e in ev:
-            key = e["name"][:70]
-            by_name[key] = by_name.get(key, 0.0) + e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        ours = {k: sum(e["dur"] for e in ev if k in e["name"]) / n_steps / 1e3
-                for k in ("kv_append_kernel", "paged_attention_kernel")}
-        return {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
-                "device_busy_ms_per_step": busy / n_steps / 1e3,
-                "idle_share": 1.0 - busy / wall_us if wall_us else None,
-                "kernels_ms_per_step": ours,
-                "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
+        return profiled_window(eng.step, n_steps,
+                               ("kv_append_kernel", "paged_attention_kernel"))
 
     out = {"prefill": window(2)}
     while any(r.in_prefill for r in eng.active.values()):
@@ -419,6 +551,113 @@ def path_vs_plain(api, params, cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training at full width; phase 5: kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+
+def train_main_path(api, cfg) -> dict:
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_S,
+                         seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    res = run_training(api, pipe,
+                       LoopConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MB),
+                       AdamWConfig(lr=3e-4, warmup_steps=2,
+                                   total_steps=TRAIN_STEPS), device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    per_step = 2 * cfg.n_layers * TRAIN_MB      # forward + remat recompute
+    assert res.steps_run == TRAIN_STEPS and all(map(math.isfinite,
+                                                    res.losses)), res
+    # random init: logits of std ~0.78 over the vocabulary, so the first
+    # loss is about ln(V) + 0.3
+    expect0 = math.log(cfg.vocab) + 0.3
+    assert abs(res.losses[0] - expect0) < 0.5, (res.losses, expect0)
+    assert launches["flash_attention"] == per_step * TRAIN_STEPS, launches
+    step_s = statistics.median(res.step_seconds[1:])
+    tokens = TRAIN_BATCH * TRAIN_S
+    return {"losses": res.losses, "step_seconds": res.step_seconds,
+            "step_s_median_2_4": step_s, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / step_s, "launches": launches,
+            "flash_launches_per_step": launches["flash_attention"]
+            // TRAIN_STEPS, "expected_per_step": per_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def train_batch(cfg, n: int) -> dict:
+    from repro_torch.data import TokenPipeline
+    b = TokenPipeline(cfg, global_batch=n, seq_len=TRAIN_S,
+                      seed=0).batch_at(0)
+    return {k: torch.from_numpy(x).cuda() for k, x in b.items()}
+
+
+def fresh_params(api):
+    from repro_torch.models import init_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return init_params(api.init_specs(), gen, device="cuda")
+
+
+def train_profile(api, cfg) -> dict:
+    """One warm train step, then a CUPTI window over the next."""
+    from repro_torch.kernels import common
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    step, init_state = make_train_step(
+        api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MB)
+    box = {"state": init_state(fresh_params(api))}
+    batch = train_batch(cfg, TRAIN_BATCH)
+
+    def one():
+        box["state"], m = step(box["state"], batch)
+        float(m["loss"])
+
+    one()
+    common.reset_launch_counts()
+    out = profiled_window(one, 1, ("flash_tc_kernel",))
+    assert common.LAUNCHES["flash_attention"] == \
+        2 * cfg.n_layers * TRAIN_MB, common.LAUNCHES
+    return out
+
+
+def train_path_vs_plain(api, cfg) -> dict:
+    from repro_torch.train import make_loss_and_grad
+    from repro_torch.train.optimizer import leaves
+
+    params = fresh_params(api)
+    batch = train_batch(cfg, 1)
+    got = {}
+    for impl in (None, "ref"):
+        loss, grads = make_loss_and_grad(api, 1, impl=impl)(params, batch)
+        got[impl] = (float(loss), leaves(grads))
+        del grads
+    torch.cuda.synchronize()
+    (lk, gk), (lr, gr) = got[None], got["ref"]
+    norm_k = math.sqrt(sum(float(g.float().square().sum()) for g in gk))
+    norm_r = math.sqrt(sum(float(g.float().square().sum()) for g in gr))
+    leaf_err = [float((a - b).float().norm() / b.float().norm().clamp_min(
+        1e-30)) for a, b in zip(gk, gr)]
+    assert all(torch.isfinite(g).all() for g in gk)
+    res = {"loss_kernel": lk, "loss_plain": lr, "loss_abs_diff": abs(lk - lr),
+           "grad_norm_kernel": norm_k, "grad_norm_plain": norm_r,
+           "grad_norm_rel_diff": abs(norm_k - norm_r) / norm_r,
+           "leaf_rel_err_max": max(leaf_err),
+           "leaf_rel_err_median": statistics.median(leaf_err),
+           "leaves": len(leaf_err),
+           "tolerances": {"loss": LOSS_TOL, "grad_norm": GNORM_TOL,
+                          "leaf": LEAF_TOL}}
+    if (res["loss_abs_diff"] > LOSS_TOL or res["grad_norm_rel_diff"] >
+            GNORM_TOL or res["leaf_rel_err_max"] > LEAF_TOL):
+        raise AssertionError(f"training kernel path vs plain path: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -458,9 +697,17 @@ def main() -> int:
         attention_case(rng, 16, "attention C=16 softcap=30", softcap=30.0),
         attention_case(rng, 16, "attention C=16 straddling", straddle=True),
         attention_case(rng, 16, "attention C=16 one split", table_pages=4),
+        flash_case(rng, "flash S=4096 causal", TRAIN_S),
+        flash_case(rng, "flash S=4096 window=1024", TRAIN_S, window=1024),
+        flash_case(rng, "flash S=4096 softcap=30", TRAIN_S, softcap=30.0),
+        flash_case(rng, "flash S=4096 non-causal", TRAIN_S, causal=False),
+        flash_case(rng, "flash S=1000 ragged", 1000),
+        flash_case(rng, "flash S=512 D=64 float32", 512,
+                   dtype=torch.float32, D=64),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
+    log("phase1 backward", json.dumps(flash_backward_times(rng)))
 
     cfg = get_config("qwen2-1.5b")
     api = build_model(cfg)
@@ -477,17 +724,34 @@ def main() -> int:
 
     path = path_vs_plain(api, params, cfg)
     log("phase3", json.dumps(path))
+    del params                       # the serving phases' weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train = train_main_path(api, cfg)
+    log("phase4", json.dumps(train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase4 profile", json.dumps(train_profile(api, cfg)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase5", json.dumps(train_path_vs_plain(api, cfg)))
 
     by = {c["case"]: c for c in cases}
-    launches = main_path["launches"]
     kernels = []
-    for name, case, src, replaces in (
+    for name, case, src, replaces, launches in (
             ("kv_append_chunk", "kv_append C=16",
              "src/repro_torch/kernels/csrc/kv_append.cu",
-             "src/repro/kernels/kv_append/kernel.py:38"),
+             "src/repro/kernels/kv_append/kernel.py:38",
+             main_path["launches"]),
             ("paged_attention_chunk", "attention C=16",
              "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention/kernel.py:96")):
+             "src/repro/kernels/paged_attention/kernel.py:96",
+             main_path["launches"]),
+            ("flash_attention", "flash S=4096 causal",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:92",
+             train["launches"])):
         c = by[case]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],

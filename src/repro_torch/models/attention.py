@@ -1,18 +1,21 @@
-"""GQA attention on the serve path (port of ``repro/models/attention.py``).
+"""GQA attention (port of ``repro/models/attention.py``).
 
-``gqa_serve`` is the chunked serve step over the paged KV pool: up to C
-tokens per sequence appended (``kernels.kv_append_chunk``) and attended
+``gqa_train`` is the full-sequence forward of training and bulk logits,
+through ``kernels.attention`` (the flash kernel).  ``gqa_serve`` is the
+chunked serve step over the paged KV pool: up to C tokens per sequence
+appended (``kernels.kv_append_chunk``) and attended
 (``kernels.paged_attention_chunk``) in one fixed-shape call; decode is the
 C=1 slice.  The pools are updated IN PLACE (the JAX version returns new
-pools).  MLA waits for its slice (ROADMAP queue 1, item 2.4).
+pools).  MLA and ``gqa_cross`` wait for their slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels import attention as attention_op
 from ..kernels import kv_append_chunk, paged_attention_chunk
 from .config import ModelConfig
 from .spec import ParamSpec
@@ -86,6 +89,28 @@ def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, window: Optional[int] = None,
+              causal: bool = True, use_rope: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              return_kv: bool = False, impl: Optional[str] = None):
+    """Full-sequence attention.  ``kv_override`` supplies external K/V
+    (cross-attention).  Returns (out, (k, v) if return_kv)."""
+    q, k, v = _qkv(p, cfg, x, positions if use_rope else None, use_rope)
+    if kv_override is not None:
+        k, v = kv_override
+        causal = False
+    out = attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=causal, window=window,
+                       softcap=cfg.attn_logit_softcap, impl=impl)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = out @ p["wo"].to(cfg.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 def paged_chunk_ids(page_table: torch.Tensor, lengths: torch.Tensor,

@@ -1,7 +1,9 @@
-"""Decoder blocks on the serve path (port of ``repro/models/blocks.py``).
+"""Decoder blocks (port of ``repro/models/blocks.py``).
 
-This slice ports the ``"attn"`` kind with GQA and a dense MLP: pre-norm
-residual, cache = (pool_k, pool_v) paged pools.  MLA, MoE and the
+The port has the ``"attn"`` kind with GQA and a dense MLP, pre-norm
+residual: ``block_train`` for the full-sequence forward and
+``block_serve`` for the chunked serve step (cache = (pool_k, pool_v)
+paged pools).  MLA, MoE and the
 recurrent kinds raise ``NotImplementedError`` until their slices land
 (ROADMAP queue 1, item 2).
 """
@@ -12,7 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .attention import gqa_init, gqa_serve
+from .attention import gqa_init, gqa_serve, gqa_train
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -33,6 +35,18 @@ def block_init(cfg: ModelConfig, kind: str) -> Dict:
     _check_kind(cfg, kind)
     return {"norm1": norm_init(cfg), "norm2": norm_init(cfg),
             "attn": gqa_init(cfg), "mlp": mlp_init(cfg)}
+
+
+def block_train(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                positions: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    _check_kind(cfg, kind)
+    h = norm_apply(p["norm1"], cfg, x)
+    h = gqa_train(p["attn"], cfg, h, positions, window=cfg.attn_window,
+                  use_rope=cfg.rope_theta is not None, impl=impl)
+    x = x + h
+    h = norm_apply(p["norm2"], cfg, x)
+    return x + mlp_apply(p["mlp"], cfg, h)
 
 
 def block_serve(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,

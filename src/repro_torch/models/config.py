@@ -74,7 +74,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16       # activation/compute dtype
     param_dtype: Any = torch.float32
 
-    # remat policy of the reference's train step (no serving effect)
+    # remat policy of the training forward: none | full | dots (lm.py)
     remat: str = "full"
 
     def __post_init__(self) -> None:

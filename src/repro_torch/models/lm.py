@@ -1,22 +1,37 @@
-"""Decoder-only LM on the serve path (port of ``repro/models/lm.py``).
+"""Decoder-only LM (port of ``repro/models/lm.py``): the full-sequence
+forward and loss of training, and the chunked serve step.
 
 Parameters and caches keep the reference's pytree layout: the period
 group's parameters and pools are stacked over layers (``params["group"]
 ["b0_attn"]`` leaves carry a leading layer dim; pools are
 ``[L, P, T, KV, D]``), page 0 of every pool is the null page.  Where JAX
-scans over the stacked layer index, the port runs a Python loop and hands
-each layer ``pool[l]`` views, which the kernels update in place.
+scans over the stacked layer index, the port runs a Python loop: the
+serve step hands each layer ``pool[l]`` views, which the kernels update in
+place; the training forward takes every stacked leaf apart once with
+``unbind(0)``, whose backward stacks the layers' grads in one allocation
+(indexing per layer would make each index's backward a zero-filled grad
+of the whole stacked leaf).
+
+Remat follows ``cfg.remat``: ``"full"`` checkpoints each layer group
+(non-reentrant ``torch.utils.checkpoint``: only its input is kept and the
+forward, flash kernel included, runs again in the backward); ``"dots"``
+keeps the outputs of the plain matrix products (``aten.mm``/``addmm``,
+JAX's ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest;
+``"none"`` keeps everything.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.common import resolve_device
-from .blocks import block_cache_init, block_init, block_serve
+from .blocks import block_cache_init, block_init, block_serve, block_train
 from .config import ModelConfig
 from .layers import norm_apply, norm_init
 from .spec import ParamSpec, tree_map_specs
@@ -69,6 +84,81 @@ def unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"].to(cfg.dtype).T
     return x @ params["lm_head"].to(cfg.dtype)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
+def _unbind(tree: Any, n: int) -> List[Any]:
+    """The ``n`` per-layer subtrees of a stacked parameter subtree."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
+def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+              prefix_embeds: Optional[torch.Tensor] = None, *,
+              impl: Optional[str] = None) -> torch.Tensor:
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix embeddings (VLMs) are not ported "
+                                  "yet (ROADMAP queue 1, item 2.7)")
+    pattern, n_full = _pattern_groups(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+
+    def group_fn(h, *gps):
+        for i, kind in enumerate(pattern):
+            h = block_train(gps[i], cfg, kind, h, positions, impl=impl)
+        return h
+
+    group_fn = _remat(group_fn, cfg.remat)
+    per_layer = [_unbind(params["group"][f"b{i}_{kind}"], n_full)
+                 for i, kind in enumerate(pattern)]
+    for layer in range(n_full):
+        x = group_fn(x, *(p[layer] for p in per_layer))
+    return norm_apply(params["final_norm"], cfg, x)
+
+
+def lm_logits(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+              prefix_embeds: Optional[torch.Tensor] = None, *,
+              impl: Optional[str] = None) -> torch.Tensor:
+    return unembed(params, cfg, lm_hidden(params, cfg, tokens, prefix_embeds,
+                                          impl=impl))
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            targets: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None, *,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Mean next-token cross entropy (float32 logits for stability).  The
+    gold logit is a gather, where the reference uses a masked reduce: the
+    same value, without a second [B, S, V] tensor."""
+    logits = lm_logits(params, cfg, tokens, prefix_embeds,
+                       impl=impl).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def lm_init_caches(cfg: ModelConfig, batch: int, max_seq: int,

@@ -1,5 +1,10 @@
-"""The serve surface of the model API (port of
-``repro/models/registry.py``) for the dense decoder family.
+"""The model API (port of ``repro/models/registry.py``) for the dense
+decoder family: the training surface
+
+    loss(params, batch, impl=None)   -> scalar
+    logits(params, batch, impl=None) -> [B, S, V]
+
+over ``batch = {"tokens", "targets"}``, and the serve surface
 
     serve_step(params, tokens [B, C], caches, n_new [B], impl=None)
         -> (logits [B, C, V], caches)
@@ -24,6 +29,8 @@ from ..core.kvcache import KVGeometry
 class ModelAPI:
     cfg: ModelConfig
     init_specs: Callable[[], Any]
+    loss: Callable[..., Any]              # (params, batch, impl) -> scalar
+    logits: Callable[..., Any]            # (params, batch, impl) -> [B, S, V]
     init_caches: Callable[..., Dict]      # (batch, max_seq, page_tokens, *, device)
     serve_step: Callable[..., Any]        # (params, tokens[B,C], caches, n_new[B], impl)
     kv_geometry: Callable[..., KVGeometry]  # (max_batch, max_seq, page_tokens)
@@ -43,10 +50,14 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 2); only the dense decoder serves in repro_torch")
+            "item 2); only the dense decoder runs in repro_torch")
     return ModelAPI(
         cfg=cfg,
         init_specs=lambda: lm.lm_init(cfg),
+        loss=lambda p, b, impl=None:
+            lm.lm_loss(p, cfg, b["tokens"], b["targets"], impl=impl),
+        logits=lambda p, b, impl=None:
+            lm.lm_logits(p, cfg, b["tokens"], impl=impl),
         init_caches=lambda batch, max_seq, page_tokens=128, *, device="cuda":
             lm.lm_init_caches(cfg, batch, max_seq, page_tokens, device=device),
         serve_step=lambda p, t, c, n, impl=None:

@@ -2,8 +2,10 @@
 over the code paths chip_smoke.py does not reach at the serving shapes:
 float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
-MQA, window and softcap — and the SMOKE model's serve step and greedy
-engine output, kernel path against plain path.
+MQA, window and softcap; the flash kernel over causal, windowed,
+softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
+64, 128 and 256 — and the SMOKE model's serve step, greedy engine output
+and train step, kernel path against plain path.
 
 Needs a card: every test skips without one.  On the card, run
 
@@ -19,11 +21,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import (common, kv_append_chunk,
-                                 paged_attention, paged_attention_chunk)
+from repro_torch.kernels import (attention, attention_fwd, common,
+                                 kv_append_chunk, paged_attention,
+                                 paged_attention_chunk)
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import paged_chunk_ids
 from repro_torch.serve import ServingEngine
+from repro_torch.train import AdamWConfig, make_train_step
+from repro_torch.train.optimizer import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +167,84 @@ def test_smoke_engine_on_card_streams_cpu_tokens(cuda):
         eng.run_until_done()
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KV, D, causal, window, softcap, dtype
+    (2, 256, 256, 4, 2, 64, True, None, None, "bfloat16"),
+    (1, 384, 384, 12, 2, 128, True, None, None, "bfloat16"),
+    (1, 256, 256, 4, 1, 256, True, None, None, "bfloat16"),
+    (1, 512, 512, 4, 2, 128, True, 100, None, "bfloat16"),     # window
+    (1, 256, 256, 4, 2, 128, True, None, 30.0, "bfloat16"),    # softcap
+    (2, 100, 300, 4, 2, 64, False, None, None, "bfloat16"),    # non-causal
+    (1, 1000, 1000, 4, 2, 128, True, None, None, "bfloat16"),  # ragged S
+    (1, 77, 77, 2, 1, 12, True, 16, None, "bfloat16"),         # D=12
+    (2, 256, 256, 4, 2, 64, True, None, None, "float32"),
+    (1, 200, 200, 4, 2, 128, True, 64, 20.0, "float32"),
+    (1, 130, 70, 2, 2, 256, False, None, None, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,softcap,dtype",
+                         FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal,
+                                    window, softcap, dtype):
+    rng = np.random.default_rng(Sq * 7 + D)
+    q = randn(rng, (B, Sq, H, D), dtype, cuda)
+    k = randn(rng, (B, Sk, KV, D), dtype, cuda)
+    v = randn(rng, (B, Sk, KV, D), dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    common.reset_launch_counts()
+    out, lse = attention_fwd(q, k, v, **kw)
+    ref, ref_lse = attention_fwd(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == 1
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        attention(q, q, q, q_offset=4)
+    with pytest.raises(NotImplementedError):
+        attention(q, q, q, lengths=torch.ones(1, dtype=torch.int32,
+                                              device=cuda))
+    big = torch.zeros(1, 8, 2, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # D > 256
+        attention(big, big, big)
+    with pytest.raises(ValueError):                  # CPU tensor, kernel asked
+        attention(q.cpu(), q.cpu(), q.cpu(), impl="cuda")
+    with pytest.raises(TypeError):                   # fp16 is not taken
+        attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype=DTYPES[dtype])
+    api = build_model(cfg)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65))
+                           .astype(np.int32)).to(cuda)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    out = {}
+    for impl in (None, "ref"):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = init_params(api.init_specs(), gen, device=cuda)
+        step, init_state = make_train_step(
+            api, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+            microbatches=2, impl=impl)
+        state = init_state(params, device=cuda)
+        common.reset_launch_counts()
+        state, metrics = step(state, batch)
+        out[impl] = (float(metrics["loss"]), state["params"],
+                     common.LAUNCHES["flash_attention"])
+    # two microbatches, each layer's forward run again by remat "full"
+    assert out[None][2] == 2 * 2 * cfg.n_layers and out["ref"][2] == 0
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert out[None][0] == pytest.approx(out["ref"][0], rel=tol)
+    for a, b in zip(leaves(out[None][1]), leaves(out["ref"][1])):
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-2)

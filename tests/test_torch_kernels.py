@@ -222,7 +222,8 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
                              torch.tensor([0], dtype=torch.int32))
     assert pool[1, :2].eq(1).all()
     assert common.LAUNCHES == {"kv_append_chunk": 0,
-                               "paged_attention_chunk": 0}
+                               "paged_attention_chunk": 0,
+                               "flash_attention": 0}
 
 
 def test_cuda_device_request_without_card_raises():
@@ -238,7 +239,9 @@ def test_kernel_sources_carry_their_notes():
     card and what its design does about it; the build keys on them."""
     for name, tpu in (("kv_append.cu", "kv_append/kernel.py::kv_append_chunk"),
                       ("paged_attention.cu",
-                       "paged_attention/kernel.py::")):
+                       "paged_attention/kernel.py::"),
+                      ("flash_attention.cu",
+                       "flash_attention/kernel.py::flash_attention")):
         text = (common.CSRC / name).read_text()
         assert tpu in text
         assert "What bounds it on this card" in text
