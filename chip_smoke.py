@@ -27,7 +27,21 @@ sm_90a) and then, failing with a non-zero exit on any error:
      checks finite losses and 2 x 28 x 4 flash launches per step (each
      layer's forward runs again in the backward); profiles one step;
   5. takes the loss and every grad of one microbatch twice from the same
-     parameters, through the kernel and through the plain version.
+     parameters, through the kernel and through the plain version;
+  6. trains mamba2-1.3b at full width and depth (48 layers, d_model 2048,
+     64 SSD heads of 64, state 128, chunk 256) the same way: 4 AdamW steps
+     of 4 microbatches of one 4096-token sequence, remat "full", checking
+     finite losses and 2 x 48 x 4 = 384 ``ssd_chunk`` launches per step
+     (phase 1 holds that kernel against its plain version at the path's
+     shape, B'=16 chunks, L=256, H=64, P=64, N=128, float32, plus a bf16,
+     a ragged L=100, H=6 case and the op's gradients); profiles one step;
+  7. takes one mamba2 microbatch's loss and grads through the kernel and
+     through the plain version, as phase 5;
+  8. serves the same 8 requests as phase 2 with mamba2-1.3b at full width
+     (the recurrent serve path runs no kernel: it checks that none
+     launched) and profiles a prefill and a decode window.
+
+Every phase runs its model at full depth.
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -74,6 +88,17 @@ TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 4, 4
 LOSS_TOL = 1e-3                  # phase 5 |loss_kernel - loss_plain|
 GNORM_TOL = 1e-5                 # phase 5 relative global grad-norm gap
 LEAF_TOL = 5e-2                  # phase 5 per-leaf relative grad error
+# ssd_chunk at the mamba2 training path's shape: one 4096-token sequence in
+# chunks of 256 (B' = 16), 64 heads of 64, state 128
+SSD_PATH = dict(Bp=16, L=256, H=64, P=64, N=128)
+# ssd_chunk out: (atol as a share of the output's largest magnitude, rtol).
+# float32: kernel and plain version differ at most in summation order (on
+# the H100 they agree bit for bit: the plain version's float32 cuBLAS
+# products sum each output in k order with FMAs, as the kernel does);
+# bf16: both round float32 sums that agree to ~1e-6, so they differ by at
+# most one bf16 ulp (2^-7 relative at the bottom of a binade: rtol 1.6e-2)
+SSD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 1.6e-2)}
+SSD_GRAD_TOL = (1e-5, 1e-4)      # both backwards plain float32, other order
 
 
 def log(*a) -> None:
@@ -152,6 +177,16 @@ def timings(**fns) -> dict:
     return out
 
 
+def bound(nbytes: int, flops: int, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over ``peak``."""
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_f = flops / peak * 1e3
+    return {"bound_ms": max(bound_b, bound_f),
+            "bound_by": "bytes" if bound_b >= bound_f else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def page_table(rng: np.random.Generator, idle=()) -> torch.Tensor:
     """Distinct random pages per slot (never the null page 0); idle slots
     get an all-zero row, as the engine leaves them."""
@@ -199,8 +234,7 @@ def kv_append_case(rng, C: int, name: str) -> dict:
         library_ms=lambda: work.index_put_((pl, sl), new))
     nbytes = 2 * new.numel() * new.element_size() + 2 * pids.numel() * 4
     return {"case": name, "C": C, "max_abs_err": err, **t,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes, "flops": 0}
+            **bound(nbytes, 0, BF16_FLOPS)}
 
 
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
@@ -263,12 +297,8 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     if window is not None:
         visible = np.minimum(visible, window)
     flops = int(4 * H * D * visible.sum())
-    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_f = flops / BF16_FLOPS * 1e3
     return {"case": name, "C": C, "max_abs_err": err, **t,
-            "bound_ms": max(bound_b, bound_f),
-            "bound_by": "bytes" if bound_b >= bound_f else "operations",
-            "bytes": nbytes, "flops": flops}
+            **bound(nbytes, flops, BF16_FLOPS)}
 
 
 def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -323,16 +353,11 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
     flops = 4 * H * D * visible_keys(S, S, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + lse.numel() * 4
-    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_f = flops / (BF16_FLOPS if dtype == torch.bfloat16
-                       else FP32_FLOPS) * 1e3
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     return {"case": name, "S": S, "D": D, "dtype": str(dtype),
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
-            **t,
-            "bound_ms": max(bound_b, bound_f),
-            "bound_by": "bytes" if bound_b >= bound_f else "operations",
-            "bytes": nbytes, "flops": flops}
+            **t, **bound(nbytes, flops, peak)}
 
 
 def flash_backward_times(rng) -> dict:
@@ -359,12 +384,102 @@ def flash_backward_times(rng) -> dict:
             "flops": flops}
 
 
+def ssd_inputs(rng, Bp, L, H, P, N, dtype):
+    """tests/test_kernels.py's inputs: dt = 0.1 |n|, A = -0.5 |n|,
+    cs = cumsum(dt * A) along the chunk (dt and cs float32)."""
+    dt = torch.from_numpy((np.abs(rng.standard_normal((Bp, L, H))) * 0.1)
+                          .astype(np.float32)).cuda()
+    A = torch.from_numpy((-np.abs(rng.standard_normal(H)) * 0.5)
+                         .astype(np.float32)).cuda()
+    return (randn(rng, Bp, L, H, P, dtype=dtype), dt,
+            torch.cumsum(dt * A, dim=1).contiguous(),
+            randn(rng, Bp, L, N, dtype=dtype), randn(rng, Bp, L, N,
+                                                    dtype=dtype))
+
+
+def ssd_work(Bp, L, H, P, N, esz, backward=False):
+    """(bytes, FLOP) this call's data needs: each input read once, each
+    output written once; the causal pairs j <= i times the scores (2N)
+    and the per-head contraction (2HP).  The backward adds dx and the
+    dy.x products (4HP) and dS, dB, dC (6N), and reads dy and writes the
+    five grads."""
+    pairs = Bp * L * (L + 1) // 2
+    xs, hs, ns = Bp * L * H * P * esz, Bp * L * H * 4, Bp * L * N * esz
+    if not backward:                   # x, dt, cs, Bm, Cm in; y out
+        return xs + 2 * hs + 2 * ns + xs, pairs * (2 * N + 2 * H * P)
+    # forward, then x, dt, cs, Bm, Cm and dy in, five grads out
+    return (2 * xs + 2 * hs + 2 * ns + 3 * xs + 4 * hs + 4 * ns,
+            pairs * (8 * N + 6 * H * P))
+
+
+def ssd_case(rng, name: str, *, Bp, L, H, P, N,
+             dtype=torch.float32) -> dict:
+    from repro_torch.kernels import ssd_chunk_fwd
+
+    args = ssd_inputs(rng, Bp, L, H, P, N, dtype)
+    out = ssd_chunk_fwd(*args)
+    ref = ssd_chunk_fwd(*args, impl="ref")
+    torch.cuda.synchronize()
+    scale = float(ref.float().abs().max())
+    atol, rtol = SSD_TOL[dtype]
+    err = float((out.float() - ref.float()).abs().max())
+    if not (torch.allclose(out.float(), ref.float(), atol=atol * scale,
+                           rtol=rtol) and torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: kernel vs plain max |err| {err} of "
+                             f"{scale}")
+    # no single PyTorch call computes this function: library_ms is None
+    t = {"library_ms": None, **timings(
+        ms=lambda: ssd_chunk_fwd(*args),
+        plain_ms=lambda: ssd_chunk_fwd(*args, impl="ref"))}
+    esz = args[0].element_size()
+    return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
+            "dtype": str(dtype), "max_abs_err": err, "out_max_abs": scale,
+            "tolerance": {"atol": f"{atol} x out_max_abs", "rtol": rtol},
+            **t, **bound(*ssd_work(Bp, L, H, P, N, esz), FP32_FLOPS)}
+
+
+def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
+    """The op's five gradients (kernel forward, plain backward) against
+    torch.autograd through the plain forward, and both timed forward +
+    backward."""
+    from repro_torch.kernels import ssd_chunk, ssd_chunk_ref
+
+    args = ssd_inputs(rng, Bp, L, H, P, N, torch.float32)
+    dy = randn(rng, Bp, L, H, P, dtype=torch.float32)
+
+    def grads(fn):
+        req = [a.detach().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*req), req, dy)
+
+    got, want = grads(ssd_chunk), grads(ssd_chunk_ref)
+    torch.cuda.synchronize()
+    atol, rtol = SSD_GRAD_TOL
+    errs = {}
+    for key, a, b in zip(("x", "dt", "dA_cs", "Bm", "Cm"), got, want):
+        scale = float(b.abs().max())
+        errs[key] = float((a - b).abs().max())
+        if not (torch.allclose(a, b, atol=atol * scale, rtol=rtol)
+                and torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: d{key} max |err| {errs[key]} of "
+                                 f"{scale}")
+    t = {"library_ms": None, **timings(ms=lambda: grads(ssd_chunk),
+                                       plain_ms=lambda: grads(ssd_chunk_ref))}
+    return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
+            "max_abs_err": max(errs.values()),
+            "grad_max_abs_err": errs,
+            "tolerance": {"atol": f"{atol} x grad_max_abs", "rtol": rtol},
+            **t, **bound(*ssd_work(Bp, L, H, P, N, 4, backward=True),
+                         FP32_FLOPS)}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path at full width
 # ---------------------------------------------------------------------------
 
 
-def serve_main_path(api, params, cfg) -> dict:
+def serve_main_path(api, params, cfg, per_layer_step: dict) -> dict:
+    """``per_layer_step``: each kernel's launches per layer and serve step
+    (every other kernel must not launch)."""
     from repro_torch.core import OP_KV_COMMIT, Mode, OpLog, PMDevice
     from repro_torch.kernels import common
     from repro_torch.serve import ServeClient
@@ -400,8 +515,8 @@ def serve_main_path(api, params, cfg) -> dict:
     for r, _ in reqs:
         assert r.done and not r.truncated and len(r.output) == 32, r
         assert all(0 <= t < cfg.vocab for t in r.output)
-    assert launches["kv_append_chunk"] == 2 * L * steps, (launches, steps)
-    assert launches["paged_attention_chunk"] == L * steps, (launches, steps)
+    for name, n in launches.items():
+        assert n == per_layer_step.get(name, 0) * L * steps, (launches, steps)
     strict_pages = sum((len(r.prompt) + 32 - 1) // T for r, s in reqs if s)
     commits = [e for e in oplog.scan() if e.op == OP_KV_COMMIT]
     assert len(commits) == strict_pages, (len(commits), strict_pages)
@@ -471,7 +586,7 @@ def profiled_window(step, n_steps: int, ours) -> dict:
             "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
 
 
-def profile_windows(api, params, cfg) -> dict:
+def profile_windows(api, params, cfg, ours=()) -> dict:
     """Where a serve step's time goes: a CUPTI trace over two all-prefill
     steps and over four decode-only steps of 8 fresh requests."""
     from repro_torch.serve import ServeClient
@@ -486,8 +601,7 @@ def profile_windows(api, params, cfg) -> dict:
     eng.step()
 
     def window(n_steps: int) -> dict:
-        return profiled_window(eng.step, n_steps,
-                               ("kv_append_kernel", "paged_attention_kernel"))
+        return profiled_window(eng.step, n_steps, ours)
 
     out = {"prefill": window(2)}
     while any(r.in_prefill for r in eng.active.values()):
@@ -556,7 +670,9 @@ def path_vs_plain(api, params, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_main_path(api, cfg) -> dict:
+def train_main_path(api, cfg, kernel: str) -> dict:
+    """``kernel``: the wrapper whose launches the step must show, one per
+    layer and microbatch in the forward and one in the remat recompute."""
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, LoopConfig, run_training
@@ -575,18 +691,23 @@ def train_main_path(api, cfg) -> dict:
     per_step = 2 * cfg.n_layers * TRAIN_MB      # forward + remat recompute
     assert res.steps_run == TRAIN_STEPS and all(map(math.isfinite,
                                                     res.losses)), res
-    # random init: logits of std ~0.78 over the vocabulary, so the first
-    # loss is about ln(V) + 0.3
-    expect0 = math.log(cfg.vocab) + 0.3
+    # random init: unit-RMS final norm times the tied N(0, 0.02^2)
+    # embedding gives logits of std sigma = 0.02 sqrt(d_model), so the first
+    # loss is about ln(V) + sigma^2 / 2 (0.31 for qwen2, 0.41 for mamba2)
+    offset = 0.02 ** 2 * cfg.d_model / 2
+    expect0 = math.log(cfg.vocab) + offset
     assert abs(res.losses[0] - expect0) < 0.5, (res.losses, expect0)
-    assert launches["flash_attention"] == per_step * TRAIN_STEPS, launches
+    assert launches[kernel] == per_step * TRAIN_STEPS, launches
     step_s = statistics.median(res.step_seconds[1:])
     tokens = TRAIN_BATCH * TRAIN_S
     return {"losses": res.losses, "step_seconds": res.step_seconds,
             "step_s_median_2_4": step_s, "tokens_per_step": tokens,
             "tokens_per_s": tokens / step_s, "launches": launches,
-            "flash_launches_per_step": launches["flash_attention"]
-            // TRAIN_STEPS, "expected_per_step": per_step,
+            "kernel": kernel,
+            "launches_per_step": launches[kernel] // TRAIN_STEPS,
+            "expected_per_step": per_step,
+            "first_loss_expected": expect0,
+            "first_loss_offset_measured": res.losses[0] - math.log(cfg.vocab),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -603,8 +724,9 @@ def fresh_params(api):
     return init_params(api.init_specs(), gen, device="cuda")
 
 
-def train_profile(api, cfg) -> dict:
-    """One warm train step, then a CUPTI window over the next."""
+def train_profile(api, cfg, kernel: str, trace_name: str) -> dict:
+    """One warm train step, then a CUPTI window over the next
+    (``trace_name``: the kernel function's name in the trace)."""
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, make_train_step
 
@@ -620,9 +742,9 @@ def train_profile(api, cfg) -> dict:
 
     one()
     common.reset_launch_counts()
-    out = profiled_window(one, 1, ("flash_tc_kernel",))
-    assert common.LAUNCHES["flash_attention"] == \
-        2 * cfg.n_layers * TRAIN_MB, common.LAUNCHES
+    out = profiled_window(one, 1, (trace_name,))
+    assert common.LAUNCHES[kernel] == 2 * cfg.n_layers * TRAIN_MB, \
+        common.LAUNCHES
     return out
 
 
@@ -656,6 +778,12 @@ def train_path_vs_plain(api, cfg) -> dict:
             GNORM_TOL or res["leaf_rel_err_max"] > LEAF_TOL):
         raise AssertionError(f"training kernel path vs plain path: {res}")
     return res
+
+
+def release() -> None:
+    """Return the memory of a finished phase to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -704,6 +832,12 @@ def main() -> int:
         flash_case(rng, "flash S=1000 ragged", 1000),
         flash_case(rng, "flash S=512 D=64 float32", 512,
                    dtype=torch.float32, D=64),
+        ssd_case(rng, "ssd path B'=16 L=256 H=64 float32", **SSD_PATH),
+        ssd_case(rng, "ssd path B'=16 L=256 H=64 bf16", **SSD_PATH,
+                 dtype=torch.bfloat16),
+        ssd_case(rng, "ssd ragged L=100 H=6", Bp=4, L=100, H=6, P=64,
+                 N=128),
+        ssd_grad_case(rng, "ssd grads path shape", **SSD_PATH),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -715,27 +849,49 @@ def main() -> int:
     params = init_params(api.init_specs(), gen, device="cuda")
     params = cast_params(params, cfg)   # what the engine does at load
     torch.cuda.synchronize()
-    main_path = serve_main_path(api, params, cfg)
+    main_path = serve_main_path(api, params, cfg, {
+        "kv_append_chunk": 2, "paged_attention_chunk": 1})
     log("phase2", json.dumps(main_path))
     log("phase2 logits_d2h", json.dumps(logits_d2h_ms(cfg)))
-    log("phase2 profile", json.dumps(profile_windows(api, params, cfg)))
+    log("phase2 profile", json.dumps(profile_windows(
+        api, params, cfg, ("kv_append_kernel", "paged_attention_kernel"))))
     log("phase2 peak_mem_gb",
         round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
     path = path_vs_plain(api, params, cfg)
     log("phase3", json.dumps(path))
     del params                       # the serving phases' weights
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
-    train = train_main_path(api, cfg)
+    train = train_main_path(api, cfg, "flash_attention")
     log("phase4", json.dumps(train))
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("phase4 profile", json.dumps(train_profile(api, cfg)))
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+    log("phase4 profile", json.dumps(train_profile(
+        api, cfg, "flash_attention", "flash_tc_kernel")))
+    release()
     log("phase5", json.dumps(train_path_vs_plain(api, cfg)))
+    release()
+
+    cfg = get_config("mamba2-1.3b")
+    api = build_model(cfg)
+    ssm_train = train_main_path(api, cfg, "ssd_chunk")
+    log("phase6", json.dumps(ssm_train))
+    release()
+    log("phase6 profile", json.dumps(train_profile(
+        api, cfg, "ssd_chunk", "ssd_chunk_kernel")))
+    release()
+    log("phase7", json.dumps(train_path_vs_plain(api, cfg)))
+    release()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = cast_params(init_params(api.init_specs(), gen, device="cuda"),
+                         cfg)
+    torch.cuda.reset_peak_memory_stats()
+    log("phase8", json.dumps(serve_main_path(api, params, cfg, {})))
+    log("phase8 profile", json.dumps(profile_windows(api, params, cfg)))
+    log("phase8 peak_mem_gb",
+        round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    del params
+    release()
 
     by = {c["case"]: c for c in cases}
     kernels = []
@@ -751,7 +907,11 @@ def main() -> int:
             ("flash_attention", "flash S=4096 causal",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:92",
-             train["launches"])):
+             train["launches"]),
+            ("ssd_chunk", "ssd path B'=16 L=256 H=64 float32",
+             "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssd_chunk/kernel.py:50",
+             ssm_train["launches"])):
         c = by[case]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],

@@ -9,10 +9,11 @@ tensors, key for key; ``caches_from_numpy`` does the same for cache trees
 ``to_numpy`` goes back, upcasting bfloat16 leaves to float32 (exact).
 
 ``cast_params`` casts every matrix, embedding and bias to ``cfg.dtype``
-once, leaving the norm weights in their stored float32: the model casts
-each parameter to ``cfg.dtype`` at use (``x @ w.to(dt)``) exactly as the
-reference does, so a pre-cast parameter gives the same bits and the
-per-step cast becomes a no-op.
+once, leaving in their stored float32 the leaves the model reads in
+float32: the norm weights and Mamba2's ``A_log``, ``D_skip`` and
+``dt_bias``.  The model casts every other parameter to ``cfg.dtype`` at
+use (``x @ w.to(dt)``) exactly as the reference does, so a pre-cast
+parameter gives the same bits and the per-step cast becomes a no-op.
 """
 
 from __future__ import annotations
@@ -63,10 +64,16 @@ def to_numpy(tree: Any) -> Any:
     return _map(tree, one)
 
 
+# leaves the model reads in float32 (``models/ssm.py``), besides norms
+FLOAT32_KEYS = frozenset({"A_log", "D_skip", "dt_bias"})
+
+
 def cast_params(params: Any, cfg: ModelConfig) -> Any:
-    """Every non-norm leaf in ``cfg.dtype``; norm subtrees untouched."""
-    def walk(node: Any, in_norm: bool) -> Any:
+    """Every leaf in ``cfg.dtype`` but the norm subtrees and
+    ``FLOAT32_KEYS``, which are left untouched."""
+    def walk(node: Any, keep: bool) -> Any:
         if isinstance(node, dict):
-            return {k: walk(v, in_norm or "norm" in k) for k, v in node.items()}
-        return node if in_norm else node.to(cfg.dtype)
+            return {k: walk(v, keep or "norm" in k or k in FLOAT32_KEYS)
+                    for k, v in node.items()}
+        return node if keep else node.to(cfg.dtype)
     return walk(params, False)

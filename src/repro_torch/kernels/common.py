@@ -38,7 +38,7 @@ IMPLS = ("ref", "cuda")
 
 # launches per kernel wrapper; bumped only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"kv_append_chunk": 0, "paged_attention_chunk": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0, "ssd_chunk": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -211,5 +211,8 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, i32, vp]
         lib.repro_flash_attention.restype = i32
+        lib.repro_ssd_chunk.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+        lib.repro_ssd_chunk.restype = i32
         _LIB = lib
     return _LIB

@@ -1,4 +1,5 @@
-"""Norms and dense MLP variants (port of ``repro/models/layers.py``).
+"""Norms, Mamba2's gated RMSNorm and dense MLP variants (port of
+``repro/models/layers.py``).
 
 Norms compute in float32 and cast back to ``cfg.dtype``; parameters are
 cast to ``cfg.dtype`` at each use (``x @ w.to(dt)``), as the reference
@@ -41,6 +42,14 @@ def norm_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         var = (xf ** 2).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(var + 1e-6) * p["w"].float()
     return out.to(cfg.dtype)
+
+
+def rmsnorm_gated(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(gate)) * w, in float32."""
+    xf = (x * F.silu(gate.float())).float()
+    var = (xf ** 2).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * w.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,20 @@
 forward and loss of training, and the chunked serve step.
 
 Parameters and caches keep the reference's pytree layout: the period
-group's parameters and pools are stacked over layers (``params["group"]
+group's parameters and caches are stacked over layers (``params["group"]
 ["b0_attn"]`` leaves carry a leading layer dim; pools are
-``[L, P, T, KV, D]``), page 0 of every pool is the null page.  Where JAX
-scans over the stacked layer index, the port runs a Python loop: the
-serve step hands each layer ``pool[l]`` views, which the kernels update in
-place; the training forward takes every stacked leaf apart once with
-``unbind(0)``, whose backward stacks the layers' grads in one allocation
+``[L, P, T, KV, D]``, SSM state ``{"conv", "ssd"}`` is ``[L, B, ...]``),
+page 0 of every pool is the null page.  Where JAX scans over the stacked
+layer index, the port runs a Python loop: the serve step hands each layer
+``cache[l]`` views, which it updates in place; the training forward takes
+every stacked leaf apart once with ``unbind(0)``, whose backward stacks
+the layers' grads in one allocation
 (indexing per layer would make each index's backward a zero-filled grad
 of the whole stacked leaf).
 
 Remat follows ``cfg.remat``: ``"full"`` checkpoints each layer group
 (non-reentrant ``torch.utils.checkpoint``: only its input is kept and the
-forward, flash kernel included, runs again in the backward); ``"dots"``
+forward, kernels included, runs again in the backward); ``"dots"``
 keeps the outputs of the plain matrix products (``aten.mm``/``addmm``,
 JAX's ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest;
 ``"none"`` keeps everything.
@@ -191,10 +192,12 @@ def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions run lengths[b] .. lengths[b]+C-1.  Returns
     (logits [B, C, V], caches with lengths + n_new).
 
-    Unlike the pure JAX step, which donates the pools and returns new
-    ones, this step MUTATES the stacked ``[L, P, T, KV, D]`` pools of
-    ``caches`` in place, layer by layer, through ``pool[l]`` views; the
-    returned dict holds the same pool tensors and a new ``lengths``.
+    Unlike the pure JAX step, which donates the caches and returns new
+    ones, this step MUTATES the stacked caches in place, layer by layer:
+    the kernels write the ``[L, P, T, KV, D]`` pools through ``pool[l]``
+    views, and each SSM layer's new state is copied into its
+    ``state[l]`` views; the returned dict holds the same cache tensors
+    and a new ``lengths``.
     ``impl`` picks the kernels' implementation (``None``: by device;
     ``"ref"``: the plain PyTorch versions)."""
     pattern, n_full = _pattern_groups(cfg)
@@ -206,9 +209,12 @@ def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         for i, kind in enumerate(pattern):
             key = f"b{i}_{kind}"
             gp = {k: _index(v, layer) for k, v in params["group"][key].items()}
-            pools = tuple(t[layer] for t in caches["group"][key])
-            x, _ = block_serve(gp, cfg, kind, x, pools, page_table, lengths,
-                               n_new, impl=impl)
+            cache = _index(caches["group"][key], layer)
+            x, out = block_serve(gp, cfg, kind, x, cache, page_table,
+                                 lengths, n_new, impl=impl)
+            if isinstance(cache, dict):         # recurrent state
+                for k, t in out.items():
+                    cache[k].copy_(t)
     x = norm_apply(params["final_norm"], cfg, x)
     new_caches = dict(caches)
     new_caches["lengths"] = lengths + n_new
@@ -216,7 +222,10 @@ def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _index(tree: Any, layer: int) -> Any:
-    """Layer ``layer`` of a stacked parameter subtree (views, no copy)."""
+    """Layer ``layer`` of a stacked parameter or cache subtree (views, no
+    copy)."""
     if isinstance(tree, dict):
         return {k: _index(v, layer) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_index(v, layer) for v in tree)
     return tree[layer]

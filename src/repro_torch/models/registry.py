@@ -1,5 +1,5 @@
 """The model API (port of ``repro/models/registry.py``) for the dense
-decoder family: the training surface
+decoder and the Mamba2 (``ssm``) families: the training surface
 
     loss(params, batch, impl=None)   -> scalar
     logits(params, batch, impl=None) -> [B, S, V]
@@ -11,8 +11,9 @@ over ``batch = {"tokens", "targets"}``, and the serve surface
 
 processes up to C new tokens per sequence per call; decode is the C=1
 slice.  The API owns the KV pool geometry (``kv_geometry``), so the
-engine's controller and the device pools derive from one formula.
-Families other than ``dense`` raise until their slices land.
+engine's controller and the device pools derive from one formula (an SSM
+model keeps the controller's page metadata, as the reference does, but
+no pools).  Other families raise until their slices land.
 """
 
 from __future__ import annotations
@@ -47,10 +48,10 @@ def _kv_geometry(cfg: ModelConfig, max_batch: int, max_seq: int,
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 2); only the dense decoder runs in repro_torch")
+            "item 2); the dense decoder and Mamba2 run in repro_torch")
     return ModelAPI(
         cfg=cfg,
         init_specs=lambda: lm.lm_init(cfg),

@@ -19,9 +19,11 @@ Consistency modes and sampling parameters are per request.  The
 controller is AUTHORITATIVE for the device page table: the engine mirrors
 controller rows into the device tensor before every step.
 
-This slice leaves out the reference engine's prefix cache, host tier,
-speculative decoding, forks, obs instrumentation and cluster hooks; they
-are absent from the signature (ROADMAP queue 1).
+Recurrent (SSM) state is reset for a slot when a request is admitted to
+it, as in the reference.  This slice leaves out the reference engine's
+prefix cache, host tier, speculative decoding, forks (with the slot-state
+gather/scatter/copy they need), obs instrumentation and cluster hooks;
+they are absent from the signature (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ from ..core.modes import Mode
 from ..core.oplog import OpLog
 from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
+
+
+# cache sub-dict keys that hold recurrent/SSM state (vs paged KV pools):
+# the slot-state walk consults this set
+RECURRENT_STATE_KEYS = frozenset({"conv", "h", "ssd"})
 
 
 @dataclass(frozen=True)
@@ -81,8 +88,9 @@ class ServingEngine:
     """One engine: one pool, one fixed-shape step, on ``device``.
 
     ``params`` is the model's parameter tree (tensors); the engine moves
-    it to ``device`` and casts every non-norm leaf to ``cfg.dtype`` once
-    (``convert.cast_params``: the same bits as the model's per-use cast)."""
+    it to ``device`` and casts it to ``cfg.dtype`` once, but for the
+    leaves the model reads in float32 (``convert.cast_params``: the same
+    bits as the model's per-use cast)."""
 
     def __init__(self, api: ModelAPI, params, *, max_batch: int = 8,
                  max_seq: int = 512, page_tokens: int = 16,
@@ -168,6 +176,7 @@ class ServingEngine:
             req.slot = slot
             req.seq_id = self.controller.create_seq(mode=req.mode)
             self._set_device_length(slot, 0)
+            self._zero_slot_state(slot)
             self.active[slot] = req
 
     def step(self) -> None:
@@ -307,12 +316,37 @@ class ServingEngine:
     # ------------------------------------------------------------------ device mirrors
 
     def _pool_leaves(self) -> List[torch.Tensor]:
-        """The stacked [L, P, T, KV, D] pools, in cache-tree order."""
+        """The stacked [L, P, T, KV, D] pools, in cache-tree order (state
+        dicts hold no pages)."""
         out: List[torch.Tensor] = []
         for key in ("group", "tail"):
             for pools in self.caches[key].values():
-                out.extend(pools)
+                if not isinstance(pools, dict):
+                    out.extend(pools)
         return out
+
+    def _walk_state(self, fn) -> None:
+        """Apply ``fn(leaf, batch_dim)`` to every recurrent/SSM state leaf
+        (cache sub-dicts keyed conv/h/ssd; stacked group leaves carry a
+        leading layer dim)."""
+        def visit(node, batch_dim):
+            if isinstance(node, dict):
+                if node and set(node) <= RECURRENT_STATE_KEYS:
+                    for leaf in node.values():
+                        fn(leaf, batch_dim)
+                else:
+                    for v in node.values():
+                        visit(v, batch_dim)
+
+        for key, batch_dim in (("group", 1), ("tail", 0)):
+            visit(self.caches.get(key, {}), batch_dim)
+
+    def _zero_slot_state(self, slot: int) -> None:
+        """A freshly admitted slot must not inherit the previous occupant's
+        recurrent state (pools need no reset: the extent walk only reads
+        published positions).  Zeroes the slot in place."""
+        self._walk_state(
+            lambda leaf, batch_dim: leaf.select(batch_dim, slot).zero_())
 
     def _sync_page_table(self) -> None:
         """Mirror the controller's extent maps into the device page table.

@@ -4,8 +4,10 @@ float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
 MQA, window and softcap; the flash kernel over causal, windowed,
 softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
-64, 128 and 256 — and the SMOKE model's serve step, greedy engine output
-and train step, kernel path against plain path.
+64, 128 and 256; the ssd_chunk kernel over float32 and bf16 with ragged
+L, H, P and N, and its autograd Function's gradients — and the SMOKE
+models' serve step, greedy engine output and train step (qwen2 and
+mamba2), kernel path against plain path.
 
 Needs a card: every test skips without one.  On the card, run
 
@@ -23,7 +25,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (attention, attention_fwd, common,
                                  kv_append_chunk, paged_attention,
-                                 paged_attention_chunk)
+                                 paged_attention_chunk, ssd_chunk,
+                                 ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import paged_chunk_ids
 from repro_torch.serve import ServingEngine
@@ -248,3 +251,121 @@ def test_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
     assert out[None][0] == pytest.approx(out["ref"][0], rel=tol)
     for a, b in zip(leaves(out[None][1]), leaves(out["ref"][1])):
         torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-2)
+
+
+SSD_CASES = [
+    # B', L, H, P, N, dtype
+    (2, 256, 8, 64, 128, "float32"),     # the path's per-chunk shape
+    (2, 32, 8, 16, 16, "float32"),       # tests/test_kernels.py's shapes
+    (1, 64, 4, 32, 8, "float32"),
+    (2, 16, 2, 8, 4, "bfloat16"),
+    (1, 100, 6, 64, 128, "float32"),     # ragged L, H not a multiple of 4
+    (1, 100, 6, 64, 128, "bfloat16"),
+    (1, 70, 3, 130, 257, "float32"),     # P > 64 (two column tiles), N > 256
+]
+
+
+def ssd_inputs(rng, Bp, L, H, P, N, dtype, dev):
+    dt = torch.from_numpy((np.abs(rng.standard_normal((Bp, L, H))) * 0.1)
+                          .astype(np.float32)).to(dev)
+    A = torch.from_numpy(-np.abs(rng.standard_normal(H)).astype(np.float32)
+                         * 0.5).to(dev)
+    return (randn(rng, (Bp, L, H, P), dtype, dev), dt,
+            torch.cumsum(dt * A, dim=1).contiguous(),
+            randn(rng, (Bp, L, N), dtype, dev),
+            randn(rng, (Bp, L, N), dtype, dev))
+
+
+@pytest.mark.parametrize("Bp,L,H,P,N,dtype", SSD_CASES)
+def test_ssd_chunk_kernel_matches_plain(cuda, Bp, L, H, P, N, dtype):
+    """float32: summation order only (2e-5 of the output's scale).  bf16:
+    kernel and plain version round float32 sums that agree to ~1e-6, so
+    they differ by at most one bf16 ulp (rtol 1.6e-2)."""
+    rng = np.random.default_rng(L * 7 + H)
+    args = ssd_inputs(rng, Bp, L, H, P, N, dtype, cuda)
+    common.reset_launch_counts()
+    out = ssd_chunk_fwd(*args)
+    ref = ssd_chunk_fwd(*args, impl="ref")
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["ssd_chunk"] == 1
+    assert out.dtype == args[0].dtype and torch.isfinite(out).all()
+    scale = float(ref.float().abs().max())
+    tol = (2e-5 * scale, 2e-5) if dtype == "float32" else (4e-3, 1.6e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+def test_ssd_chunk_function_grads_match_autograd_of_plain(cuda):
+    rng = np.random.default_rng(3)
+    args = ssd_inputs(rng, 2, 100, 6, 16, 24, "float32", cuda)
+    dy = randn(rng, (2, 100, 6, 16), "float32", cuda)
+    a = [t.clone().requires_grad_() for t in args]
+    b = [t.clone().requires_grad_() for t in args]
+    common.reset_launch_counts()
+    ga = torch.autograd.grad(ssd_chunk(*a), a, dy)
+    gb = torch.autograd.grad(ssd_chunk_ref(*b), b, dy)
+    assert common.LAUNCHES["ssd_chunk"] == 1
+    for x, y in zip(ga, gb):
+        scale = float(y.abs().max())
+        torch.testing.assert_close(x, y, atol=1e-5 * scale, rtol=1e-4)
+
+
+def test_ssd_chunk_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    rng = np.random.default_rng(0)
+    x, dt, cs, Bm, Cm = ssd_inputs(rng, 1, 8, 2, 4, 4, "float32", cuda)
+    with pytest.raises(TypeError):                   # dt must be float32
+        ssd_chunk_fwd(x, dt.bfloat16(), cs, Bm, Cm)
+    with pytest.raises(TypeError):                   # x, Bm, Cm: one dtype
+        ssd_chunk_fwd(x, dt, cs, Bm.bfloat16(), Cm)
+    with pytest.raises(ValueError):                  # shapes
+        ssd_chunk_fwd(x, dt[:, :4].contiguous(), cs, Bm, Cm)
+    with pytest.raises(ValueError):                  # non-contiguous
+        ssd_chunk_fwd(x.transpose(1, 2), dt, cs, Bm, Cm)
+    with pytest.raises(ValueError):                  # CPU tensor, kernel asked
+        ssd_chunk_fwd(*(t.cpu() for t in (x, dt, cs, Bm, Cm)), impl="cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                              dtype=DTYPES[dtype])
+    api = build_model(cfg)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65))
+                           .astype(np.int32)).to(cuda)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    out = {}
+    for impl in (None, "ref"):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = init_params(api.init_specs(), gen, device=cuda)
+        step, init_state = make_train_step(
+            api, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+            microbatches=2, impl=impl)
+        state = init_state(params, device=cuda)
+        common.reset_launch_counts()
+        state, metrics = step(state, batch)
+        out[impl] = (float(metrics["loss"]), state["params"],
+                     common.LAUNCHES["ssd_chunk"])
+    # two microbatches, each layer's forward run again by remat "full"
+    assert out[None][2] == 2 * 2 * cfg.n_layers and out["ref"][2] == 0
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert out[None][0] == pytest.approx(out["ref"][0], rel=tol)
+    for a, b in zip(leaves(out[None][1]), leaves(out["ref"][1])):
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=2e-2)
+
+
+def test_mamba2_smoke_engine_on_card_streams_cpu_tokens(cuda):
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(api.init_specs(), gen, device=cuda)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServingEngine(api, params, max_batch=2, max_seq=64,
+                            page_tokens=8, device=dev)
+        reqs = [eng.submit([5, 6, 7, 8, 9, 10, 11, 12, 13], 6),
+                eng.submit([3, 4, 5], 6), eng.submit([7, 7, 7, 7], 5)]
+        eng.run_until_done()
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

@@ -223,7 +223,7 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
     assert pool[1, :2].eq(1).all()
     assert common.LAUNCHES == {"kv_append_chunk": 0,
                                "paged_attention_chunk": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "ssd_chunk": 0}
 
 
 def test_cuda_device_request_without_card_raises():
@@ -241,7 +241,8 @@ def test_kernel_sources_carry_their_notes():
                       ("paged_attention.cu",
                        "paged_attention/kernel.py::"),
                       ("flash_attention.cu",
-                       "flash_attention/kernel.py::flash_attention")):
+                       "flash_attention/kernel.py::flash_attention"),
+                      ("ssd_chunk.cu", "ssd_chunk/kernel.py::ssd_chunk")):
         text = (common.CSRC / name).read_text()
         assert tpu in text
         assert "What bounds it on this card" in text

@@ -79,7 +79,7 @@ def test_config_fields_equal_reference(which):
 
 def test_unported_archs_raise_with_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2-1.3b")
+        get_config("whisper-large-v3")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
                                         family="moe"))
