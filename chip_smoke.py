@@ -9,8 +9,10 @@ sm_90a) and then, failing with a non-zero exit on any error:
 
   1. holds each kernel against its plain PyTorch version on the card at
      the shapes of qwen2-1.5b's paths: the serving kernels at bf16, T=16,
-     B=8, C=16 and C=1, plus a window, a softcap and a page-straddling
-     chunk; the flash kernel at the training shape (B=1, S=4096, H=12,
+     B=8, C=16 and C=1, plus a window, a softcap, a page-straddling chunk,
+     a full table (every sequence at 1008 keys, so every context split
+     holds work) and an idle slot (length 0, an all-zero table row); the
+     flash kernel at the training shape (B=1, S=4096, H=12,
      KV=2, D=128, causal, bf16), with a window, a softcap, non-causal, a
      ragged S=1000 and one float32 case.  It times kernel, plain version
      and one PyTorch library call (a yardstick the port never calls), and
@@ -238,24 +240,33 @@ def kv_append_case(rng, C: int, name: str) -> dict:
 
 
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
-                   straddle=False, table_pages=PAGES_PER_SEQ) -> dict:
+                   straddle=False, table_pages=PAGES_PER_SEQ, full=False,
+                   idle=False) -> dict:
     """``table_pages`` < PAGES_PER_SEQ narrows the page table (a table of
-    at most 64 keys runs the kernel's single-split path)."""
+    at most 64 keys runs the kernel's single-split path); ``full`` puts
+    every sequence at 1008 keys (the table's last entry stays the null
+    page); ``idle`` gives the last slot length 0 and an all-zero row."""
     import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention_chunk
+    from repro_torch.kernels import common, paged_attention_chunk
 
-    pt = page_table(rng)[:, :table_pages].contiguous()
+    pt = page_table(rng, idle=(B - 1,) if idle else ())
+    pt = pt[:, :table_pages].contiguous()
     longest = min(LONGEST, table_pages * T)
     if straddle:   # every chunk starts mid-page and crosses a boundary
         starts = rng.integers(1, (longest - C) // T, B) * T - T // 2
+    elif full:
+        starts = np.full(B, 1008 - C)
     else:
         starts = rng.integers(0, longest - C + 1, B)
+    if idle:
+        starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
     q = randn(rng, B, C, H, D)
     pk = randn(rng, P, T, KV, D)
     pv = randn(rng, P, T, KV, D)
     kw = dict(window=window, softcap=softcap)
     out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
+    splits = common.LAST_SPLITS["paged_attention_chunk"]   # as launched
     out_r = paged_attention_chunk(q, pk, pv, pt, lengths, impl="ref", **kw)
     torch.cuda.synchronize()
     diff = (out_k.float() - out_r.float()).abs()
@@ -284,20 +295,24 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4)
     t = {"library_ms": None, **timings(**fns)}
-    # work this run's data needs: pages each sequence walks, causal keys
+    # work this run's data needs: the keys each sequence's chunk can see,
+    # [max(0, start - window + 1), min(start + C, N*T)), and the page-table
+    # entries that hold them
     st = starts.astype(np.int64)
-    hi = np.minimum(table_pages, -(-(st + C) // T))
-    lo = np.zeros_like(hi) if window is None else \
-        np.maximum(st - window, 0) // T
-    pages = int((hi - lo).sum())
+    k_hi = np.minimum(st + C, table_pages * T)
+    k_lo = np.zeros_like(k_hi) if window is None else \
+        np.maximum(st - window + 1, 0)
+    keys = int((k_hi - k_lo).sum())
+    pages = int((-(-k_hi // T) - k_lo // T).sum())
     esz = q.element_size()
-    nbytes = (pages * T * KV * D * esz * 2 + 2 * q.numel() * esz
+    nbytes = (keys * KV * D * esz * 2 + 2 * q.numel() * esz
               + pages * 4 + B * 4)
     visible = st[:, None] + np.arange(C)[None, :] + 1   # keys per query
     if window is not None:
         visible = np.minimum(visible, window)
     flops = int(4 * H * D * visible.sum())
-    return {"case": name, "C": C, "max_abs_err": err, **t,
+    return {"case": name, "C": C, "splits": splits, "max_abs_err": err,
+            "tolerance": {"atol": ATTN_TOL, "rtol": ATTN_TOL}, **t,
             **bound(nbytes, flops, BF16_FLOPS)}
 
 
@@ -551,11 +566,12 @@ def logits_d2h_ms(cfg) -> dict:
     return out
 
 
-def profiled_window(step, n_steps: int, ours) -> dict:
+def profiled_window(step, n_steps: int, ops) -> dict:
     """A CUPTI trace over ``n_steps`` calls of ``step``.  Wall time is the
     host clock around the window (ending in a synchronize); device busy
     time is the union of kernel/copy intervals; idle share = 1 - busy/wall;
-    ``ours`` names kernels whose time is reported on its own."""
+    ``ops`` maps each of the port's ops to the names of every kernel it
+    launches: the op's device time per step is the sum over them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -577,16 +593,19 @@ def profiled_window(step, n_steps: int, ours) -> dict:
         key = e["name"][:70]
         by_name[key] = by_name.get(key, 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    mine = {k: sum(e["dur"] for e in ev if k in e["name"]) / n_steps / 1e3
-            for k in ours}
+    mine = {op: [e for e in ev if any(k in e["name"] for k in names)]
+            for op, names in ops.items()}
     return {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
             "device_busy_ms_per_step": busy / n_steps / 1e3,
             "idle_share": 1.0 - busy / wall_us if wall_us else None,
-            "kernels_ms_per_step": mine,
+            "ops_ms_per_step": {op: sum(e["dur"] for e in x) / n_steps / 1e3
+                                for op, x in mine.items()},
+            "ops_kernels_per_step": {op: len(x) / n_steps
+                                     for op, x in mine.items()},
             "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
 
 
-def profile_windows(api, params, cfg, ours=()) -> dict:
+def profile_windows(api, params, cfg, ops=None) -> dict:
     """Where a serve step's time goes: a CUPTI trace over two all-prefill
     steps and over four decode-only steps of 8 fresh requests."""
     from repro_torch.serve import ServeClient
@@ -601,7 +620,7 @@ def profile_windows(api, params, cfg, ours=()) -> dict:
     eng.step()
 
     def window(n_steps: int) -> dict:
-        return profiled_window(eng.step, n_steps, ours)
+        return profiled_window(eng.step, n_steps, ops or {})
 
     out = {"prefill": window(2)}
     while any(r.in_prefill for r in eng.active.values()):
@@ -724,9 +743,9 @@ def fresh_params(api):
     return init_params(api.init_specs(), gen, device="cuda")
 
 
-def train_profile(api, cfg, kernel: str, trace_name: str) -> dict:
+def train_profile(api, cfg, kernel: str, trace_names) -> dict:
     """One warm train step, then a CUPTI window over the next
-    (``trace_name``: the kernel function's name in the trace)."""
+    (``trace_names``: the names of the op's kernels in the trace)."""
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, make_train_step
 
@@ -742,7 +761,7 @@ def train_profile(api, cfg, kernel: str, trace_name: str) -> dict:
 
     one()
     common.reset_launch_counts()
-    out = profiled_window(one, 1, (trace_name,))
+    out = profiled_window(one, 1, {kernel: trace_names})
     assert common.LAUNCHES[kernel] == 2 * cfg.n_layers * TRAIN_MB, \
         common.LAUNCHES
     return out
@@ -825,6 +844,10 @@ def main() -> int:
         attention_case(rng, 16, "attention C=16 softcap=30", softcap=30.0),
         attention_case(rng, 16, "attention C=16 straddling", straddle=True),
         attention_case(rng, 16, "attention C=16 one split", table_pages=4),
+        attention_case(rng, 16, "attention C=16 full table", full=True),
+        attention_case(rng, 1, "attention C=1 full table", full=True),
+        attention_case(rng, 16, "attention C=16 idle slot", idle=True),
+        attention_case(rng, 1, "attention C=1 idle slot", idle=True),
         flash_case(rng, "flash S=4096 causal", TRAIN_S),
         flash_case(rng, "flash S=4096 window=1024", TRAIN_S, window=1024),
         flash_case(rng, "flash S=4096 softcap=30", TRAIN_S, softcap=30.0),
@@ -853,8 +876,11 @@ def main() -> int:
         "kv_append_chunk": 2, "paged_attention_chunk": 1})
     log("phase2", json.dumps(main_path))
     log("phase2 logits_d2h", json.dumps(logits_d2h_ms(cfg)))
-    log("phase2 profile", json.dumps(profile_windows(
-        api, params, cfg, ("kv_append_kernel", "paged_attention_kernel"))))
+    log("phase2 profile", json.dumps(profile_windows(api, params, cfg, {
+        "kv_append_chunk": ("kv_append_kernel",),
+        "paged_attention_chunk": ("paged_attention_kernel",
+                                  "paged_attention_f32_kernel",
+                                  "paged_attention_merge_kernel")})))
     log("phase2 peak_mem_gb",
         round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
@@ -867,7 +893,8 @@ def main() -> int:
     log("phase4", json.dumps(train))
     release()
     log("phase4 profile", json.dumps(train_profile(
-        api, cfg, "flash_attention", "flash_tc_kernel")))
+        api, cfg, "flash_attention",
+        ("flash_tc_kernel", "flash_f32_kernel"))))
     release()
     log("phase5", json.dumps(train_path_vs_plain(api, cfg)))
     release()
@@ -878,7 +905,7 @@ def main() -> int:
     log("phase6", json.dumps(ssm_train))
     release()
     log("phase6 profile", json.dumps(train_profile(
-        api, cfg, "ssd_chunk", "ssd_chunk_kernel")))
+        api, cfg, "ssd_chunk", ("ssd_chunk_kernel",))))
     release()
     log("phase7", json.dumps(train_path_vs_plain(api, cfg)))
     release()
@@ -921,6 +948,12 @@ def main() -> int:
                         "library_ms": c["library_ms"],
                         "call_ms": c["ms_call"],
                         "timing": c["ms_timing"]})
+        if name == "paged_attention_chunk":   # prefill and decode shapes
+            kernels[-1]["cases"] = [
+                {k: by[n][k] for k in ("case", "splits", "ms", "bound_ms",
+                                       "bound_by", "plain_ms", "library_ms",
+                                       "max_abs_err")}
+                for n in ("attention C=16", "attention C=1 (decode)")]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,8 @@ IMPLS = ("ref", "cuda")
 # launches per kernel wrapper; bumped only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"kv_append_chunk": 0, "paged_attention_chunk": 0,
                              "flash_attention": 0, "ssd_chunk": 0}
+# context splits the last launch of a split kernel ran with
+LAST_SPLITS: Dict[str, int] = {}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -46,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: Optional[ctypes.CDLL] = None
+_SMS: Dict[int, int] = {}
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -98,6 +101,16 @@ def check_kernel_args(name: str, tensors: Dict[str, torch.Tensor],
             fdt = t.dtype
         elif t.dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def check_status(name: str, status: int) -> None:

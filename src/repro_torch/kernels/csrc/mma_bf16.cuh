@@ -1,0 +1,93 @@
+// bf16 tensor-core building blocks for sm_90a, shared by flash_attention.cu
+// and paged_attention.cu: 16-byte cp.async copies into shared memory,
+// mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix (plain for
+// row-major operands, transposed for V) and the A fragment of a row tile
+// in shared memory.
+//
+// Fragment layout (PTX ISA, mma.m16n8k16): thread (g = lane / 4,
+// tq = lane % 4) holds, in every m16n8 accumulator tile, rows g and g + 8
+// at columns 2tq and 2tq + 1; two adjacent n-tiles of an accumulator, once
+// packed to bf16, are the A fragment of one 16-deep chunk of the next
+// product.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b for one m16n8k16 tile: bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices (K as the B operand of Q.K^T)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// four 8x8 bf16 matrices, transposed on the way (V as the B operand)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment of rows [0, 16) x columns [16kc, 16kc + 16) of a row tile
+// in shared memory (row stride LD)
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* rows, int kc,
+                                       int g, int tq) {
+  const __nv_bfloat16* p = rows + g * LD + kc * 16 + tq * 2;
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * LD);
+  a[2] = lds32(p + 8);
+  a[3] = lds32(p + 8 * LD + 8);
+}
+
+}  // namespace

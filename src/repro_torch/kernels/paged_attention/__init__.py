@@ -1,2 +1,2 @@
-from .ops import paged_attention, paged_attention_chunk
+from .ops import paged_attention, paged_attention_chunk, plan_splits
 from .ref import paged_attention_chunk_ref, paged_attention_ref

@@ -17,10 +17,34 @@ from .. import common
 from .ref import paged_attention_chunk_ref
 
 MAX_HEAD_DIM = 256
-# keys per context split: the kernel cuts each sequence's page walk into
-# splits of this many keys (one block each) and merges them in a second
-# pass, so short-batch decode still fills the card
-SPLIT_KEYS = 64
+TILE_KEYS = 64       # keys per tile, the unit a context split owns (kBK)
+BLOCK_ROWS = 128     # query rows one bf16 block owns (8 warps of 16; kRows)
+MAX_SPLITS = 16      # context splits the kernel takes (kMaxSplits)
+
+
+def plan_splits(B: int, C: int, H: int, KV: int, N: int, T: int,
+                sms: int) -> int:
+    """Context splits of one call.
+
+    The kernel runs one block per (split, KV head, row group of up to 128
+    query rows, sequence); split s takes an equal share of its sequence's
+    LIVE key tiles, and a second kernel merges the splits that held tiles
+    (split 0 writes the rows of a sequence with at most one such split).
+    Splits fill the card's ``sms`` SMs with one block each, so they fall as
+    the blocks of one split (B * KV * row groups) grow; they never exceed
+    the table's tiles or pages, nor ``MAX_SPLITS``.  (On the H100, 8 splits
+    of the serving shape's 16 blocks beat 2-6 and tied 12-16 at both C=16
+    and C=1 in a sweep of the split count.)"""
+    groups = -(-C * (H // KV) // BLOCK_ROWS)
+    tiles = -(-N * T // TILE_KEYS)
+    fill = sms // (B * KV * groups)
+    return max(1, min(fill, tiles, N, MAX_SPLITS))
+
+
+def workspace_floats(B: int, C: int, H: int, D: int, splits: int) -> int:
+    """Each split's (acc [D], m, l) for every output row; none for one
+    split."""
+    return B * C * H * splits * (D + 2) if splits > 1 else 0
 
 
 def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -50,14 +74,14 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                "page_table": page_table, "lengths": lengths},
         ("q", "pool_k", "pool_v"), q.device)
     N = page_table.shape[1]
-    splits = max(1, -(-N * T // SPLIT_KEYS))
+    splits = plan_splits(B, C, H, KV, N, T, common.sm_count(q.device))
     out = torch.empty_like(q)
     ws_acc = ws_ml = None                    # per-split softmax state
     if splits > 1:
-        ws_acc = torch.empty(B * C * H * splits * D, dtype=torch.float32,
-                             device=q.device)
-        ws_ml = torch.empty(B * C * H * splits * 2, dtype=torch.float32,
-                            device=q.device)
+        ws = torch.empty(workspace_floats(B, C, H, D, splits),
+                         dtype=torch.float32, device=q.device)
+        n_acc = B * C * H * splits * D
+        ws_acc, ws_ml = ws[:n_acc], ws[n_acc:]
     lib = common.library()
     with common.on_device(q):
         status = lib.repro_paged_attention_chunk(
@@ -71,6 +95,7 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
             int(q.dtype == torch.bfloat16), common.stream_of(q))
     common.check_status(name, status)
     common.LAUNCHES[name] += 1
+    common.LAST_SPLITS[name] = splits
     return out
 
 

@@ -54,28 +54,62 @@ def randn(rng, shape, dtype, dev):
 
 
 ATTN_CASES = [
-    # B, C, H, KV, D, P, T, N, window, softcap, dtype
-    (3, 8, 8, 2, 64, 16, 16, 8, None, None, "float32"),   # splits > 1
-    (2, 4, 4, 2, 32, 8, 8, 4, None, None, "float32"),     # one split, T=8
-    (2, 5, 4, 1, 12, 8, 8, 4, None, None, "bfloat16"),    # D=12: scalar loads
-    (2, 5, 4, 2, 12, 8, 8, 4, None, None, "float32"),     # SMOKE head dim
-    (2, 4, 4, 2, 32, 8, 8, 8, 16, None, "bfloat16"),      # window
-    (2, 4, 4, 2, 32, 8, 8, 8, None, 30.0, "bfloat16"),    # softcap
-    (2, 3, 4, 2, 256, 8, 32, 6, None, None, "bfloat16"),  # D=256, T=32
-    (4, 1, 16, 1, 128, 32, 16, 8, None, None, "bfloat16"),  # MQA decode
+    # B, C, H, KV, D, P, T, N, window, softcap, dtype, contexts
+    (3, 8, 8, 2, 64, 16, 16, 8, None, None, "float32", "spread"),  # splits > 1
+    (2, 4, 4, 2, 32, 8, 8, 4, None, None, "float32", "spread"),   # one split
+    (2, 5, 4, 1, 12, 8, 8, 4, None, None, "bfloat16", "spread"),  # D=12
+    (2, 5, 4, 2, 12, 8, 8, 4, None, None, "float32", "spread"),   # SMOKE D
+    (2, 4, 4, 2, 32, 8, 8, 8, 16, None, "bfloat16", "spread"),    # window
+    (2, 4, 4, 2, 32, 8, 8, 8, None, 30.0, "bfloat16", "spread"),  # softcap
+    (2, 3, 4, 2, 256, 8, 32, 6, None, None, "bfloat16", "spread"),  # T=32
+    (4, 1, 16, 1, 128, 32, 16, 8, None, None, "bfloat16", "spread"),  # MQA
+    # the tensor-core path over G in {1, 6, 8} and D in {64, 128, 256}
+    (3, 16, 2, 2, 64, 40, 16, 12, None, None, "bfloat16", "spread"),    # G=1
+    (4, 16, 12, 2, 128, 64, 16, 16, None, None, "bfloat16", "spread"),  # G=6
+    (8, 1, 12, 2, 128, 64, 16, 16, None, None, "bfloat16", "spread"),   # C=1
+    (2, 16, 8, 1, 256, 40, 16, 16, None, None, "bfloat16", "spread"),   # G=8
+    (2, 16, 16, 2, 64, 40, 16, 12, None, None, "bfloat16", "spread"),   # G=8
+    (3, 1, 8, 1, 64, 40, 16, 12, None, None, "bfloat16", "spread"),     # G=8
+    (2, 16, 16, 1, 128, 40, 16, 8, None, None, "bfloat16", "spread"),  # 2x128
+    (4, 16, 12, 2, 128, 64, 16, 16, None, 30.0, "bfloat16", "spread"),  # cap
+    # short contexts in a long table: most splits hold no tile
+    (8, 1, 12, 2, 128, 128, 16, 64, None, None, "bfloat16", "short"),
+    (8, 16, 12, 2, 128, 128, 16, 64, None, None, "bfloat16", "short"),
+    (4, 1, 12, 2, 128, 128, 16, 64, None, None, "float32", "short"),
+    # a window smaller than one page
+    (3, 16, 12, 2, 128, 48, 16, 12, 5, None, "bfloat16", "spread"),
+    (3, 1, 12, 2, 128, 48, 16, 12, 5, None, "bfloat16", "spread"),
+    (3, 16, 12, 2, 128, 48, 16, 12, 5, None, "float32", "spread"),
+    # float32 over G and D
+    (3, 16, 12, 2, 128, 48, 16, 12, None, None, "float32", "spread"),
+    (4, 1, 8, 1, 256, 40, 16, 10, None, None, "float32", "spread"),
+    (2, 16, 6, 6, 64, 40, 16, 10, None, None, "float32", "spread"),
 ]
 
 
-@pytest.mark.parametrize("B,C,H,KV,D,P,T,N,window,softcap,dtype", ATTN_CASES)
+def attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype, contexts, dev):
+    """``contexts``: "spread" draws pre-chunk lengths over [0, N*T - C]
+    with both ends present; "short" keeps them under two pages."""
+    q = randn(rng, (B, C, H, D), dtype, dev)
+    pk = randn(rng, (P, T, KV, D), dtype, dev)
+    pv = randn(rng, (P, T, KV, D), dtype, dev)
+    pt = torch.from_numpy(rng.integers(0, P, (B, N)).astype(np.int32)).to(dev)
+    if contexts == "short":
+        lens = rng.integers(0, 2 * T, B)
+    else:
+        lens = rng.integers(0, N * T - C + 1, B)
+        lens[0], lens[-1] = 0, N * T - C
+    return q, pk, pv, pt, torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("B,C,H,KV,D,P,T,N,window,softcap,dtype,contexts",
+                         ATTN_CASES)
 def test_paged_attention_kernel_matches_plain(cuda, B, C, H, KV, D, P, T, N,
-                                              window, softcap, dtype):
+                                              window, softcap, dtype,
+                                              contexts):
     rng = np.random.default_rng(B * 1000 + C * 10 + D)
-    q = randn(rng, (B, C, H, D), dtype, cuda)
-    pk = randn(rng, (P, T, KV, D), dtype, cuda)
-    pv = randn(rng, (P, T, KV, D), dtype, cuda)
-    pt = torch.from_numpy(rng.integers(0, P, (B, N)).astype(np.int32)).to(cuda)
-    lens = torch.from_numpy(
-        rng.integers(0, N * T - C, B).astype(np.int32)).to(cuda)
+    q, pk, pv, pt, lens = attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype,
+                                      contexts, cuda)
     kw = dict(window=window, softcap=softcap)
     common.reset_launch_counts()
     out = paged_attention_chunk(q, pk, pv, pt, lens, **kw)
@@ -88,6 +122,19 @@ def test_paged_attention_kernel_matches_plain(cuda, B, C, H, KV, D, P, T, N,
     dec = paged_attention(q[:, 0].contiguous(), pk, pv, pt, lens + 1, **kw)
     torch.testing.assert_close(dec.float(), out[:, 0].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("C", [16, 1])
+def test_paged_attention_kernel_is_bitwise_repeatable(cuda, C):
+    """The split merge runs in a fixed order: two calls on the same inputs
+    give the same bits (qwen2-1.5b's serving shape, several splits)."""
+    rng = np.random.default_rng(C)
+    args = attn_inputs(rng, 8, C, 12, 2, 128, 512, 16, 64, "bfloat16",
+                       "spread", cuda)
+    first = paged_attention_chunk(*args)
+    second = paged_attention_chunk(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("KV,D,dtype", [

@@ -18,6 +18,9 @@ from repro.kernels import paged_attention_chunk_ref as jax_paged_chunk_ref
 from repro.kernels import paged_attention_ref as jax_paged_ref
 from repro_torch import kernels as tk
 from repro_torch.kernels import common
+from repro_torch.kernels.paged_attention.ops import (MAX_SPLITS, TILE_KEYS,
+                                                     plan_splits,
+                                                     workspace_floats)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -247,4 +250,30 @@ def test_kernel_sources_carry_their_notes():
         assert tpu in text
         assert "What bounds it on this card" in text
         assert "What the design does about it" in text
+    header = (common.CSRC / "mma_bf16.cuh").read_text()
+    assert "shared by flash_attention.cu" in header.lower()
+    for name in ("flash_attention.cu", "paged_attention.cu"):
+        assert '#include "mma_bf16.cuh"' in (common.CSRC / name).read_text()
     assert len(common.source_hash()) == 16
+
+
+@pytest.mark.parametrize("B,C,H,KV,D,N,T,sms", [
+    (8, 16, 12, 2, 128, 64, 16, 132),   # qwen2-1.5b serving: a prefill chunk
+    (8, 1, 12, 2, 128, 64, 16, 132),    # ... and a decode step
+    (1, 1, 12, 2, 128, 4, 16, 132),     # a table of one 64-key tile
+    (64, 16, 12, 2, 128, 64, 16, 132),  # more blocks than SMs
+    (2, 16, 16, 1, 128, 8, 16, 132),    # 256 query rows: two row groups
+    (1, 1, 8, 1, 64, 2048, 16, 132),    # a long table: capped splits
+    (3, 5, 4, 2, 12, 3, 8, 1),          # one SM
+])
+def test_paged_attention_split_plan(B, C, H, KV, D, N, T, sms):
+    """At least one split, no more than the table's pages or 64-key tiles
+    (or the kernel's cap), one wave of blocks, and a workspace of each
+    split's (acc, m, l) per output row, none for one split."""
+    splits = plan_splits(B, C, H, KV, N, T, sms)
+    assert 1 <= splits <= min(N, -(-N * T // TILE_KEYS), MAX_SPLITS)
+    groups = -(-C * (H // KV) // 128)
+    assert splits == 1 or B * KV * groups * splits <= sms
+    assert workspace_floats(B, C, H, D, 1) == 0
+    assert workspace_floats(B, C, H, D, splits) == (
+        0 if splits == 1 else B * C * H * splits * (D + 2))
