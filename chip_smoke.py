@@ -13,10 +13,12 @@ sm_90a) and then, failing with a non-zero exit on any error:
      a full table (every sequence at 1008 keys, so every context split
      holds work) and an idle slot (length 0, an all-zero table row); the
      flash kernel at the training shape (B=1, S=4096, H=12,
-     KV=2, D=128, causal, bf16), with a window, a softcap, non-causal, a
-     ragged S=1000 and one float32 case.  It times kernel, plain version
-     and one PyTorch library call (a yardstick the port never calls), and
-     the plain attention backward beside SDPA's;
+     KV=2, D=128, causal, bf16), at D=64 and D=256, with a window, a
+     softcap, non-causal, a ragged S=1000 and one float32 case, each with
+     its achieved TFLOP/s, its time over SDPA's and the name of the kernel
+     its trace ran.  It times kernel, plain version and one PyTorch library
+     call (a yardstick the port never calls), and the plain attention
+     backward beside SDPA's;
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` with one POSIX and one
      STRICT session, and checks that every serve step launched both
@@ -29,7 +31,9 @@ sm_90a) and then, failing with a non-zero exit on any error:
      checks finite losses and 2 x 28 x 4 flash launches per step (each
      layer's forward runs again in the backward); profiles one step;
   5. takes the loss and every grad of one microbatch twice from the same
-     parameters, through the kernel and through the plain version;
+     parameters, through the kernel and through the plain version, at three
+     draws of batch and parameters (seeds 0, 1, 2), each held to every
+     bound;
   6. trains mamba2-1.3b at full width and depth (48 layers, d_model 2048,
      64 SSD heads of 64, state 128, chunk 256) the same way: 4 AdamW steps
      of 4 microbatches of one 4096-token sequence, remat "full", checking
@@ -55,6 +59,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -87,9 +92,18 @@ FLASH_TOL = {torch.bfloat16: (4e-3, 1.6e-2), torch.float32: (2e-5, 2e-5)}
 LSE_ATOL = 1e-4                  # flash lse, float32 in both versions
 # phase 4-5: the training shape (configs/shapes.py TRAIN_4K's sequence)
 TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 4, 4
-LOSS_TOL = 1e-3                  # phase 5 |loss_kernel - loss_plain|
-GNORM_TOL = 1e-5                 # phase 5 relative global grad-norm gap
-LEAF_TOL = 5e-2                  # phase 5 per-leaf relative grad error
+# phase 5 bounds, each well above the largest reading of a correct bf16
+# kernel and below every reading of a kernel that drops a key tile
+# (PERF.md §6, "the phase-5 gate"): the mma.sync and wgmma kernels read
+# |dloss| <= 2.3e-4, grad-norm gaps <= 2.2e-4 (bf16 rounding through 28
+# layers' backward, random in sign; 1e-5, set from one reading of 5.6e-8,
+# refused the accepted kernel at seeds 1 and 2) and per-leaf errors <=
+# 0.013 at seeds 0-2; dropping the second key tile of every band reads
+# >= 3.4e-2, >= 0.48 and >= 2.6
+LOSS_TOL = 1e-3                  # |loss_kernel - loss_plain|
+GNORM_TOL = 1e-3                 # relative global grad-norm gap
+LEAF_TOL = 2.5e-2                # per-leaf relative grad error
+PHASE5_SEEDS = (0, 1, 2)         # batch and parameter draws of phase 5
 # ssd_chunk at the mamba2 training path's shape: one 4096-token sequence in
 # chunks of 256 (B' = 16), 64 heads of 64, state 128
 SSD_PATH = dict(Bp=16, L=256, H=64, P=64, N=128)
@@ -101,6 +115,9 @@ SSD_PATH = dict(Bp=16, L=256, H=64, P=64, N=128)
 # most one bf16 ulp (2^-7 relative at the bottom of a binade: rtol 1.6e-2)
 SSD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 1.6e-2)}
 SSD_GRAD_TOL = (1e-5, 1e-4)      # both backwards plain float32, other order
+# the flash kernel of each dtype, as CUPTI names it in a trace
+FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
+                 torch.float32: "flash_f32_kernel"}
 
 
 def log(*a) -> None:
@@ -160,6 +177,50 @@ def device_ms(fn, reps: int = 20):
             f"{per_call}")
         return None
     return sum(e["dur"] for e in ev) / reps / 1e3
+
+
+def kernel_names(fn, tries: int = 3) -> list:
+    """The names of the device events of one traced call of ``fn``, from
+    the first of ``tries`` traces that recorded any (a trace here can lose
+    every event; see device_ms); empty if none did."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e["name"] for e in device_events(prof)]
+        if names:
+            return names
+    return []
+
+
+def ptxas_summary(build_log: str) -> list:
+    """One line per compiled kernel instance of the build log: its
+    (demangled) name, registers, shared memory and spills, as ``nvcc
+    -Xptxas -v`` reported them; ptxas warnings as they are."""
+    demangler = shutil.which("c++filt")
+    lines, name, spill = [], None, ""
+    for raw in build_log.splitlines():
+        line = raw.strip()
+        if line.startswith("=="):
+            lines.append(line)
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            if demangler:
+                name = subprocess.run([demangler, name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            name = name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+        elif "spill" in line and name:
+            spill = line
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+        elif "warning" in line.lower():
+            lines.append(line)
+    return lines
 
 
 def timings(**fns) -> dict:
@@ -365,14 +426,23 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
             fns["library_ms"] = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True)
     t = {"library_ms": None, **timings(**fns)}
+    # the trace names the kernel that ran: a time filed under this kernel
+    # is never another's (a trace that lost every event shows nothing)
+    ran = kernel_names(fns["ms"])
+    if ran and not any(FLASH_KERNELS[dtype] in n for n in ran):
+        raise AssertionError(f"{name}: no {FLASH_KERNELS[dtype]} in {ran}")
     flops = 4 * H * D * visible_keys(S, S, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + lse.numel() * 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    lib = t["library_ms"]
     return {"case": name, "S": S, "D": D, "dtype": str(dtype),
+            "kernel": FLASH_KERNELS[dtype] if ran else "no events traced",
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
-            **t, **bound(nbytes, flops, peak)}
+            **t, "tflops": flops / t["ms"] / 1e9,
+            "ms_over_library": None if lib is None else t["ms"] / lib,
+            **bound(nbytes, flops, peak)}
 
 
 def flash_backward_times(rng) -> dict:
@@ -730,16 +800,16 @@ def train_main_path(api, cfg, kernel: str) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def train_batch(cfg, n: int) -> dict:
+def train_batch(cfg, n: int, seed: int = 0) -> dict:
     from repro_torch.data import TokenPipeline
     b = TokenPipeline(cfg, global_batch=n, seq_len=TRAIN_S,
-                      seed=0).batch_at(0)
+                      seed=seed).batch_at(0)
     return {k: torch.from_numpy(x).cuda() for k, x in b.items()}
 
 
-def fresh_params(api):
+def fresh_params(api, seed: int = 0):
     from repro_torch.models import init_params
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     return init_params(api.init_specs(), gen, device="cuda")
 
 
@@ -767,12 +837,15 @@ def train_profile(api, cfg, kernel: str, trace_names) -> dict:
     return out
 
 
-def train_path_vs_plain(api, cfg) -> dict:
+def train_path_vs_plain(api, cfg, seed: int = 0) -> dict:
+    """Loss and grads of one microbatch through the kernel and through the
+    plain version, from the parameters and batch of ``seed``;
+    ``within_tolerance`` says whether every bound held."""
     from repro_torch.train import make_loss_and_grad
     from repro_torch.train.optimizer import leaves
 
-    params = fresh_params(api)
-    batch = train_batch(cfg, 1)
+    params = fresh_params(api, seed)
+    batch = train_batch(cfg, 1, seed)
     got = {}
     for impl in (None, "ref"):
         loss, grads = make_loss_and_grad(api, 1, impl=impl)(params, batch)
@@ -785,7 +858,8 @@ def train_path_vs_plain(api, cfg) -> dict:
     leaf_err = [float((a - b).float().norm() / b.float().norm().clamp_min(
         1e-30)) for a, b in zip(gk, gr)]
     assert all(torch.isfinite(g).all() for g in gk)
-    res = {"loss_kernel": lk, "loss_plain": lr, "loss_abs_diff": abs(lk - lr),
+    res = {"seed": seed, "loss_kernel": lk, "loss_plain": lr,
+           "loss_abs_diff": abs(lk - lr),
            "grad_norm_kernel": norm_k, "grad_norm_plain": norm_r,
            "grad_norm_rel_diff": abs(norm_k - norm_r) / norm_r,
            "leaf_rel_err_max": max(leaf_err),
@@ -793,10 +867,17 @@ def train_path_vs_plain(api, cfg) -> dict:
            "leaves": len(leaf_err),
            "tolerances": {"loss": LOSS_TOL, "grad_norm": GNORM_TOL,
                           "leaf": LEAF_TOL}}
-    if (res["loss_abs_diff"] > LOSS_TOL or res["grad_norm_rel_diff"] >
-            GNORM_TOL or res["leaf_rel_err_max"] > LEAF_TOL):
-        raise AssertionError(f"training kernel path vs plain path: {res}")
+    res["within_tolerance"] = not (
+        res["loss_abs_diff"] > LOSS_TOL or res["grad_norm_rel_diff"] >
+        GNORM_TOL or res["leaf_rel_err_max"] > LEAF_TOL)
     return res
+
+
+def check_train_path(phase: str, res: dict) -> None:
+    log(phase, json.dumps(res))
+    if not res["within_tolerance"]:
+        raise AssertionError(f"{phase}: training kernel path vs plain path "
+                             "outside its bounds")
 
 
 def release() -> None:
@@ -830,9 +911,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {common.BUILD_INFO.get('seconds', 0.0):.2f} s, "
         f"cached={common.BUILD_INFO.get('cached')})")
-    for line in str(common.BUILD_INFO.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log("  ptxas", line.strip())
+    for line in ptxas_summary(str(common.BUILD_INFO.get("log", ""))):
+        log("  ptxas", line)
 
     rng = np.random.default_rng(0)
     cases = [
@@ -849,6 +929,8 @@ def main() -> int:
         attention_case(rng, 16, "attention C=16 idle slot", idle=True),
         attention_case(rng, 1, "attention C=1 idle slot", idle=True),
         flash_case(rng, "flash S=4096 causal", TRAIN_S),
+        flash_case(rng, "flash S=4096 causal D=64", TRAIN_S, D=64),
+        flash_case(rng, "flash S=4096 causal D=256", TRAIN_S, D=256),
         flash_case(rng, "flash S=4096 window=1024", TRAIN_S, window=1024),
         flash_case(rng, "flash S=4096 softcap=30", TRAIN_S, softcap=30.0),
         flash_case(rng, "flash S=4096 non-causal", TRAIN_S, causal=False),
@@ -893,11 +975,12 @@ def main() -> int:
     log("phase4", json.dumps(train))
     release()
     log("phase4 profile", json.dumps(train_profile(
-        api, cfg, "flash_attention",
-        ("flash_tc_kernel", "flash_f32_kernel"))))
+        api, cfg, "flash_attention", tuple(FLASH_KERNELS.values()))))
     release()
-    log("phase5", json.dumps(train_path_vs_plain(api, cfg)))
-    release()
+    for seed in PHASE5_SEEDS:
+        check_train_path(f"phase5 seed={seed}",
+                         train_path_vs_plain(api, cfg, seed))
+        release()
 
     cfg = get_config("mamba2-1.3b")
     api = build_model(cfg)
@@ -907,7 +990,7 @@ def main() -> int:
     log("phase6 profile", json.dumps(train_profile(
         api, cfg, "ssd_chunk", ("ssd_chunk_kernel",))))
     release()
-    log("phase7", json.dumps(train_path_vs_plain(api, cfg)))
+    check_train_path("phase7", train_path_vs_plain(api, cfg))
     release()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = cast_params(init_params(api.init_specs(), gen, device="cuda"),
@@ -954,6 +1037,14 @@ def main() -> int:
                                        "bound_by", "plain_ms", "library_ms",
                                        "max_abs_err")}
                 for n in ("attention C=16", "attention C=1 (decode)")]
+        if name == "flash_attention":         # every phase-1 flash case
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "D", "dtype", "kernel", "ms",
+                                   "bound_ms", "bound_by", "tflops",
+                                   "plain_ms", "library_ms",
+                                   "ms_over_library", "max_abs_err",
+                                   "lse_max_abs_err")}
+                for c in cases if c["case"].startswith("flash ")]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

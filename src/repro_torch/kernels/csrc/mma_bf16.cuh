@@ -2,7 +2,9 @@
 // and paged_attention.cu: 16-byte cp.async copies into shared memory,
 // mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix (plain for
 // row-major operands, transposed for V) and the A fragment of a row tile
-// in shared memory.
+// in shared memory.  The flash kernel takes only smem_addr and pack_bf16
+// from here (its wgmma, TMA and mbarrier helpers are in wgmma_bf16.cuh);
+// the rest is the paged kernel's.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16): thread (g = lane / 4,
 // tq = lane % 4) holds, in every m16n8 accumulator tile, rows g and g + 8

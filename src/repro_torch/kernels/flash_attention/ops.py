@@ -12,7 +12,12 @@ TPU kernel.
 The kernel masks ragged edges itself, so no shape sends a CUDA tensor to
 the plain version; only ``q_offset`` and ``lengths``, which no model
 passes to this op, are refused on the card (the plain lane runs them
-through the dense oracle).
+through the dense oracle).  The bf16 kernel loads its tiles by TMA, which
+addresses 16-byte-aligned bases and 16-byte row strides: ``tma_operands``
+pads a head dim that is not a multiple of 8 with zero columns (they change
+no score and give zero output columns, sliced off) and copies a base that
+is not on 16 bytes.  A head dim that is a multiple of 8 on an aligned
+base (every model's) launches as it is.
 """
 
 from __future__ import annotations
@@ -26,6 +31,19 @@ from .blockwise import blockwise_bwd, blockwise_fwd
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256
+TMA_ALIGN = 16            # bytes: TMA's base and row-stride granularity
+
+
+def tma_operands(*ts: torch.Tensor):
+    """``ts`` (bf16 [..., D], contiguous) as the bf16 kernel can address
+    them: the head dim padded with zeros to a multiple of 8 elements and
+    every base on 16 bytes; tensors that already are come back as they
+    are."""
+    pad = -ts[0].shape[-1] % (TMA_ALIGN // 2)
+    if pad:
+        return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+    return tuple(t if t.data_ptr() % TMA_ALIGN == 0 else t.clone()
+                 for t in ts)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -49,18 +67,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"{name}: window must be >= 0, got {window}")
     common.check_kernel_args(name, {"q": q, "k": k, "v": v},
                              ("q", "k", "v"), q.device)
+    scale = float(D ** -0.5)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = tma_operands(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = common.library()
     with common.on_device(q):
         status = lib.repro_flash_attention(
             common.ptr(q), common.ptr(k), common.ptr(v), common.ptr(out),
-            common.ptr(lse), B, Sq, Sk, H, KV, D, int(causal),
-            -1 if window is None else int(window), float(D ** -0.5),
-            0.0 if softcap is None else float(softcap),
-            int(q.dtype == torch.bfloat16), common.stream_of(q))
+            common.ptr(lse), B, Sq, Sk, H, KV, q.shape[-1], int(causal),
+            -1 if window is None else int(window), scale,
+            0.0 if softcap is None else float(softcap), int(bf16),
+            common.stream_of(q))
     common.check_status(name, status)
     common.LAUNCHES[name] += 1
+    if out.shape[-1] != D:
+        out = out[..., :D].contiguous()
     return out, lse
 
 

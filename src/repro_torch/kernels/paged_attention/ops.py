@@ -18,7 +18,8 @@ from .ref import paged_attention_chunk_ref
 
 MAX_HEAD_DIM = 256
 TILE_KEYS = 64       # keys per tile, the unit a context split owns (kBK)
-BLOCK_ROWS = 128     # query rows one bf16 block owns (8 warps of 16; kRows)
+BLOCK_ROWS = 128     # query rows one bf16 block owns (kRows): 8 row tiles
+                     # of 16 over 16 warps (8 at D = 256; PaWarps)
 MAX_SPLITS = 16      # context splits the kernel takes (kMaxSplits)
 
 

@@ -4,7 +4,8 @@ float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
 MQA, window and softcap; the flash kernel over causal, windowed,
 softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
-64, 128 and 256; the ssd_chunk kernel over float32 and bf16 with ragged
+64, 128 and 256, groups of 1 and 6, operands TMA cannot address as given,
+and its repeatability; the ssd_chunk kernel over float32 and bf16 with ragged
 L, H, P and N, and its autograd Function's gradients — and the SMOKE
 models' serve step, greedy engine output and train step (qwen2 and
 mamba2), kernel path against plain path.
@@ -229,6 +230,26 @@ FLASH_CASES = [
     (2, 100, 300, 4, 2, 64, False, None, None, "bfloat16"),    # non-causal
     (1, 1000, 1000, 4, 2, 128, True, None, None, "bfloat16"),  # ragged S
     (1, 77, 77, 2, 1, 12, True, 16, None, "bfloat16"),         # D=12
+    # the wgmma kernel's edges, at D in {64, 128, 256} and groups of 1 and
+    # 6: the training shape; Sq not a multiple of the 128-row block and Sk
+    # not a multiple of the 128- (64-) key tile, causal and not; Sk below
+    # one tile; B=2 with a ragged Sk (a map that ran one sequence into the
+    # next would read its rows in place of zeros); a window that starts
+    # mid-tile; softcap at every head dim; Sq=1
+    (1, 4096, 4096, 12, 2, 128, True, None, None, "bfloat16"),
+    (1, 300, 333, 6, 1, 128, True, None, None, "bfloat16"),
+    (2, 333, 300, 6, 6, 128, False, None, None, "bfloat16"),
+    (2, 200, 77, 12, 2, 64, False, None, None, "bfloat16"),
+    (2, 150, 50, 6, 6, 256, True, None, None, "bfloat16"),
+    (2, 1000, 1000, 12, 2, 128, True, None, None, "bfloat16"),
+    (2, 700, 700, 6, 1, 256, True, None, None, "bfloat16"),
+    (2, 520, 520, 6, 6, 64, True, None, None, "bfloat16"),
+    (1, 1024, 1024, 12, 2, 128, True, 200, None, "bfloat16"),
+    (1, 1100, 1100, 6, 6, 256, True, 300, None, "bfloat16"),
+    (2, 640, 640, 6, 1, 64, True, 100, 20.0, "bfloat16"),
+    (1, 1024, 1024, 12, 2, 256, True, None, 50.0, "bfloat16"),
+    (1, 500, 700, 6, 6, 64, False, None, 30.0, "bfloat16"),
+    (3, 1, 300, 12, 2, 128, False, None, None, "bfloat16"),
     (2, 256, 256, 4, 2, 64, True, None, None, "float32"),
     (1, 200, 200, 4, 2, 128, True, 64, 20.0, "float32"),
     (1, 130, 70, 2, 2, 256, False, None, None, "float32"),
@@ -253,6 +274,42 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal,
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_kernel_is_bitwise_repeatable(cuda, D):
+    """No atomics: two calls on the same inputs give the same bits (the
+    training shape's group of 6, a ragged causal length)."""
+    rng = np.random.default_rng(D)
+    q = randn(rng, (1, 1500, 12, D), "bfloat16", cuda)
+    k = randn(rng, (1, 1500, 2, D), "bfloat16", cuda)
+    v = randn(rng, (1, 1500, 2, D), "bfloat16", cuda)
+    first = attention_fwd(q, k, v, causal=True)
+    second = attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_kernel_takes_operands_off_16_bytes(cuda, which):
+    """An operand whose base sits 2 bytes into its storage (contiguous, but
+    not what TMA addresses) gives the same result as an aligned copy."""
+    rng = np.random.default_rng(5)
+    t = {"q": randn(rng, (1, 300, 4, 128), "bfloat16", cuda),
+         "k": randn(rng, (1, 200, 2, 128), "bfloat16", cuda),
+         "v": randn(rng, (1, 200, 2, 128), "bfloat16", cuda)}
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(t[which].shape)
+    shifted.copy_(t[which])
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    want = attention_fwd(t["q"], t["k"], t["v"], causal=False)
+    t[which] = shifted
+    common.reset_launch_counts()
+    got = attention_fwd(t["q"], t["k"], t["v"], causal=False)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):

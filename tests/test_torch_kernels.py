@@ -21,6 +21,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels.paged_attention.ops import (MAX_SPLITS, TILE_KEYS,
                                                      plan_splits,
                                                      workspace_floats)
+from repro_torch.kernels.flash_attention.ops import TMA_ALIGN, tma_operands
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -277,3 +278,38 @@ def test_paged_attention_split_plan(B, C, H, KV, D, N, T, sms):
     assert workspace_floats(B, C, H, D, 1) == 0
     assert workspace_floats(B, C, H, D, splits) == (
         0 if splits == 1 else B * C * H * splits * (D + 2))
+
+
+@pytest.mark.parametrize("D", [12, 64, 100, 128, 256])
+def test_flash_tma_operands_pad_and_realign(D):
+    """The bf16 flash kernel's TMA maps need 16-byte bases and row strides:
+    a head dim that is not a multiple of 8 gets zero columns (scores and
+    the kept output columns do not move), a base off 16 bytes is copied,
+    and operands that need neither come back as the same tensors."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 3, D))
+                         .astype(np.float32)).bfloat16()
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    aligned = x.data_ptr() % TMA_ALIGN == 0
+    for t in (x, shifted):
+        (y,) = tma_operands(t)
+        assert y.is_contiguous() and y.data_ptr() % TMA_ALIGN == 0
+        assert y.shape[-1] == -(-D // 8) * 8
+        assert torch.equal(y[..., :D], x)
+        assert not y[..., D:].any()
+        if D % 8 == 0 and t.data_ptr() % TMA_ALIGN == 0:
+            assert y is t
+    assert aligned
+
+
+def test_hopper_helpers_are_the_flash_kernels_alone():
+    """wgmma, TMA and mbarrier helpers live in wgmma_bf16.cuh, which only
+    the flash kernel includes, so a change there cannot move the paged
+    kernel; the old mma.sync flash path is gone."""
+    flash = (common.CSRC / "flash_attention.cu").read_text()
+    assert '#include "wgmma_bf16.cuh"' in flash
+    assert "flash_tc_kernel" not in flash and "flash_wgmma_kernel" in flash
+    for name in ("paged_attention.cu", "kv_append.cu", "ssd_chunk.cu"):
+        assert "wgmma_bf16" not in (common.CSRC / name).read_text()

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's phase-1 flash cases, timed for several checkouts of this
+repository on one card, in turns.
+
+    python3 tools/flash_ab.py ROOT [ROOT ...]
+
+Each ROOT is a checkout (the parent commit unpacked with ``git archive``
+into a directory that .gitignore lists, say); give them in the order to run,
+e.g. ``build/parent . . build/parent``.  Every ROOT runs in a process of its
+own (each builds its own ``repro_torch`` kernels) through that ROOT's own
+``chip_smoke.flash_case``, so each tree's kernel is held against its plain
+version and timed by its own code, on the same inputs (one seed per case).
+Prints, per ROOT and case, one JSON line with the CUPTI device ms, SDPA's ms
+and the achieved TFLOP/s; then the card's name and power limit.  Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+# (name, S, keyword arguments of chip_smoke.flash_case): phase 1's bf16 cases
+CASES = [
+    ("flash S=4096 causal", 4096, {}),
+    ("flash S=4096 causal D=64", 4096, {"D": 64}),
+    ("flash S=4096 causal D=256", 4096, {"D": 256}),
+    ("flash S=4096 window=1024", 4096, {"window": 1024}),
+    ("flash S=4096 softcap=30", 4096, {"softcap": 30.0}),
+    ("flash S=4096 non-causal", 4096, {"causal": False}),
+    ("flash S=1000 ragged", 1000, {}),
+]
+
+
+def run_tree(root: Path, turn: int) -> None:
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)          # puts root/src first on sys.path
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for i, (name, S, kw) in enumerate(CASES):
+        c = cs.flash_case(np.random.default_rng(i), name, S, **kw)
+        print(json.dumps({"tree": str(root), "turn": turn, "case": name,
+                          "ms": c["ms"], "ms_timing": c["ms_timing"],
+                          "library_ms": c["library_ms"],
+                          "tflops": c["flops"] / c["ms"] / 1e9,
+                          "max_abs_err": c["max_abs_err"],
+                          "lse_max_abs_err": c["lse_max_abs_err"]}),
+              flush=True)
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        run_tree(Path(sys.argv[2]).resolve(), int(sys.argv[3]))
+        return 0
+    roots = [Path(r).resolve() for r in sys.argv[1:]]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    for turn, root in enumerate(roots):
+        if not (root / "chip_smoke.py").exists():
+            print(f"flash_ab: no chip_smoke.py in {root}", file=sys.stderr)
+            return 2
+        rc = subprocess.run([sys.executable, __file__, "--one", str(root),
+                             str(turn)]).returncode
+        if rc:
+            return rc
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(f"nvidia-smi: {smi.stdout.strip()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
