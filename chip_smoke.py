@@ -16,9 +16,14 @@ sm_90a) and then, failing with a non-zero exit on any error:
      KV=2, D=128, causal, bf16), at D=64 and D=256, with a window, a
      softcap, non-causal, a ragged S=1000 and one float32 case, each with
      its achieved TFLOP/s, its time over SDPA's and the name of the kernel
-     its trace ran.  It times kernel, plain version and one PyTorch library
-     call (a yardstick the port never calls), and the plain attention
-     backward beside SDPA's;
+     its trace ran; ``ssd_chunk``'s forward and its backward kernel, each
+     on its own, at the mamba2 training path's shape (B'=16 chunks, L=256,
+     H=64, P=64, N=128) in float32 and bf16, at a ragged L=100, H=6 and
+     at chunk 512 (key and query tiles walked in windows of 256), and the
+     op's forward + backward through autograd against autograd of the
+     plain forward.  It times kernel, plain version and one PyTorch
+     library call where there is one (a yardstick the port never calls),
+     and the plain attention backward beside SDPA's;
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` with one POSIX and one
      STRICT session, and checks that every serve step launched both
@@ -37,12 +42,15 @@ sm_90a) and then, failing with a non-zero exit on any error:
   6. trains mamba2-1.3b at full width and depth (48 layers, d_model 2048,
      64 SSD heads of 64, state 128, chunk 256) the same way: 4 AdamW steps
      of 4 microbatches of one 4096-token sequence, remat "full", checking
-     finite losses and 2 x 48 x 4 = 384 ``ssd_chunk`` launches per step
-     (phase 1 holds that kernel against its plain version at the path's
-     shape, B'=16 chunks, L=256, H=64, P=64, N=128, float32, plus a bf16,
-     a ragged L=100, H=6 case and the op's gradients); profiles one step;
-  7. takes one mamba2 microbatch's loss and grads through the kernel and
-     through the plain version, as phase 5;
+     finite losses, 2 x 48 x 4 = 384 ``ssd_chunk`` launches and 48 x 4 =
+     192 ``ssd_chunk_bwd`` launches per step; profiles one step, with both
+     ops' kernels traced by name;
+  7. takes one mamba2 microbatch's loss and grads through the kernels and
+     through the plain versions at seeds 0, 1, 2, with the model's
+     activations in float32 held to phase 5's bounds, and in bf16, as
+     phase 6 trains, held to a grad-norm bound of its own: in bf16 the
+     loss and per-leaf gaps cannot tell a correct kernel from a 1e-7
+     perturbation (PERF.md §6, PR 17);
   8. serves the same 8 requests as phase 2 with mamba2-1.3b at full width
      (the recurrent serve path runs no kernel: it checks that none
      launched) and profiles a prefill and a decode window.
@@ -56,6 +64,7 @@ before it lists the kernels with their launch counts, times and bounds.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -75,6 +84,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12               # float32 outside the tensor cores
+# float32-exact products on the tensor cores: 3xTF32 (each operand split
+# into two TF32 parts, three products) at a third of the dense TF32 peak
+TF32X3_FLOPS = 494.7e12 / 3
+# a float32 operand against a bf16 one, exactly: the float32 one split into
+# three bf16 parts, three bf16 products
+BF16X3_FLOPS = BF16_FLOPS / 3
 
 # qwen2-1.5b serving shapes of phase 2
 B, T, KV, H, D = 8, 16, 2, 12, 128
@@ -104,9 +119,17 @@ LOSS_TOL = 1e-3                  # |loss_kernel - loss_plain|
 GNORM_TOL = 1e-3                 # relative global grad-norm gap
 LEAF_TOL = 2.5e-2                # per-leaf relative grad error
 PHASE5_SEEDS = (0, 1, 2)         # batch and parameter draws of phase 5
+# phase 7's bf16 lane (mamba2 as phase 6 trains it), gated on the relative
+# grad-norm gap alone: at seeds 0-2 the kernels read <= 0.0155 and the
+# plain path with its ssd_chunk output perturbed by 1e-7 relative noise
+# <= 0.0141, a backward that drops key tile 1 >= 0.134 and a forward that
+# does >= 2.6e17 (PERF.md §6, PR 17); the loss and per-leaf gaps of the
+# noise lane reach the kernels' (1.6e-3, 0.31), so they gate nothing here
+SSD_BF16_GNORM_TOL = 0.05
 # ssd_chunk at the mamba2 training path's shape: one 4096-token sequence in
 # chunks of 256 (B' = 16), 64 heads of 64, state 128
 SSD_PATH = dict(Bp=16, L=256, H=64, P=64, N=128)
+SSD_512 = dict(SSD_PATH, Bp=8, L=512)   # the same tokens in chunks of 512
 # ssd_chunk out: (atol as a share of the output's largest magnitude, rtol).
 # float32: kernel and plain version differ at most in summation order (on
 # the H100 they agree bit for bit: the plain version's float32 cuBLAS
@@ -114,10 +137,16 @@ SSD_PATH = dict(Bp=16, L=256, H=64, P=64, N=128)
 # bf16: both round float32 sums that agree to ~1e-6, so they differ by at
 # most one bf16 ulp (2^-7 relative at the bottom of a binade: rtol 1.6e-2)
 SSD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 1.6e-2)}
-SSD_GRAD_TOL = (1e-5, 1e-4)      # both backwards plain float32, other order
+# ssd_chunk's float32 grads: the kernels (3xTF32 products, float32 sums)
+# and the plain backward agree to float32 rounding, summed in other orders;
+# bf16 grads are held to SSD_TOL[bf16], one more rounding
+SSD_GRAD_TOL = (1e-5, 1e-4)
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_kernel"}
+# ssd_chunk's forward and backward kernels, as CUPTI names them
+SSD_FWD_KERNELS = ("ssd_chunk_tc_kernel",)
+SSD_BWD_KERNELS = ("ssd_bwd_tile_kernel", "ssd_bwd_finish_kernel")
 
 
 def log(*a) -> None:
@@ -426,18 +455,14 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
             fns["library_ms"] = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True)
     t = {"library_ms": None, **timings(**fns)}
-    # the trace names the kernel that ran: a time filed under this kernel
-    # is never another's (a trace that lost every event shows nothing)
-    ran = kernel_names(fns["ms"])
-    if ran and not any(FLASH_KERNELS[dtype] in n for n in ran):
-        raise AssertionError(f"{name}: no {FLASH_KERNELS[dtype]} in {ran}")
+    ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],))
     flops = 4 * H * D * visible_keys(S, S, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + lse.numel() * 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     lib = t["library_ms"]
     return {"case": name, "S": S, "D": D, "dtype": str(dtype),
-            "kernel": FLASH_KERNELS[dtype] if ran else "no events traced",
+            "kernel": ran,
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
             **t, "tflops": flops / t["ms"] / 1e9,
@@ -482,19 +507,39 @@ def ssd_inputs(rng, Bp, L, H, P, N, dtype):
                                                     dtype=dtype))
 
 
-def ssd_work(Bp, L, H, P, N, esz, backward=False):
-    """(bytes, FLOP) this call's data needs: each input read once, each
+def ssd_work(Bp, L, H, P, N, esz, part="fwd"):
+    """(bytes, FLOP, peak) of this call's data: each input read once, each
     output written once; the causal pairs j <= i times the scores (2N)
-    and the per-head contraction (2HP).  The backward adds dx and the
-    dy.x products (4HP) and dS, dB, dC (6N), and reads dy and writes the
-    five grads."""
+    and the per-head contraction (2HP).  The backward ("bwd") recomputes
+    the scores and adds the dy.x products and dx (4HP) and dB, dC (4N);
+    it reads x, dt, cs, Bm, Cm and dy and writes the five grads.  "both"
+    is a forward and a backward.  ``peak`` is the rate of the float32-
+    exact mix: float32 operands at TF32X3_FLOPS; with bf16 x, B, C (esz
+    2) the products of two bf16 operands (S, dy.x) at BF16_FLOPS and
+    those with a float32 one (W.x, W.dy, dS.B, dS.C) at BF16X3_FLOPS."""
     pairs = Bp * L * (L + 1) // 2
     xs, hs, ns = Bp * L * H * P * esz, Bp * L * H * 4, Bp * L * N * esz
-    if not backward:                   # x, dt, cs, Bm, Cm in; y out
-        return xs + 2 * hs + 2 * ns + xs, pairs * (2 * N + 2 * H * P)
-    # forward, then x, dt, cs, Bm, Cm and dy in, five grads out
-    return (2 * xs + 2 * hs + 2 * ns + 3 * xs + 4 * hs + 4 * ns,
-            pairs * (8 * N + 6 * H * P))
+    # (bytes, FLOP of two x-dtype operands, FLOP with a float32 operand)
+    fwd = (xs + 2 * hs + 2 * ns + xs, pairs * 2 * N, pairs * 2 * H * P)
+    bwd = (3 * xs + 4 * hs + 4 * ns, pairs * (2 * N + 2 * H * P),
+           pairs * (4 * N + 2 * H * P))
+    nbytes, same, mixed = {"fwd": fwd, "bwd": bwd}.get(
+        part, tuple(a + b for a, b in zip(fwd, bwd)))
+    if esz == 4:
+        return nbytes, same + mixed, TF32X3_FLOPS
+    secs = same / BF16_FLOPS + mixed / BF16X3_FLOPS
+    return nbytes, same + mixed, (same + mixed) / secs
+
+
+def check_ran(name: str, fn, kernels) -> str:
+    """The kernels a traced call of ``fn`` ran must include ``kernels``: a
+    time filed under them is never another's (a trace that lost every
+    event shows nothing)."""
+    ran = kernel_names(fn)
+    missing = [k for k in kernels if not any(k in n for n in ran)]
+    if ran and missing:
+        raise AssertionError(f"{name}: no {missing} in {ran}")
+    return " + ".join(kernels) if ran else "no events traced"
 
 
 def ssd_case(rng, name: str, *, Bp, L, H, P, N,
@@ -513,18 +558,62 @@ def ssd_case(rng, name: str, *, Bp, L, H, P, N,
         raise AssertionError(f"{name}: kernel vs plain max |err| {err} of "
                              f"{scale}")
     # no single PyTorch call computes this function: library_ms is None
-    t = {"library_ms": None, **timings(
-        ms=lambda: ssd_chunk_fwd(*args),
-        plain_ms=lambda: ssd_chunk_fwd(*args, impl="ref"))}
+    fns = dict(ms=lambda: ssd_chunk_fwd(*args),
+               plain_ms=lambda: ssd_chunk_fwd(*args, impl="ref"))
+    t = {"library_ms": None, **timings(**fns)}
     esz = args[0].element_size()
     return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
-            "dtype": str(dtype), "max_abs_err": err, "out_max_abs": scale,
+            "dtype": str(dtype),
+            "kernel": check_ran(name, fns["ms"], SSD_FWD_KERNELS),
+            "max_abs_err": err, "out_max_abs": scale,
             "tolerance": {"atol": f"{atol} x out_max_abs", "rtol": rtol},
-            **t, **bound(*ssd_work(Bp, L, H, P, N, esz), FP32_FLOPS)}
+            **t, **bound(*ssd_work(Bp, L, H, P, N, esz))}
+
+
+def check_grads(name: str, got, want) -> dict:
+    """Each grad against its plain counterpart: float32 grads to
+    SSD_GRAD_TOL, bf16 grads to SSD_TOL[bf16], atol a share of the grad's
+    largest magnitude.  Returns each grad's max |err|."""
+    errs = {}
+    for key, a, b in zip(("x", "dt", "dA_cs", "Bm", "Cm"), got, want):
+        atol, rtol = (SSD_GRAD_TOL if a.dtype == torch.float32
+                      else SSD_TOL[a.dtype])
+        scale = float(b.float().abs().max())
+        errs[key] = float((a.float() - b.float()).abs().max())
+        if not (torch.allclose(a.float(), b.float(), atol=atol * scale,
+                               rtol=rtol) and torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: d{key} max |err| {errs[key]} of "
+                                 f"{scale}")
+    return errs
+
+
+def ssd_bwd_case(rng, name: str, *, Bp, L, H, P, N,
+                 dtype=torch.float32) -> dict:
+    """The backward on its own: the kernel against the plain backward on
+    the same inputs and upstream gradient."""
+    from repro_torch.kernels import ssd_chunk_bwd
+
+    args = ssd_inputs(rng, Bp, L, H, P, N, dtype)
+    dy = randn(rng, Bp, L, H, P, dtype=dtype)
+    got = ssd_chunk_bwd(*args, dy)
+    want = ssd_chunk_bwd(*args, dy, impl="ref")
+    torch.cuda.synchronize()
+    errs = check_grads(name, got, want)
+    fns = dict(ms=lambda: ssd_chunk_bwd(*args, dy),
+               plain_ms=lambda: ssd_chunk_bwd(*args, dy, impl="ref"))
+    t = {"library_ms": None, **timings(**fns)}
+    esz = args[0].element_size()
+    return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
+            "dtype": str(dtype),
+            "kernel": check_ran(name, fns["ms"], SSD_BWD_KERNELS),
+            "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
+            "tolerance": {"float32": f"{SSD_GRAD_TOL} (atol x grad_max_abs"
+                          ", rtol)", "bf16": str(SSD_TOL[torch.bfloat16])},
+            **t, **bound(*ssd_work(Bp, L, H, P, N, esz, "bwd"))}
 
 
 def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
-    """The op's five gradients (kernel forward, plain backward) against
+    """The op's five gradients (forward and backward kernels) against
     torch.autograd through the plain forward, and both timed forward +
     backward."""
     from repro_torch.kernels import ssd_chunk, ssd_chunk_ref
@@ -538,23 +627,18 @@ def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
 
     got, want = grads(ssd_chunk), grads(ssd_chunk_ref)
     torch.cuda.synchronize()
+    errs = check_grads(name, got, want)
+    fns = dict(ms=lambda: grads(ssd_chunk),
+               plain_ms=lambda: grads(ssd_chunk_ref))
+    t = {"library_ms": None, **timings(**fns)}
     atol, rtol = SSD_GRAD_TOL
-    errs = {}
-    for key, a, b in zip(("x", "dt", "dA_cs", "Bm", "Cm"), got, want):
-        scale = float(b.abs().max())
-        errs[key] = float((a - b).abs().max())
-        if not (torch.allclose(a, b, atol=atol * scale, rtol=rtol)
-                and torch.isfinite(a).all()):
-            raise AssertionError(f"{name}: d{key} max |err| {errs[key]} of "
-                                 f"{scale}")
-    t = {"library_ms": None, **timings(ms=lambda: grads(ssd_chunk),
-                                       plain_ms=lambda: grads(ssd_chunk_ref))}
     return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
+            "kernel": check_ran(name, fns["ms"],
+                                SSD_FWD_KERNELS + SSD_BWD_KERNELS),
             "max_abs_err": max(errs.values()),
             "grad_max_abs_err": errs,
             "tolerance": {"atol": f"{atol} x grad_max_abs", "rtol": rtol},
-            **t, **bound(*ssd_work(Bp, L, H, P, N, 4, backward=True),
-                         FP32_FLOPS)}
+            **t, **bound(*ssd_work(Bp, L, H, P, N, 4, "both"))}
 
 
 # ---------------------------------------------------------------------------
@@ -759,9 +843,9 @@ def path_vs_plain(api, params, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_main_path(api, cfg, kernel: str) -> dict:
-    """``kernel``: the wrapper whose launches the step must show, one per
-    layer and microbatch in the forward and one in the remat recompute."""
+def train_main_path(api, cfg, expected: dict) -> dict:
+    """``expected``: each kernel wrapper the step must launch, with its
+    launches per step."""
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, LoopConfig, run_training
@@ -777,7 +861,6 @@ def train_main_path(api, cfg, kernel: str) -> dict:
                                    total_steps=TRAIN_STEPS), device="cuda")
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
-    per_step = 2 * cfg.n_layers * TRAIN_MB      # forward + remat recompute
     assert res.steps_run == TRAIN_STEPS and all(map(math.isfinite,
                                                     res.losses)), res
     # random init: unit-RMS final norm times the tied N(0, 0.02^2)
@@ -786,15 +869,16 @@ def train_main_path(api, cfg, kernel: str) -> dict:
     offset = 0.02 ** 2 * cfg.d_model / 2
     expect0 = math.log(cfg.vocab) + offset
     assert abs(res.losses[0] - expect0) < 0.5, (res.losses, expect0)
-    assert launches[kernel] == per_step * TRAIN_STEPS, launches
+    for kernel, per_step in expected.items():
+        assert launches[kernel] == per_step * TRAIN_STEPS, (kernel, launches)
     step_s = statistics.median(res.step_seconds[1:])
     tokens = TRAIN_BATCH * TRAIN_S
     return {"losses": res.losses, "step_seconds": res.step_seconds,
             "step_s_median_2_4": step_s, "tokens_per_step": tokens,
             "tokens_per_s": tokens / step_s, "launches": launches,
-            "kernel": kernel,
-            "launches_per_step": launches[kernel] // TRAIN_STEPS,
-            "expected_per_step": per_step,
+            "launches_per_step": {k: launches[k] // TRAIN_STEPS
+                                  for k in expected},
+            "expected_per_step": expected,
             "first_loss_expected": expect0,
             "first_loss_offset_measured": res.losses[0] - math.log(cfg.vocab),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -813,9 +897,10 @@ def fresh_params(api, seed: int = 0):
     return init_params(api.init_specs(), gen, device="cuda")
 
 
-def train_profile(api, cfg, kernel: str, trace_names) -> dict:
-    """One warm train step, then a CUPTI window over the next
-    (``trace_names``: the names of the op's kernels in the trace)."""
+def train_profile(api, cfg, expected: dict, ops: dict) -> dict:
+    """One warm train step, then a CUPTI window over the next, holding the
+    step to ``expected`` launches (as train_main_path); ``ops`` maps each
+    op to the names of its kernels in the trace, and each must show."""
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, make_train_step
 
@@ -831,16 +916,27 @@ def train_profile(api, cfg, kernel: str, trace_names) -> dict:
 
     one()
     common.reset_launch_counts()
-    out = profiled_window(one, 1, {kernel: trace_names})
-    assert common.LAUNCHES[kernel] == 2 * cfg.n_layers * TRAIN_MB, \
-        common.LAUNCHES
+    out = profiled_window(one, 1, ops)
+    for kernel, per_step in expected.items():
+        assert common.LAUNCHES[kernel] == per_step, (kernel, common.LAUNCHES)
+    traced = sum(out["ops_kernels_per_step"].values())
+    if traced and not all(out["ops_kernels_per_step"].values()):
+        raise AssertionError(f"an op's kernels are missing from the trace: "
+                             f"{out['ops_kernels_per_step']}")
     return out
 
 
-def train_path_vs_plain(api, cfg, seed: int = 0) -> dict:
+# the bounds of train_path_vs_plain, by the reading each holds
+TRAIN_BOUNDS = {"loss_abs_diff": LOSS_TOL, "grad_norm_rel_diff": GNORM_TOL,
+                "leaf_rel_err_max": LEAF_TOL}
+
+
+def train_path_vs_plain(api, cfg, seed: int = 0,
+                        bounds: dict = TRAIN_BOUNDS) -> dict:
     """Loss and grads of one microbatch through the kernel and through the
     plain version, from the parameters and batch of ``seed``;
-    ``within_tolerance`` says whether every bound held."""
+    ``within_tolerance`` says whether every bound in ``bounds`` (reading
+    -> its largest value) held."""
     from repro_torch.train import make_loss_and_grad
     from repro_torch.train.optimizer import leaves
 
@@ -864,12 +960,9 @@ def train_path_vs_plain(api, cfg, seed: int = 0) -> dict:
            "grad_norm_rel_diff": abs(norm_k - norm_r) / norm_r,
            "leaf_rel_err_max": max(leaf_err),
            "leaf_rel_err_median": statistics.median(leaf_err),
-           "leaves": len(leaf_err),
-           "tolerances": {"loss": LOSS_TOL, "grad_norm": GNORM_TOL,
-                          "leaf": LEAF_TOL}}
-    res["within_tolerance"] = not (
-        res["loss_abs_diff"] > LOSS_TOL or res["grad_norm_rel_diff"] >
-        GNORM_TOL or res["leaf_rel_err_max"] > LEAF_TOL)
+           "leaves": len(leaf_err), "activations": str(cfg.dtype),
+           "tolerances": bounds}
+    res["within_tolerance"] = all(res[k] <= v for k, v in bounds.items())
     return res
 
 
@@ -942,7 +1035,17 @@ def main() -> int:
                  dtype=torch.bfloat16),
         ssd_case(rng, "ssd ragged L=100 H=6", Bp=4, L=100, H=6, P=64,
                  N=128),
+        ssd_bwd_case(rng, "ssd bwd path B'=16 L=256 H=64 float32",
+                     **SSD_PATH),
+        ssd_bwd_case(rng, "ssd bwd path B'=16 L=256 H=64 bf16", **SSD_PATH,
+                     dtype=torch.bfloat16),
+        ssd_bwd_case(rng, "ssd bwd ragged L=100 H=6", Bp=4, L=100, H=6,
+                     P=64, N=128),
         ssd_grad_case(rng, "ssd grads path shape", **SSD_PATH),
+        # mamba2 at chunk 512 over the path's 4096 tokens: both kernels walk
+        # their tiles in windows of 256 positions
+        ssd_case(rng, "ssd chunk 512 B'=8 float32", **SSD_512),
+        ssd_grad_case(rng, "ssd grads chunk 512", **SSD_512),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -971,11 +1074,15 @@ def main() -> int:
     del params                       # the serving phases' weights
     release()
 
-    train = train_main_path(api, cfg, "flash_attention")
+    # each layer's forward runs twice (remat "full" recomputes it), its
+    # backward once
+    flash_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB}
+    train = train_main_path(api, cfg, flash_step)
     log("phase4", json.dumps(train))
     release()
     log("phase4 profile", json.dumps(train_profile(
-        api, cfg, "flash_attention", tuple(FLASH_KERNELS.values()))))
+        api, cfg, flash_step,
+        {"flash_attention": tuple(FLASH_KERNELS.values())})))
     release()
     for seed in PHASE5_SEEDS:
         check_train_path(f"phase5 seed={seed}",
@@ -984,14 +1091,32 @@ def main() -> int:
 
     cfg = get_config("mamba2-1.3b")
     api = build_model(cfg)
-    ssm_train = train_main_path(api, cfg, "ssd_chunk")
+    ssd_step = {"ssd_chunk": 2 * cfg.n_layers * TRAIN_MB,
+                "ssd_chunk_bwd": cfg.n_layers * TRAIN_MB}
+    ssm_train = train_main_path(api, cfg, ssd_step)
     log("phase6", json.dumps(ssm_train))
     release()
     log("phase6 profile", json.dumps(train_profile(
-        api, cfg, "ssd_chunk", ("ssd_chunk_kernel",))))
+        api, cfg, ssd_step, {"ssd_chunk": SSD_FWD_KERNELS,
+                             "ssd_chunk_bwd": SSD_BWD_KERNELS})))
     release()
-    check_train_path("phase7", train_path_vs_plain(api, cfg))
-    release()
+    # mamba2-1.3b in bf16 amplifies a 1e-7 relative change of ssd_chunk's
+    # output to ~30% in every grad leaf at init (PERF.md §6, PR 17), so the
+    # kernel path is held to phase 5's bounds with float32 activations,
+    # where the same change reads 1e-4 and a kernel that drops a key tile
+    # reads >= 0.13 (grad norm) and >= 0.5 (leaf), and in bf16, the
+    # activations phase 6 trains in, to the grad-norm bound alone
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    api32 = build_model(cfg32)
+    for seed in PHASE5_SEEDS:
+        check_train_path(f"phase7 float32 seed={seed}",
+                         train_path_vs_plain(api32, cfg32, seed))
+        release()
+    del api32
+    for seed in PHASE5_SEEDS:
+        check_train_path(f"phase7 bf16 seed={seed}", train_path_vs_plain(
+            api, cfg, seed, {"grad_norm_rel_diff": SSD_BF16_GNORM_TOL}))
+        release()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = cast_params(init_params(api.init_specs(), gen, device="cuda"),
                          cfg)
@@ -1045,6 +1170,28 @@ def main() -> int:
                                    "ms_over_library", "max_abs_err",
                                    "lse_max_abs_err")}
                 for c in cases if c["case"].startswith("flash ")]
+        if name == "ssd_chunk":   # forward, backward, forward + backward
+            bwd_src = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
+            ops = {"ssd ": ("ssd_chunk", src),
+                   "ssd bwd": ("ssd_chunk_bwd", bwd_src),
+                   "ssd grads": ("ssd_chunk+ssd_chunk_bwd",
+                                 f"{src} + {bwd_src}")}
+            kernels[-1]["cases"] = []
+            for c in cases:
+                op = max((k for k in ops if c["case"].startswith(k)),
+                         key=len, default=None)
+                if op is None:
+                    continue
+                op_name, op_src = ops[op]
+                kernels[-1]["cases"].append({
+                    "name": op_name, "route": "cuda", "source": op_src,
+                    "replaces": replaces,
+                    "launches": {k: launches[k]
+                                 for k in op_name.split("+")},
+                    **{k: c[k] for k in ("case", "kernel", "ms", "bound_ms",
+                                         "bound_by", "plain_ms",
+                                         "library_ms", "max_abs_err",
+                                         "ms_call")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

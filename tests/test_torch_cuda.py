@@ -6,7 +6,9 @@ MQA, window and softcap; the flash kernel over causal, windowed,
 softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
 64, 128 and 256, groups of 1 and 6, operands TMA cannot address as given,
 and its repeatability; the ssd_chunk kernel over float32 and bf16 with ragged
-L, H, P and N, and its autograd Function's gradients — and the SMOKE
+L, H, P and N and chunks longer than 256, its backward kernel over the same
+(and its repeatability and argument checks), and its autograd Function's
+gradients — and the SMOKE
 models' serve step, greedy engine output and train step (qwen2 and
 mamba2), kernel path against plain path.
 
@@ -27,7 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import (attention, attention_fwd, common,
                                  kv_append_chunk, paged_attention,
                                  paged_attention_chunk, ssd_chunk,
-                                 ssd_chunk_fwd, ssd_chunk_ref)
+                                 ssd_chunk_bwd, ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import paged_chunk_ids
 from repro_torch.serve import ServingEngine
@@ -366,6 +368,11 @@ SSD_CASES = [
     (1, 100, 6, 64, 128, "float32"),     # ragged L, H not a multiple of 4
     (1, 100, 6, 64, 128, "bfloat16"),
     (1, 70, 3, 130, 257, "float32"),     # P > 64 (two column tiles), N > 256
+    # chunks longer than the 256 positions whose scores a block keeps: key
+    # tiles walked in windows, y's partials carried in the workspace
+    (2, 512, 8, 64, 128, "float32"),
+    (2, 600, 6, 64, 128, "bfloat16"),
+    (1, 1100, 3, 5, 7, "float32"),
 ]
 
 
@@ -409,9 +416,92 @@ def test_ssd_chunk_function_grads_match_autograd_of_plain(cuda):
     ga = torch.autograd.grad(ssd_chunk(*a), a, dy)
     gb = torch.autograd.grad(ssd_chunk_ref(*b), b, dy)
     assert common.LAUNCHES["ssd_chunk"] == 1
+    assert common.LAUNCHES["ssd_chunk_bwd"] == 1
     for x, y in zip(ga, gb):
         scale = float(y.abs().max())
         torch.testing.assert_close(x, y, atol=1e-5 * scale, rtol=1e-4)
+    # impl="ref" keeps the backward plain on the card too
+    common.reset_launch_counts()
+    c = [t.clone().requires_grad_() for t in args]
+    gc = torch.autograd.grad(ssd_chunk(*c, impl="ref"), c, dy)
+    assert common.LAUNCHES["ssd_chunk"] == common.LAUNCHES["ssd_chunk_bwd"] \
+        == 0
+    for x, y in zip(gc, ssd_chunk_bwd(*args, dy, impl="ref")):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+SSD_BWD_CASES = [
+    # B', L, H, P, N, dtype
+    (16, 256, 64, 64, 128, "float32"),   # the training path's shape
+    (2, 256, 64, 64, 128, "bfloat16"),
+    (4, 100, 6, 64, 128, "float32"),     # ragged L, one short head group
+    (4, 100, 6, 64, 128, "bfloat16"),
+    (2, 32, 8, 16, 16, "float32"),       # the SMOKE model's chunk
+    (2, 100, 10, 5, 7, "float32"),       # P = 5, N = 7: scalar tile loads
+    (1, 70, 3, 130, 257, "float32"),     # three column tiles of P, N > 256
+    (3, 64, 9, 64, 128, "float32"),      # one tile; heads 8 + 1
+    # chunks longer than 256 (query tiles walked in windows): mamba2 at
+    # chunk 512 over the path's 4096 tokens, bf16, ragged over 5 windows
+    (8, 512, 64, 64, 128, "float32"),
+    (2, 600, 6, 64, 128, "bfloat16"),
+    (1, 1100, 3, 5, 7, "float32"),
+]
+
+
+@pytest.mark.parametrize("Bp,L,H,P,N,dtype", SSD_BWD_CASES)
+def test_ssd_chunk_bwd_kernel_matches_plain(cuda, Bp, L, H, P, N, dtype):
+    """Every grad against the plain backward on the same inputs: float32
+    differs in summation order and the 3xTF32 split (1e-5 of the grad's
+    scale, rtol 1e-4, chip_smoke.py's SSD_GRAD_TOL); bf16 grads round
+    float32 values that agree to that, so by one bf16 ulp (rtol 1.6e-2)."""
+    rng = np.random.default_rng(L * 5 + H + P)
+    args = ssd_inputs(rng, Bp, L, H, P, N, dtype, cuda)
+    dy = randn(rng, (Bp, L, H, P), dtype, cuda)
+    common.reset_launch_counts()
+    got = ssd_chunk_bwd(*args, dy)
+    want = ssd_chunk_bwd(*args, dy, impl="ref")
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["ssd_chunk_bwd"] == 1
+    for name, a, b, inp in zip(("x", "dt", "dA_cs", "Bm", "Cm"), got, want,
+                               args):
+        assert a.dtype == inp.dtype and a.shape == inp.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = float(b.float().abs().max())
+        atol, rtol = ((1e-5, 1e-4) if a.dtype == torch.float32
+                      else (2e-5, 1.6e-2))
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * scale,
+                                   rtol=rtol, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("L", [256, 512])
+def test_ssd_chunk_bwd_kernel_is_bitwise_repeatable(cuda, L):
+    """No atomics: partial sums meet in a fixed order, so every grad has
+    the same bits on every call (at L = 512 with two windows)."""
+    rng = np.random.default_rng(11)
+    args = ssd_inputs(rng, 4, L, 24, 64, 128, "float32", cuda)
+    dy = randn(rng, (4, L, 24, 64), "float32", cuda)
+    first = ssd_chunk_bwd(*args, dy)
+    for _ in range(3):
+        again = ssd_chunk_bwd(*args, dy)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_ssd_chunk_bwd_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    rng = np.random.default_rng(0)
+    x, dt, cs, Bm, Cm = ssd_inputs(rng, 1, 8, 2, 4, 4, "float32", cuda)
+    dy = torch.ones_like(x)
+    with pytest.raises(ValueError):                  # dy's shape
+        ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy[:, :4].contiguous())
+    with pytest.raises(TypeError):                   # dy in x's dtype
+        ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy.bfloat16())
+    with pytest.raises(TypeError):                   # dt must be float32
+        ssd_chunk_bwd(x, dt.bfloat16(), cs, Bm, Cm, dy)
+    with pytest.raises(ValueError):                  # non-contiguous
+        ssd_chunk_bwd(x.transpose(1, 2), dt, cs, Bm, Cm, dy)
+    with pytest.raises(ValueError):                  # CPU tensor, kernel asked
+        ssd_chunk_bwd(*(t.cpu() for t in (x, dt, cs, Bm, Cm, dy)),
+                      impl="cuda")
 
 
 def test_ssd_chunk_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -449,9 +539,11 @@ def test_mamba2_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
         common.reset_launch_counts()
         state, metrics = step(state, batch)
         out[impl] = (float(metrics["loss"]), state["params"],
-                     common.LAUNCHES["ssd_chunk"])
+                     common.LAUNCHES["ssd_chunk"],
+                     common.LAUNCHES["ssd_chunk_bwd"])
     # two microbatches, each layer's forward run again by remat "full"
     assert out[None][2] == 2 * 2 * cfg.n_layers and out["ref"][2] == 0
+    assert out[None][3] == 2 * cfg.n_layers and out["ref"][3] == 0
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert out[None][0] == pytest.approx(out["ref"][0], rel=tol)
     for a, b in zip(leaves(out[None][1]), leaves(out["ref"][1])):

@@ -227,7 +227,8 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
     assert pool[1, :2].eq(1).all()
     assert common.LAUNCHES == {"kv_append_chunk": 0,
                                "paged_attention_chunk": 0,
-                               "flash_attention": 0, "ssd_chunk": 0}
+                               "flash_attention": 0, "ssd_chunk": 0,
+                               "ssd_chunk_bwd": 0}
 
 
 def test_cuda_device_request_without_card_raises():

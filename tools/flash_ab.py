@@ -56,23 +56,23 @@ def run_tree(root: Path, turn: int) -> None:
               flush=True)
 
 
-def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        run_tree(Path(sys.argv[2]).resolve(), int(sys.argv[3]))
-        return 0
-    roots = [Path(r).resolve() for r in sys.argv[1:]]
+def turns(script: str, args, doc: str) -> int:
+    """Run ``script --one ROOT TURN`` for each ROOT of ``args`` in turn, one
+    process per tree, then print the card's name and power limit."""
+    roots = [Path(r).resolve() for r in args]
     if not roots:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
-        print("flash_ab: needs a CUDA card", file=sys.stderr)
+        print(f"{Path(script).name}: needs a CUDA card", file=sys.stderr)
         return 2
     for turn, root in enumerate(roots):
         if not (root / "chip_smoke.py").exists():
-            print(f"flash_ab: no chip_smoke.py in {root}", file=sys.stderr)
+            print(f"{Path(script).name}: no chip_smoke.py in {root}",
+                  file=sys.stderr)
             return 2
-        rc = subprocess.run([sys.executable, __file__, "--one", str(root),
+        rc = subprocess.run([sys.executable, script, "--one", str(root),
                              str(turn)]).returncode
         if rc:
             return rc
@@ -81,6 +81,13 @@ def main() -> int:
                          text=True)
     print(f"nvidia-smi: {smi.stdout.strip()}")
     return 0
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        run_tree(Path(sys.argv[2]).resolve(), int(sys.argv[3]))
+        return 0
+    return turns(__file__, sys.argv[1:], __doc__)
 
 
 if __name__ == "__main__":
