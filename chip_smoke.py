@@ -16,14 +16,17 @@ sm_90a) and then, failing with a non-zero exit on any error:
      KV=2, D=128, causal, bf16), at D=64 and D=256, with a window, a
      softcap, non-causal, a ragged S=1000 and one float32 case, each with
      its achieved TFLOP/s, its time over SDPA's and the name of the kernel
-     its trace ran; ``ssd_chunk``'s forward and its backward kernel, each
+     its trace ran; the flash backward kernels at the same cases, each
+     against the plain backward on the same forward residuals, with its
+     time beside the plain backward's and SDPA's backward, the device
+     time of each kernel its trace ran, and forward + backward through
+     autograd beside SDPA's forward + backward; ``ssd_chunk``'s forward and its backward kernel, each
      on its own, at the mamba2 training path's shape (B'=16 chunks, L=256,
      H=64, P=64, N=128) in float32 and bf16, at a ragged L=100, H=6 and
      at chunk 512 (key and query tiles walked in windows of 256), and the
      op's forward + backward through autograd against autograd of the
      plain forward.  It times kernel, plain version and one PyTorch
-     library call where there is one (a yardstick the port never calls),
-     and the plain attention backward beside SDPA's;
+     library call where there is one (a yardstick the port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` with one POSIX and one
      STRICT session, and checks that every serve step launched both
@@ -33,8 +36,10 @@ sm_90a) and then, failing with a non-zero exit on any error:
      and compares logits and pools;
   4. trains qwen2-1.5b at full width with ``run_training``: 4 AdamW steps
      of 4 microbatches of one 4096-token sequence, remat "full", and
-     checks finite losses and 2 x 28 x 4 flash launches per step (each
-     layer's forward runs again in the backward); profiles one step;
+     checks finite losses, 2 x 28 x 4 flash launches per step (each
+     layer's forward runs again in the backward) and 28 x 4 flash
+     backward launches; profiles one step, with both ops' kernels traced
+     by name;
   5. takes the loss and every grad of one microbatch twice from the same
      parameters, through the kernel and through the plain version, at three
      draws of batch and parameters (seeds 0, 1, 2), each held to every
@@ -83,7 +88,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
-FP32_FLOPS = 67e12               # float32 outside the tensor cores
 # float32-exact products on the tensor cores: 3xTF32 (each operand split
 # into two TF32 parts, three products) at a third of the dense TF32 peak
 TF32X3_FLOPS = 494.7e12 / 3
@@ -105,6 +109,12 @@ PATH_REL_TOL = 5e-2              # phase 3: 28 bf16 layers, see PERF.md
 # (2^-7 relative at the bottom of a binade; rtol covers two)
 FLASH_TOL = {torch.bfloat16: (4e-3, 1.6e-2), torch.float32: (2e-5, 2e-5)}
 LSE_ATOL = 1e-4                  # flash lse, float32 in both versions
+# flash backward kernel vs plain backward on the same residuals, (atol as a
+# share of the grad's largest magnitude, rtol): float32 takes its products
+# in 3xTF32 (about 2^-21 relative each against float32's 2^-24) and sums
+# in another order; bf16 rounds P and dS to bf16 before the products (2^-9
+# relative each, as SDPA does) and the grads once more on the way out
+FLASH_BWD_TOL = {torch.bfloat16: (1e-2, 3e-2), torch.float32: (2e-5, 1e-4)}
 # phase 4-5: the training shape (configs/shapes.py TRAIN_4K's sequence)
 TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 4, 4
 # phase 5 bounds, each well above the largest reading of a correct bf16
@@ -144,6 +154,11 @@ SSD_GRAD_TOL = (1e-5, 1e-4)
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_kernel"}
+# the flash backward's kernels of each dtype
+FLASH_BWD_KERNELS = {
+    torch.bfloat16: ("flash_bwd_prep_kernel", "flash_bwd_kv_kernel",
+                     "flash_bwd_q_kernel"),
+    torch.float32: ("flash_bwd_prep_kernel", "flash_bwd_f32_kernel")}
 # ssd_chunk's forward and backward kernels, as CUPTI names them
 SSD_FWD_KERNELS = ("ssd_chunk_tc_kernel",)
 SSD_BWD_KERNELS = ("ssd_bwd_tile_kernel", "ssd_bwd_finish_kernel")
@@ -223,6 +238,25 @@ def kernel_names(fn, tries: int = 3) -> list:
         if names:
             return names
     return []
+
+
+def kernel_split(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name (template
+    arguments kept), from a CUPTI trace of ``reps`` calls; empty when the
+    trace recorded no event (see device_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in device_events(prof):
+        key = e["name"].replace("(anonymous namespace)::", "")
+        key = key.removeprefix("void ").split("(")[0]
+        split[key] = split.get(key, 0.0) + e["dur"] / reps / 1e3
+    return split
 
 
 def ptxas_summary(build_log: str) -> list:
@@ -421,6 +455,22 @@ def flash_inputs(rng, S, dtype, D=128, Sk=None):
             randn(rng, 1, Sk, KV, D, dtype=dtype))
 
 
+def sdpa_args(q, k, v, causal, window):
+    """SDPA's [B, H, S, D] views of q, k, v and its mask arguments for the
+    same attention (a window needs a mask, built here, outside any timed
+    call)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None:
+        return (qt, kt, vt), {"is_causal": causal, "enable_gqa": True}
+    Sq, Sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    m = kpos > qpos - window
+    if causal:
+        m &= kpos <= qpos
+    return (qt, kt, vt), {"attn_mask": m, "enable_gqa": True}
+
+
 def flash_case(rng, name: str, S: int, *, causal=True, window=None,
                softcap=None, dtype=torch.bfloat16, D=128) -> dict:
     import torch.nn.functional as F
@@ -441,25 +491,16 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
     fns = dict(ms=lambda: attention_fwd(q, k, v, **kw),
                plain_ms=lambda: attention_fwd(q, k, v, impl="ref", **kw))
     if softcap is None:
-        # yardstick: SDPA on [B, H, S, D] views built outside the timed
-        # call (a window needs a mask, also built outside)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        if window is None:
-            fns["library_ms"] = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-        else:
-            pos = torch.arange(S, device="cuda")
-            m = pos[None, :] > pos[:, None] - window
-            if causal:
-                m &= pos[None, :] <= pos[:, None]
-            fns["library_ms"] = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=m, enable_gqa=True)
+        # yardstick: SDPA on [B, H, S, D] views built outside the timed call
+        (qt, kt, vt), skw = sdpa_args(q, k, v, causal, window)
+        fns["library_ms"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **skw)
     t = {"library_ms": None, **timings(**fns)}
     ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],))
     flops = 4 * H * D * visible_keys(S, S, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + lse.numel() * 4
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
     lib = t["library_ms"]
     return {"case": name, "S": S, "D": D, "dtype": str(dtype),
             "kernel": ran,
@@ -470,28 +511,66 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
             **bound(nbytes, flops, peak)}
 
 
-def flash_backward_times(rng) -> dict:
-    """The plain attention backward (the port's, on every device) beside
-    SDPA's backward, at the training shape; not a TPU kernel."""
+def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
+                   softcap=None, dtype=torch.bfloat16, D=128) -> dict:
+    """The backward kernel against the plain backward on the same forward
+    residuals and upstream gradient; timed beside the plain backward and
+    SDPA's backward, and forward + backward through autograd beside SDPA's
+    forward + backward."""
     import torch.nn.functional as F
-    from repro_torch.kernels import attention_fwd, blockwise_bwd
+    from repro_torch.kernels import attention, attention_bwd, attention_fwd
 
-    q, k, v = flash_inputs(rng, TRAIN_S, torch.bfloat16)
-    out, lse = attention_fwd(q, k, v)
-    g = randn(rng, *q.shape)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-    gt = g.transpose(1, 2)
-    t = timings(plain_ms=lambda: blockwise_bwd(q, k, v, out, lse, g),
-                library_ms=lambda: torch.autograd.grad(
-                    o_sdpa, (qt, kt, vt), gt, retain_graph=True))
-    # dQ, dK, dV: five products of the forward's size (s, dp, dq, dk, dv)
-    flops = 10 * H * 128 * visible_keys(TRAIN_S, TRAIN_S, True, None)
-    return {"case": "attention backward S=4096 causal", **t,
-            "bound_ms": flops / BF16_FLOPS * 1e3, "bound_by": "operations",
-            "flops": flops}
+    q, k, v = flash_inputs(rng, S, dtype, D)
+    g = randn(rng, *q.shape, dtype=dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = attention_fwd(q, k, v, **kw)
+    got = attention_bwd(q, k, v, out, lse, g, **kw)
+    want = attention_bwd(q, k, v, out, lse, g, impl="ref", **kw)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    errs, rel = {}, {}
+    for key, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        errs[key] = float((a.float() - b.float()).abs().max())
+        rel[key] = errs[key] / max(scale, 1e-30)
+        if not (torch.allclose(a.float(), b.float(), atol=atol * scale,
+                               rtol=rtol) and torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: {key} max |err| {errs[key]} of "
+                                 f"{scale}")
+    del got, want
+    req = [x.detach().requires_grad_() for x in (q, k, v)]
+    fns = dict(ms=lambda: attention_bwd(q, k, v, out, lse, g, **kw),
+               plain_ms=lambda: attention_bwd(q, k, v, out, lse, g,
+                                              impl="ref", **kw),
+               fwd_bwd_ms=lambda: torch.autograd.grad(
+                   attention(*req, **kw), req, g))
+    if softcap is None:
+        # yardsticks: SDPA's backward alone and its forward + backward
+        (qt, kt, vt), skw = sdpa_args(*req, causal, window)
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, **skw)
+        gt = g.transpose(1, 2)
+        fns["library_ms"] = lambda: torch.autograd.grad(
+            o_sdpa, req, gt, retain_graph=True)
+        fns["library_fwd_bwd_ms"] = lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, **skw), req, gt)
+    t = {"library_ms": None, "library_fwd_bwd_ms": None, **timings(**fns)}
+    ran = check_ran(name, fns["ms"], FLASH_BWD_KERNELS[dtype])
+    # five products of the forward's size: S, dP, dQ, dK, dV; each input
+    # (q, k, v, out, dO, lse) read once, each grad written once
+    flops = 10 * H * D * visible_keys(S, S, causal, window)
+    esz = q.element_size()
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * esz \
+        + lse.numel() * 4
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
+    lib = t["library_ms"]
+    return {"case": name, "S": S, "D": D, "dtype": str(dtype),
+            "kernel": ran, "ms_by_kernel": kernel_split(fns["ms"]),
+            "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
+            "grad_rel_err": rel,
+            "tolerance": {"atol": f"{atol} x grad_max_abs", "rtol": rtol},
+            **t, "tflops": flops / t["ms"] / 1e9,
+            "ms_over_library": None if lib is None else t["ms"] / lib,
+            **bound(nbytes, flops, peak)}
 
 
 def ssd_inputs(rng, Bp, L, H, P, N, dtype):
@@ -1030,6 +1109,18 @@ def main() -> int:
         flash_case(rng, "flash S=1000 ragged", 1000),
         flash_case(rng, "flash S=512 D=64 float32", 512,
                    dtype=torch.float32, D=64),
+        flash_bwd_case(rng, "flash bwd S=4096 causal", TRAIN_S),
+        flash_bwd_case(rng, "flash bwd S=4096 causal D=64", TRAIN_S, D=64),
+        flash_bwd_case(rng, "flash bwd S=4096 causal D=256", TRAIN_S, D=256),
+        flash_bwd_case(rng, "flash bwd S=4096 window=1024", TRAIN_S,
+                       window=1024),
+        flash_bwd_case(rng, "flash bwd S=4096 softcap=30", TRAIN_S,
+                       softcap=30.0),
+        flash_bwd_case(rng, "flash bwd S=4096 non-causal", TRAIN_S,
+                       causal=False),
+        flash_bwd_case(rng, "flash bwd S=1000 ragged", 1000),
+        flash_bwd_case(rng, "flash bwd S=512 D=64 float32", 512,
+                       dtype=torch.float32, D=64),
         ssd_case(rng, "ssd path B'=16 L=256 H=64 float32", **SSD_PATH),
         ssd_case(rng, "ssd path B'=16 L=256 H=64 bf16", **SSD_PATH,
                  dtype=torch.bfloat16),
@@ -1049,7 +1140,6 @@ def main() -> int:
     ]
     for c in cases:
         log("phase1", json.dumps(c))
-    log("phase1 backward", json.dumps(flash_backward_times(rng)))
 
     cfg = get_config("qwen2-1.5b")
     api = build_model(cfg)
@@ -1076,13 +1166,15 @@ def main() -> int:
 
     # each layer's forward runs twice (remat "full" recomputes it), its
     # backward once
-    flash_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB}
+    flash_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB,
+                  "flash_attention_bwd": cfg.n_layers * TRAIN_MB}
     train = train_main_path(api, cfg, flash_step)
     log("phase4", json.dumps(train))
     release()
     log("phase4 profile", json.dumps(train_profile(
         api, cfg, flash_step,
-        {"flash_attention": tuple(FLASH_KERNELS.values())})))
+        {"flash_attention": tuple(FLASH_KERNELS.values()),
+         "flash_attention_bwd": FLASH_BWD_KERNELS[torch.bfloat16]})))
     release()
     for seed in PHASE5_SEEDS:
         check_train_path(f"phase5 seed={seed}",
@@ -1143,6 +1235,12 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:92",
              train["launches"]),
+            # the reference differentiates attention_ref (ops.py:140); the
+            # backward kernel is the TPU kernel's gradient
+            ("flash_attention_bwd", "flash bwd S=4096 causal",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:92",
+             train["launches"]),
             ("ssd_chunk", "ssd path B'=16 L=256 H=64 float32",
              "src/repro_torch/kernels/csrc/ssd_chunk.cu",
              "src/repro/kernels/ssd_chunk/kernel.py:50",
@@ -1169,7 +1267,16 @@ def main() -> int:
                                    "plain_ms", "library_ms",
                                    "ms_over_library", "max_abs_err",
                                    "lse_max_abs_err")}
-                for c in cases if c["case"].startswith("flash ")]
+                for c in cases if c["case"].startswith("flash S")]
+        if name == "flash_attention_bwd":     # every phase-1 backward case
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "D", "dtype", "kernel", "ms",
+                                   "bound_ms", "bound_by", "tflops",
+                                   "plain_ms", "library_ms",
+                                   "ms_over_library", "fwd_bwd_ms",
+                                   "library_fwd_bwd_ms", "max_abs_err",
+                                   "grad_rel_err")}
+                for c in cases if c["case"].startswith("flash bwd")]
         if name == "ssd_chunk":   # forward, backward, forward + backward
             bwd_src = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
             ops = {"ssd ": ("ssd_chunk", src),

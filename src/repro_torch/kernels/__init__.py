@@ -3,7 +3,8 @@ beside its plain PyTorch version (``ref.py``, ``blockwise.py``) and a
 wrapper that dispatches on the tensor's device (``ops.py``; policy and
 build in ``common.py``)."""
 from .common import LAUNCHES, reset_launch_counts
-from .flash_attention import (attention, attention_fwd, attention_ref,
+from .flash_attention import (attention, attention_bwd, attention_fwd,
+                              attention_ref,
                               blockwise_bwd, blockwise_fwd)
 from .kv_append import (kv_append, kv_append_chunk, kv_append_chunk_ref,
                         kv_append_ref)

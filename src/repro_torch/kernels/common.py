@@ -38,8 +38,8 @@ IMPLS = ("ref", "cuda")
 
 # launches per kernel wrapper; bumped only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"kv_append_chunk": 0, "paged_attention_chunk": 0,
-                             "flash_attention": 0, "ssd_chunk": 0,
-                             "ssd_chunk_bwd": 0}
+                             "flash_attention": 0, "flash_attention_bwd": 0,
+                             "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 # context splits the last launch of a split kernel ran with
 LAST_SPLITS: Dict[str, int] = {}
 
@@ -225,6 +225,11 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, i32, vp]
         lib.repro_flash_attention.restype = i32
+        lib.repro_flash_attention_bwd_workspace.argtypes = [i32] * 7
+        lib.repro_flash_attention_bwd_workspace.restype = ctypes.c_longlong
+        lib.repro_flash_attention_bwd.argtypes = [vp] * 10 + [i32] * 8 + [
+            f32, f32, i32, vp]
+        lib.repro_flash_attention_bwd.restype = i32
         lib.repro_ssd_chunk_workspace.argtypes = [i32] * 5
         lib.repro_ssd_chunk_workspace.restype = ctypes.c_longlong
         lib.repro_ssd_chunk.argtypes = [vp] * 7 + [i32] * 6 + [vp]

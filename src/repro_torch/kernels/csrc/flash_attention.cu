@@ -51,8 +51,7 @@
 //    a head dim that is not a multiple of 8, since TMA strides are 16-byte
 //    multiples).  GQA reads K/V in place through the KV head coordinate.
 //    The maps are encoded on the host at every call (a few microseconds
-//    against a launch of ~0.1 ms); libcuda's encoder is reached through
-//    cudaGetDriverEntryPoint, so the library links no libcuda;
+//    against a launch of ~0.1 ms; encode_map in wgmma_bf16.cuh);
 //  * S = Q.K^T is wgmma m64n(BK)k16 with Q and K from shared memory (BK =
 //    128 keys, 64 at D = 256, where O alone is 128 registers a thread);
 //    O += P.V is wgmma m64n(DP)k16 with P from registers (the S
@@ -74,7 +73,7 @@
 //    row, lanes over the head dim, 16-key f32 tiles in shared memory;
 //  * no atomics: the result does not depend on block scheduling.
 // D <= 256.  Not yet: a persistent tile scheduler, a split over keys for
-// short query counts; the backward is plain PyTorch.
+// short query counts.  The backward is flash_attention_bwd.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -126,18 +125,6 @@ struct WgSmem {
   static constexpr bool split_kv = ST == 2;
   static constexpr size_t bytes = bar_off + (4 * ST + 1) * 8 + 1024;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // What a consumer thread needs to turn its S accumulator into P: its two
 // query rows, its column quarter, the mask and the score transform.
@@ -601,48 +588,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                 (long long)h * D + ch * 8) = val;
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map of a contiguous bf16 [B, S, heads, D] tensor whose box is 64
-// columns x `rows` rows of one (batch, head), in the 128-byte swizzle;
-// rows past S and columns past D read as zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                int D, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>

@@ -1,5 +1,6 @@
 // Float32-exact tensor-core products for sm_90a, shared by ssd_chunk.cu's
-// forward and backward: 3xTF32 on mma.sync m16n8k8.
+// forward and backward and flash_attention_bwd.cu's float32 path: 3xTF32
+// on mma.sync m16n8k8.
 //
 // TF32 keeps 10 mantissa bits.  A float32 operand v is split into
 // big = tf32(v) and small = tf32(v - big) (v - big is exact in float32),

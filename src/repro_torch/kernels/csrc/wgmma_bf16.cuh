@@ -1,8 +1,10 @@
-// Hopper-only building blocks for sm_90a, used by flash_attention.cu's
-// bf16 forward: mbarriers, named barriers, TMA tile loads
-// (cp.async.bulk.tensor), the shared-memory matrix descriptor of a
+// Hopper-only building blocks for sm_90a, used by the bf16 flash kernels
+// (flash_attention.cu's forward, flash_attention_bwd.cu's backward):
+// mbarriers, named barriers, TMA tile loads (cp.async.bulk.tensor) and
+// plain bulk copies, the shared-memory matrix descriptor of a
 // 128-byte-swizzled tile, warpgroup matrix multiply (wgmma) with its
-// fence / commit / wait, and setmaxnreg, all as inline PTX.  Kept apart
+// fence / commit / wait, setmaxnreg and the fast exp2 / reciprocal, all as
+// inline PTX, and on the host the encoder of the TMA maps.  Kept apart
 // from mma_bf16.cuh, which paged_attention.cu also includes, so that a
 // change here cannot move the paged kernel.
 //
@@ -21,6 +23,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,6 +93,73 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses on 16 bytes) from global to
+// shared memory; completes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A 4-D map of a contiguous bf16 [B, S, heads, D] tensor whose box is 64
+// columns x `rows` rows of one (batch, head), in the 128-byte swizzle;
+// rows past S and columns past D read as zeros.  cuTensorMapEncodeTiled is
+// reached through the runtime, so the library needs no link against
+// libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int S,
+                       int heads, int D, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- fast exp2 and reciprocal -------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // --- register budget --------------------------------------------------------

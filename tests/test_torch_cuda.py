@@ -5,7 +5,9 @@ append copies), pages of 8 and 32 tokens, one and many context splits,
 MQA, window and softcap; the flash kernel over causal, windowed,
 softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
 64, 128 and 256, groups of 1 and 6, operands TMA cannot address as given,
-and its repeatability; the ssd_chunk kernel over float32 and bf16 with ragged
+and its repeatability, and its backward kernel over the same shapes (and
+its launch count, repeatability, unaligned operands and argument checks);
+the ssd_chunk kernel over float32 and bf16 with ragged
 L, H, P and N and chunks longer than 256, its backward kernel over the same
 (and its repeatability and argument checks), and its autograd Function's
 gradients — and the SMOKE
@@ -26,8 +28,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import (attention, attention_fwd, common,
-                                 kv_append_chunk, paged_attention,
+from repro_torch.kernels import (attention, attention_bwd, attention_fwd,
+                                 common, kv_append_chunk, paged_attention,
                                  paged_attention_chunk, ssd_chunk,
                                  ssd_chunk_bwd, ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
@@ -255,6 +257,15 @@ FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, True, None, None, "float32"),
     (1, 200, 200, 4, 2, 128, True, 64, 20.0, "float32"),
     (1, 130, 70, 2, 2, 256, False, None, None, "float32"),
+    # the float32 backward's edges (3xTF32 kernels, 64-row blocks, 32 at
+    # D=256, 32-row steps): D off 4 (tiles loaded by the threads), D=32, a
+    # group of 6 and of 1 folded, Sq/Sk off the tiles causal and not, a
+    # window and a group at D=256 with Sk below one block, Sq=1
+    (2, 77, 77, 6, 1, 12, True, 16, None, "float32"),
+    (1, 300, 333, 12, 2, 32, True, None, None, "float32"),
+    (2, 333, 300, 6, 6, 128, False, None, 30.0, "float32"),
+    (1, 150, 50, 6, 2, 256, True, 40, None, "float32"),
+    (3, 1, 300, 12, 2, 64, False, None, None, "float32"),
 ]
 
 
@@ -330,6 +341,162 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         attention(q.half(), q.half(), q.half())
 
 
+# backward kernel vs blockwise_bwd, (atol as a share of the grad's largest
+# magnitude, rtol): float32 takes its products in 3xTF32 (about 2^-21
+# relative each) and sums in another order; bf16 rounds P and dS to bf16
+# before the products (2^-9 relative each, as SDPA does) and the grads
+# once more on the way out
+FLASH_BWD_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (1e-2, 3e-2)}
+
+
+def flash_bwd_inputs(rng, B, Sq, Sk, H, KV, D, dtype, dev):
+    return (randn(rng, (B, Sq, H, D), dtype, dev),
+            randn(rng, (B, Sk, KV, D), dtype, dev),
+            randn(rng, (B, Sk, KV, D), dtype, dev),
+            randn(rng, (B, Sq, H, D), dtype, dev))
+
+
+def check_flash_grads(got, want, dtype):
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = max(float(b.float().abs().max()), 1e-6)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * scale,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,softcap,dtype",
+                         FLASH_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, D, causal,
+                                        window, softcap, dtype):
+    rng = np.random.default_rng(Sq * 11 + D)
+    q, k, v, g = flash_bwd_inputs(rng, B, Sq, Sk, H, KV, D, dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = attention_fwd(q, k, v, **kw)
+    common.reset_launch_counts()
+    got = attention_bwd(q, k, v, out, lse, g, **kw)
+    want = attention_bwd(q, k, v, out, lse, g, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention_bwd"] == 1
+    check_flash_grads(got, want, dtype)
+
+
+def test_flash_backward_launches_the_kernel_once(cuda):
+    """One backward through autograd: one backward launch, no plain
+    backward; impl="ref" launches nothing."""
+    rng = np.random.default_rng(3)
+    q, k, v, g = (x.requires_grad_() for x in flash_bwd_inputs(
+        rng, 1, 300, 300, 6, 2, 128, "bfloat16", cuda))
+    for impl, launches in ((None, 1), ("ref", 0)):
+        common.reset_launch_counts()
+        torch.autograd.grad(attention(q, k, v, impl=impl), (q, k, v), g)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["flash_attention_bwd"] == launches
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_bwd_kernel_is_bitwise_repeatable(cuda, D):
+    """No atomics: two backwards of the same inputs give the same bits (a
+    group of 6 folded from per-head partials, a ragged causal length)."""
+    rng = np.random.default_rng(D + 1)
+    q, k, v, g = flash_bwd_inputs(rng, 1, 1500, 1500, 12, 2, D, "bfloat16",
+                                  cuda)
+    out, lse = attention_fwd(q, k, v)
+    first = attention_bwd(q, k, v, out, lse, g)
+    second = attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_bwd_f32_kernel_is_bitwise_repeatable(cuda, D):
+    """The float32 kernels too: two backwards of the same inputs give the
+    same bits (a group of 6 folded, a ragged causal length)."""
+    rng = np.random.default_rng(D + 2)
+    q, k, v, g = flash_bwd_inputs(rng, 1, 700, 700, 12, 2, D, "float32",
+                                  cuda)
+    out, lse = attention_fwd(q, k, v)
+    first = attention_bwd(q, k, v, out, lse, g)
+    second = attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "g"])
+def test_flash_bwd_f32_kernel_takes_operands_off_16_bytes(cuda, which):
+    """A float32 operand 4 bytes into its storage: the kernels load their
+    tiles by thread in place of cp.async and give the same bits."""
+    rng = np.random.default_rng(8)
+    q, k, v, g = flash_bwd_inputs(rng, 1, 300, 200, 4, 2, 64, "float32",
+                                  cuda)
+    out, lse = attention_fwd(q, k, v, causal=False)
+    t = {"q": q, "k": k, "g": g}
+    want = attention_bwd(q, k, v, out, lse, g, causal=False)
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.float32, device=cuda)
+    shifted = buf[1:].view(t[which].shape)
+    shifted.copy_(t[which])
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    t[which] = shifted
+    got = attention_bwd(t["q"], t["k"], v, out, lse, t["g"], causal=False)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out", "g"])
+def test_flash_bwd_kernel_takes_operands_off_16_bytes(cuda, which):
+    """An operand whose base sits 2 bytes into its storage gives the same
+    grads as an aligned copy."""
+    rng = np.random.default_rng(7)
+    q, k, v, g = flash_bwd_inputs(rng, 1, 300, 200, 4, 2, 128, "bfloat16",
+                                  cuda)
+    out, lse = attention_fwd(q, k, v, causal=False)
+    t = {"q": q, "k": k, "v": v, "out": out, "g": g}
+    want = attention_bwd(*(t[n] for n in ("q", "k", "v", "out")), lse, g,
+                         causal=False)
+    buf = torch.empty(t[which].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(t[which].shape)
+    shifted.copy_(t[which])
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    t[which] = shifted
+    common.reset_launch_counts()
+    got = attention_bwd(t["q"], t["k"], t["v"], t["out"], lse, t["g"],
+                        causal=False)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention_bwd"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError):         # q_offset on the card
+        attention(q, q, q, q_offset=4).sum().backward()
+    with pytest.raises(NotImplementedError):         # lengths on the card
+        attention(q, q, q, lengths=torch.ones(1, dtype=torch.int32,
+                                              device=cuda))
+    x = q.detach()
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError):                  # lse of the wrong shape
+        attention_bwd(x, x, x, x, lse[:, :, :4], x)
+    with pytest.raises(ValueError):                  # lse not float32
+        attention_bwd(x, x, x, x, lse.bfloat16(), x)
+    with pytest.raises(ValueError):                  # dO of the wrong shape
+        attention_bwd(x, x, x, x, lse, x[:, :4])
+    with pytest.raises(TypeError):                   # dO of another dtype
+        attention_bwd(x, x, x, x, lse, x.float())
+    big = torch.zeros(1, 8, 2, 320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # D > 256
+        attention_bwd(big, big, big, big, lse, big)
+    with pytest.raises(ValueError):                  # CPU tensor, kernel asked
+        attention_bwd(x.cpu(), x.cpu(), x.cpu(), x.cpu(), lse.cpu(), x.cpu(),
+                      impl="cuda")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
     cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
@@ -350,9 +517,12 @@ def test_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
         common.reset_launch_counts()
         state, metrics = step(state, batch)
         out[impl] = (float(metrics["loss"]), state["params"],
-                     common.LAUNCHES["flash_attention"])
-    # two microbatches, each layer's forward run again by remat "full"
+                     common.LAUNCHES["flash_attention"],
+                     common.LAUNCHES["flash_attention_bwd"])
+    # two microbatches, each layer's forward run again by remat "full", its
+    # backward once
     assert out[None][2] == 2 * 2 * cfg.n_layers and out["ref"][2] == 0
+    assert out[None][3] == 2 * cfg.n_layers and out["ref"][3] == 0
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert out[None][0] == pytest.approx(out["ref"][0], rel=tol)
     for a, b in zip(leaves(out[None][1]), leaves(out["ref"][1])):

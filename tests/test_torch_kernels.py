@@ -227,7 +227,8 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
     assert pool[1, :2].eq(1).all()
     assert common.LAUNCHES == {"kv_append_chunk": 0,
                                "paged_attention_chunk": 0,
-                               "flash_attention": 0, "ssd_chunk": 0,
+                               "flash_attention": 0,
+                               "flash_attention_bwd": 0, "ssd_chunk": 0,
                                "ssd_chunk_bwd": 0}
 
 
@@ -247,7 +248,10 @@ def test_kernel_sources_carry_their_notes():
                        "paged_attention/kernel.py::"),
                       ("flash_attention.cu",
                        "flash_attention/kernel.py::flash_attention"),
-                      ("ssd_chunk.cu", "ssd_chunk/kernel.py::ssd_chunk")):
+                      ("flash_attention_bwd.cu",
+                       "flash_attention/kernel.py::flash_attention"),
+                      ("ssd_chunk.cu", "ssd_chunk/kernel.py::ssd_chunk"),
+                      ("ssd_chunk_bwd.cu", "ssd_chunk/kernel.py::ssd_chunk")):
         text = (common.CSRC / name).read_text()
         assert tpu in text
         assert "What bounds it on this card" in text
@@ -312,5 +316,7 @@ def test_hopper_helpers_are_the_flash_kernels_alone():
     flash = (common.CSRC / "flash_attention.cu").read_text()
     assert '#include "wgmma_bf16.cuh"' in flash
     assert "flash_tc_kernel" not in flash and "flash_wgmma_kernel" in flash
+    assert '#include "wgmma_bf16.cuh"' in (
+        common.CSRC / "flash_attention_bwd.cu").read_text()
     for name in ("paged_attention.cu", "kv_append.cu", "ssd_chunk.cu"):
         assert "wgmma_bf16" not in (common.CSRC / name).read_text()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase-1 flash cases, timed for several checkouts of this
-repository on one card, in turns.
+"""chip_smoke.py's phase-1 flash cases, forward and backward, timed for
+several checkouts of this repository on one card, in turns.
 
     python3 tools/flash_ab.py ROOT [ROOT ...]
 
@@ -8,11 +8,15 @@ Each ROOT is a checkout (the parent commit unpacked with ``git archive``
 into a directory that .gitignore lists, say); give them in the order to run,
 e.g. ``build/parent . . build/parent``.  Every ROOT runs in a process of its
 own (each builds its own ``repro_torch`` kernels) through that ROOT's own
-``chip_smoke.flash_case``, so each tree's kernel is held against its plain
-version and timed by its own code, on the same inputs (one seed per case).
-Prints, per ROOT and case, one JSON line with the CUPTI device ms, SDPA's ms
-and the achieved TFLOP/s; then the card's name and power limit.  Needs a
-CUDA card.
+``chip_smoke.flash_case`` and ``flash_bwd_case``, so each tree's kernels
+are held against their plain versions and timed by its own code, on the
+same inputs (one seed per case).  A tree without ``flash_bwd_case`` (one
+whose backward is the plain ``blockwise_bwd`` on the card) has that
+backward, and forward + backward through its autograd, timed the same way
+on the same inputs.  Prints, per ROOT and case, one JSON line with the
+CUPTI device ms, SDPA's ms and the achieved TFLOP/s (the backward's: five
+products of the forward's size); then the card's name and power limit.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,6 +37,28 @@ CASES = [
     ("flash S=4096 non-causal", 4096, {"causal": False}),
     ("flash S=1000 ragged", 1000, {}),
 ]
+# phase 1's bf16 backward cases, keyword arguments of flash_bwd_case
+BWD_CASES = [("flash bwd" + name[5:], S, kw) for name, S, kw in CASES]
+
+
+def plain_bwd_case(cs, rng, name: str, S: int, causal=True, window=None,
+                   softcap=None, D=128) -> dict:
+    """A tree whose backward on the card is the plain ``blockwise_bwd``:
+    that backward, and forward + backward through its autograd, on the
+    inputs ``flash_bwd_case`` draws."""
+    import torch
+    from repro_torch.kernels import attention, attention_fwd, blockwise_bwd
+
+    q, k, v = cs.flash_inputs(rng, S, torch.bfloat16, D)
+    g = cs.randn(rng, *q.shape, dtype=torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = attention_fwd(q, k, v, **kw)
+    req = [x.detach().requires_grad_() for x in (q, k, v)]
+    t = cs.timings(ms=lambda: blockwise_bwd(q, k, v, out, lse, g, **kw),
+                   fwd_bwd_ms=lambda: torch.autograd.grad(
+                       attention(*req, **kw), req, g))
+    flops = 10 * cs.H * D * cs.visible_keys(S, S, causal, window)
+    return {**t, "flops": flops, "library_ms": None, "max_abs_err": 0.0}
 
 
 def run_tree(root: Path, turn: int) -> None:
@@ -54,6 +80,18 @@ def run_tree(root: Path, turn: int) -> None:
                           "max_abs_err": c["max_abs_err"],
                           "lse_max_abs_err": c["lse_max_abs_err"]}),
               flush=True)
+    for i, (name, S, kw) in enumerate(BWD_CASES):
+        rng = np.random.default_rng(100 + i)
+        if hasattr(cs, "flash_bwd_case"):
+            c = cs.flash_bwd_case(rng, name, S, **kw)
+        else:
+            c = plain_bwd_case(cs, rng, name, S, **kw)
+        print(json.dumps({"tree": str(root), "turn": turn, "case": name,
+                          "ms": c["ms"], "ms_timing": c["ms_timing"],
+                          "fwd_bwd_ms": c["fwd_bwd_ms"],
+                          "library_ms": c["library_ms"],
+                          "tflops": c["flops"] / c["ms"] / 1e9,
+                          "max_abs_err": c["max_abs_err"]}), flush=True)
 
 
 def turns(script: str, args, doc: str) -> int:
