@@ -11,12 +11,18 @@ sm_90a) and then, failing with a non-zero exit on any error:
      the shapes of qwen2-1.5b's paths: the serving kernels at bf16, T=16,
      B=8, C=16 and C=1, plus a window, a softcap, a page-straddling chunk,
      a full table (every sequence at 1008 keys, so every context split
-     holds work) and an idle slot (length 0, an all-zero table row); the
-     flash kernel at the training shape (B=1, S=4096, H=12,
-     KV=2, D=128, causal, bf16), at D=64 and D=256, with a window, a
-     softcap, non-causal, a ragged S=1000 and one float32 case, each with
-     its achieved TFLOP/s, its time over SDPA's and the name of the kernel
-     its trace ran; the flash backward kernels at the same cases, each
+     holds work), an idle slot (length 0, an all-zero table row) and
+     float32 at C=16 (the scalar path); the serve step's fused append and
+     attention at C=16 and C=1, with an idle slot, a straddling chunk, a
+     window and in float32, each bitwise against the unfused kernel path
+     (the two appends, then the attention kernel) and timed against its
+     sum; the flash kernel at the training shape (B=1, S=4096, H=12, KV=2,
+     D=128, causal, bf16), at D=64 and D=256, with a window, a softcap,
+     non-causal, a ragged S=1000, and in float32 (its 3xTF32 tensor-core
+     kernel) at S=512 D=64 and at S=1000 ragged, windowed and softcapped,
+     each with its achieved TFLOP/s, its time over SDPA's and the name of
+     the kernel its trace ran; the flash backward kernels at the same
+     bf16 cases and at S=512 D=64 float32, each
      against the plain backward on the same forward residuals, with its
      time beside the plain backward's and SDPA's backward, the device
      time of each kernel its trace ran, and forward + backward through
@@ -29,8 +35,9 @@ sm_90a) and then, failing with a non-zero exit on any error:
      library call where there is one (a yardstick the port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` with one POSIX and one
-     STRICT session, and checks that every serve step launched both
-     serving kernels on every layer;
+     STRICT session, and checks that every serve step launched the fused
+     append and attention once on every layer and neither standalone
+     serving kernel;
   3. runs one mixed prefill+decode ``serve_step`` of the full model twice
      from cloned caches, with the kernels and with the plain versions,
      and compares logits and pools;
@@ -103,6 +110,9 @@ P = B * PAGES_PER_SEQ
 LONGEST = 480 + 32               # the smoke run's longest context
 TRACE_DIR = ROOT / "build" / "repro_torch_kernels" / "traces"
 ATTN_TOL = 2e-2                  # bf16 out: about one ulp of values O(1)
+# paged attention out, kernel vs plain: bf16 as ATTN_TOL; float32 sums the
+# same float32 products in another order (tests/test_torch_cuda.py's TOL)
+PAGED_TOL = {torch.bfloat16: ATTN_TOL, torch.float32: 1e-5}
 PATH_REL_TOL = 5e-2              # phase 3: 28 bf16 layers, see PERF.md
 # flash out (atol, rtol): bf16 kernel and plain version round float32
 # values that agree to ~1e-6 and so differ by at most one bf16 ulp
@@ -153,7 +163,10 @@ SSD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 1.6e-2)}
 SSD_GRAD_TOL = (1e-5, 1e-4)
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
-                 torch.float32: "flash_f32_kernel"}
+                 torch.float32: "flash_f32_tc_kernel"}
+# the kernels of the serve step's fused append and attention
+PAGED_KERNELS = ("paged_attention_kernel", "paged_attention_f32_kernel",
+                 "paged_attention_merge_kernel")
 # the flash backward's kernels of each dtype
 FLASH_BWD_KERNELS = {
     torch.bfloat16: ("flash_bwd_prep_kernel", "flash_bwd_kv_kernel",
@@ -365,7 +378,7 @@ def kv_append_case(rng, C: int, name: str) -> dict:
 
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
                    straddle=False, table_pages=PAGES_PER_SEQ, full=False,
-                   idle=False) -> dict:
+                   idle=False, dtype=torch.bfloat16) -> dict:
     """``table_pages`` < PAGES_PER_SEQ narrows the page table (a table of
     at most 64 keys runs the kernel's single-split path); ``full`` puts
     every sequence at 1008 keys (the table's last entry stays the null
@@ -385,9 +398,9 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     if idle:
         starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
-    q = randn(rng, B, C, H, D)
-    pk = randn(rng, P, T, KV, D)
-    pv = randn(rng, P, T, KV, D)
+    q = randn(rng, B, C, H, D, dtype=dtype)
+    pk = randn(rng, P, T, KV, D, dtype=dtype)
+    pv = randn(rng, P, T, KV, D, dtype=dtype)
     kw = dict(window=window, softcap=softcap)
     out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
     splits = common.LAST_SPLITS["paged_attention_chunk"]   # as launched
@@ -395,8 +408,9 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     torch.cuda.synchronize()
     diff = (out_k.float() - out_r.float()).abs()
     err = float(diff.max())
-    if not torch.allclose(out_k.float(), out_r.float(), atol=ATTN_TOL,
-                          rtol=ATTN_TOL) or not torch.isfinite(out_k).all():
+    tol = PAGED_TOL[dtype]
+    if not torch.allclose(out_k.float(), out_r.float(), atol=tol,
+                          rtol=tol) or not torch.isfinite(out_k).all():
         raise AssertionError(f"{name}: kernel vs plain max |err| {err}")
     fns = dict(
         ms=lambda: paged_attention_chunk(q, pk, pv, pt, lengths, **kw),
@@ -419,25 +433,113 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4)
     t = {"library_ms": None, **timings(**fns)}
-    # work this run's data needs: the keys each sequence's chunk can see,
-    # [max(0, start - window + 1), min(start + C, N*T)), and the page-table
-    # entries that hold them
-    st = starts.astype(np.int64)
+    return {"case": name, "C": C, "dtype": str(dtype), "splits": splits,
+            "max_abs_err": err, "tolerance": {"atol": tol, "rtol": tol}, **t,
+            **paged_bound(starts, C, window, table_pages, q.element_size())}
+
+
+def paged_bound(starts, C: int, window, table_pages: int, esz: int,
+                append: bool = False) -> dict:
+    """The bound of one paged attention call on this run's data: the keys
+    each sequence's chunk can see, [max(0, start - window + 1),
+    min(start + C, N*T)), read once with the table entries that hold them,
+    q read and out written; the products 4 H D a visible (query, key)
+    pair.  ``append``: the fused call, which also reads the chunk's new K
+    and V rows and its (page, slot) ids and writes the rows into the
+    pools, and reads the chunk's own keys from the new rows, not the
+    pools."""
+    st = np.asarray(starts, np.int64)
     k_hi = np.minimum(st + C, table_pages * T)
     k_lo = np.zeros_like(k_hi) if window is None else \
         np.maximum(st - window + 1, 0)
     keys = int((k_hi - k_lo).sum())
     pages = int((-(-k_hi // T) - k_lo // T).sum())
-    esz = q.element_size()
-    nbytes = (keys * KV * D * esz * 2 + 2 * q.numel() * esz
+    nbytes = (keys * KV * D * esz * 2 + 2 * B * C * H * D * esz
               + pages * 4 + B * 4)
+    if append:
+        own = int((k_hi - np.maximum(st, k_lo)).clip(min=0).sum())
+        rows = B * C * KV * D * esz                  # k_new or v_new
+        nbytes += 4 * rows - own * KV * D * esz * 2 + 2 * B * C * 4
     visible = st[:, None] + np.arange(C)[None, :] + 1   # keys per query
     if window is not None:
         visible = np.minimum(visible, window)
     flops = int(4 * H * D * visible.sum())
-    return {"case": name, "C": C, "splits": splits, "max_abs_err": err,
-            "tolerance": {"atol": ATTN_TOL, "rtol": ATTN_TOL}, **t,
-            **bound(nbytes, flops, BF16_FLOPS)}
+    peak = BF16_FLOPS if esz == 2 else TF32X3_FLOPS
+    return bound(nbytes, flops, peak)
+
+
+def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
+               idle=False, dtype=torch.bfloat16) -> dict:
+    """The serve step's fused append and attention
+    (``paged_attention_append_chunk``) against the unfused kernel path on
+    the same inputs, ``kv_append_chunk`` on each pool and then
+    ``paged_attention_chunk``: the outputs bitwise equal and the pools
+    byte-equal off the null page 0; against the plain path (the two plain
+    appends and the plain attention) to PAGED_TOL; timed beside the
+    unfused path's sum and the plain path."""
+    from repro_torch.kernels import (common, kv_append_chunk,
+                                     paged_attention_append_chunk,
+                                     paged_attention_chunk)
+    from repro_torch.models.attention import paged_chunk_ids
+
+    pt = page_table(rng, idle=(B - 1,) if idle else ())
+    if straddle:   # every chunk starts mid-page and crosses a boundary
+        starts = rng.integers(1, (LONGEST - C) // T, B) * T - T // 2
+    else:
+        starts = rng.integers(0, LONGEST - C + 1, B)
+    if idle:
+        starts[B - 1] = 0
+    lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
+    _, pids, sids = paged_chunk_ids(pt, lengths, C, T)
+    q = randn(rng, B, C, H, D, dtype=dtype)
+    kn, vn = (randn(rng, B, C, KV, D, dtype=dtype) for _ in range(2))
+    pk, pv = (randn(rng, P, T, KV, D, dtype=dtype) for _ in range(2))
+    kw = dict(window=window)
+
+    def unfused(pool_k, pool_v):
+        kv_append_chunk(pool_k, kn, pids, sids)
+        kv_append_chunk(pool_v, vn, pids, sids)
+        return paged_attention_chunk(q, pool_k, pool_v, pt, lengths, **kw)
+
+    def fused(pool_k, pool_v, impl=None):
+        return paged_attention_append_chunk(q, kn, vn, pool_k, pool_v, pt,
+                                            lengths, pids, sids, impl=impl,
+                                            **kw)
+
+    pools = {w: (pk.clone(), pv.clone()) for w in ("unfused", "fused",
+                                                   "plain")}
+    out_u = unfused(*pools["unfused"])
+    out_f = fused(*pools["fused"])
+    splits = common.LAST_SPLITS["paged_attention_append_chunk"]
+    out_r = fused(*pools["plain"], impl="ref")
+    torch.cuda.synchronize()
+    bitwise = torch.equal(out_f, out_u)
+    pools_equal = all(
+        torch.equal(f[1:], o[1:]) for w in ("unfused", "plain")
+        for f, o in zip(pools["fused"], pools[w]))
+    err = float((out_f.float() - out_r.float()).abs().max())
+    tol = PAGED_TOL[dtype]
+    if not (bitwise and pools_equal and torch.isfinite(out_f).all()
+            and torch.allclose(out_f.float(), out_r.float(), atol=tol,
+                               rtol=tol)):
+        raise AssertionError(f"{name}: fused vs unfused bitwise {bitwise}, "
+                             f"pools off page 0 {pools_equal}, vs plain "
+                             f"max |err| {err}")
+    work = pools["fused"]
+    t = timings(ms=lambda: fused(*work),
+                unfused_ms=lambda: unfused(*work),
+                plain_ms=lambda: fused(*work, impl="ref"))
+    return {"case": name, "C": C, "dtype": str(dtype), "splits": splits,
+            "bitwise_vs_unfused": bitwise, "pools_equal_off_page0":
+            pools_equal, "max_abs_err": err,
+            "tolerance": {"atol": tol, "rtol": tol},
+            "kernel": check_ran(name, lambda: fused(*work), PAGED_KERNELS[:1]
+                                if dtype == torch.bfloat16
+                                else PAGED_KERNELS[1:2]),
+            "library_ms": None, **t,
+            "ms_over_unfused": t["ms"] / t["unfused_ms"],
+            **paged_bound(starts, C, window, PAGES_PER_SEQ,
+                          q.element_size(), append=True)}
 
 
 def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -1137,6 +1239,25 @@ def main() -> int:
         # their tiles in windows of 256 positions
         ssd_case(rng, "ssd chunk 512 B'=8 float32", **SSD_512),
         ssd_grad_case(rng, "ssd grads chunk 512", **SSD_512),
+        # the serve step's fused append and attention (after the cases
+        # above, so their inputs are the draws earlier runs had)
+        fused_case(rng, 16, "fused C=16"),
+        fused_case(rng, 1, "fused C=1 (decode)"),
+        fused_case(rng, 16, "fused C=16 idle slot", idle=True),
+        fused_case(rng, 1, "fused C=1 idle slot", idle=True),
+        fused_case(rng, 16, "fused C=16 straddling", straddle=True),
+        fused_case(rng, 16, "fused C=16 window=256", window=256),
+        fused_case(rng, 16, "fused C=16 float32", dtype=torch.float32),
+        # the float32 scalar path of paged_attention_chunk on its own
+        attention_case(rng, 16, "attention C=16 float32",
+                       dtype=torch.float32),
+        # the float32 forward's tensor-core kernel at its mask edges
+        flash_case(rng, "flash S=1000 ragged float32", 1000,
+                   dtype=torch.float32),
+        flash_case(rng, "flash S=1000 window=256 float32", 1000, window=256,
+                   dtype=torch.float32),
+        flash_case(rng, "flash S=1000 softcap=30 float32", 1000,
+                   softcap=30.0, dtype=torch.float32),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -1147,15 +1268,16 @@ def main() -> int:
     params = init_params(api.init_specs(), gen, device="cuda")
     params = cast_params(params, cfg)   # what the engine does at load
     torch.cuda.synchronize()
+    # one fused append and attention per layer and step; the standalone
+    # append and attention kernels never launch on the serving path
     main_path = serve_main_path(api, params, cfg, {
-        "kv_append_chunk": 2, "paged_attention_chunk": 1})
+        "paged_attention_append_chunk": 1, "kv_append_chunk": 0,
+        "paged_attention_chunk": 0})
     log("phase2", json.dumps(main_path))
     log("phase2 logits_d2h", json.dumps(logits_d2h_ms(cfg)))
     log("phase2 profile", json.dumps(profile_windows(api, params, cfg, {
-        "kv_append_chunk": ("kv_append_kernel",),
-        "paged_attention_chunk": ("paged_attention_kernel",
-                                  "paged_attention_f32_kernel",
-                                  "paged_attention_merge_kernel")})))
+        "paged_attention_append_chunk": PAGED_KERNELS,
+        "kv_append_chunk": ("kv_append_kernel",)})))
     log("phase2 peak_mem_gb",
         round(torch.cuda.max_memory_allocated() / 2**30, 3))
 
@@ -1231,6 +1353,11 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/kernel.py:96",
              main_path["launches"]),
+            ("paged_attention_append_chunk", "fused C=16",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/kv_append/kernel.py:38 + "
+             "src/repro/kernels/paged_attention/kernel.py:96",
+             main_path["launches"]),
             ("flash_attention", "flash S=4096 causal",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:92",
@@ -1254,12 +1381,25 @@ def main() -> int:
                         "library_ms": c["library_ms"],
                         "call_ms": c["ms_call"],
                         "timing": c["ms_timing"]})
+        if name in ("kv_append_chunk", "paged_attention_chunk"):
+            # the serving path runs their work inside the fused launch
+            kernels[-1]["launches"] = launches["paged_attention_append_chunk"]
+            kernels[-1]["launched_inside"] = "paged_attention_append_chunk"
+            kernels[-1]["standalone_launches"] = launches[name]
         if name == "paged_attention_chunk":   # prefill and decode shapes
             kernels[-1]["cases"] = [
                 {k: by[n][k] for k in ("case", "splits", "ms", "bound_ms",
                                        "bound_by", "plain_ms", "library_ms",
                                        "max_abs_err")}
-                for n in ("attention C=16", "attention C=1 (decode)")]
+                for n in ("attention C=16", "attention C=1 (decode)",
+                          "attention C=16 float32")]
+        if name == "paged_attention_append_chunk":   # every fused case
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "dtype", "splits", "ms",
+                                   "unfused_ms", "ms_over_unfused",
+                                   "bound_ms", "bound_by", "plain_ms",
+                                   "max_abs_err", "bitwise_vs_unfused")}
+                for c in cases if c["case"].startswith("fused")]
         if name == "flash_attention":         # every phase-1 flash case
             kernels[-1]["cases"] = [
                 {k: c[k] for k in ("case", "D", "dtype", "kernel", "ms",

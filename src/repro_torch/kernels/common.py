@@ -38,6 +38,7 @@ IMPLS = ("ref", "cuda")
 
 # launches per kernel wrapper; bumped only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"kv_append_chunk": 0, "paged_attention_chunk": 0,
+                             "paged_attention_append_chunk": 0,
                              "flash_attention": 0, "flash_attention_bwd": 0,
                              "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 # context splits the last launch of a split kernel ran with
@@ -221,6 +222,9 @@ def library() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, i32, vp]
         lib.repro_paged_attention_chunk.restype = i32
+        lib.repro_paged_attention_append_chunk.argtypes = [
+            vp] * 12 + [i32] * 10 + [f32, f32, i32, vp]
+        lib.repro_paged_attention_append_chunk.restype = i32
         lib.repro_flash_attention.argtypes = [
             vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
             f32, f32, i32, vp]

@@ -69,8 +69,13 @@
 //    reciprocal (about 1e-7 off, where tanh.approx's 5e-4 would move lse
 //    past its bound), in place of tanhf's longer accurate path.  O leaves
 //    through the consumer's rows of the Q tile as 16-byte rows;
-//  * float32 takes an exact scalar path (no TF32): one warp per query
-//    row, lanes over the head dim, 16-key f32 tiles in shared memory;
+//  * float32 runs on the tensor cores too, in 3xTF32 (float32-exact
+//    products on mma.sync m16n8k8, mma_tf32.cuh; 165 TFLOP/s at most):
+//    flash_f32_tc_kernel, one block per (64 query rows, h) of four warps,
+//    16 rows and every key of a 32-key tile a warp, K and V through a
+//    two-stage cp.async ring, S and O in registers, the softmax the bf16
+//    consumers' (softmax_tile), P from the S accumulator into P.V's A
+//    fragment with no trip through shared memory;
 //  * no atomics: the result does not depend on block scheduling.
 // D <= 256.  Not yet: a persistent tile scheduler, a split over keys for
 // short query counts.  The backward is flash_attention_bwd.cu.
@@ -82,6 +87,7 @@
 #include <string.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -619,128 +625,198 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// float32: exact scalar path
+// float32: 3xTF32 tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Warps = 8;            // query rows per block, one warp each
+constexpr int kF32Warps = 4;              // 16 query rows each
 constexpr int kF32Threads = kF32Warps * 32;
-constexpr int kKT = 16;                 // keys per shared-memory tile
+constexpr int kF32BM = 16 * kF32Warps;    // query rows per block
+constexpr int kF32BN = 32;                // keys per tile
 
-template <int NI>
+// Shared memory of one block, in floats: the Q tile [BM][LD], then two
+// stages of K and V tiles [2][2][BN][LD].  Rows hold DP + 4 floats, so the
+// fragments of a tile read as stored, and V's rows read in the (2tq,
+// 2tq + 1) key order, touch 32 distinct banks.
+template <int DP>
+struct F32Smem {
+  static constexpr int LD = DP + 4;
+  static constexpr int kv_off = kF32BM * LD;
+  static constexpr int stage = 2 * kF32BN * LD;     // K and V of one tile
+  static constexpr size_t bytes = (size_t)(kv_off + 2 * stage) * 4;
+};
+
+// One block per (BM query rows, head h, sequence b); warp w owns rows
+// 16w .. 16w + 15 of the block and every key of each BN-key tile of the
+// block's band, which two cp.async stages stream through shared memory.
+// S = Q.K^T and O += P.V run on mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh);
+// P goes from the S accumulator straight into the A fragment of P.V in
+// the (2tq, 2tq + 1) key order, V's B rows in the same order.  The online
+// softmax is the bf16 kernel's softmax_tile, in log2 units, on the same
+// register layout.  vec: D a multiple of 4 and q, k, v on 16 bytes, so
+// tiles load by cp.async; otherwise the threads load them.
+template <int DP>
 __global__ void __launch_bounds__(kF32Threads)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-                 int D, int causal, int window, float scale, float softcap) {
-  __shared__ float ks[kKT * NI * 32];
-  __shared__ float vs[kKT * NI * 32];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kF32Warps;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int qpos = q0 + warp;
-  const bool active = qpos < Sq;
+flash_f32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                    int D, int causal, int window, float scale, float softcap,
+                    int vec) {
+  using L = F32Smem<DP>;
+  constexpr int BM = kF32BM, BN = kF32BN, LD = L::LD;
+  constexpr int OT = DP / 8;                   // head-dim n-tiles of O
+  extern __shared__ float4 f32_smem[];
+  float* const sm = reinterpret_cast<float*>(f32_smem);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;   // longest band first
   const int kvh = h / (H / KV);
-  const long long q_off = (((long long)b * Sq + qpos) * H + h) * D;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int tq = tid & 3;
+  const int m0 = 16 * warp;
+  const int row_lo = q0 + m0;                  // this warp's rows
+  const int row_hi = row_lo + 15;
 
-  float qr[NI], acc[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = (active && d < D) ? q[q_off + d] * scale : 0.f;
-    acc[i] = 0.f;
+  const long long q_stride = (long long)H * D, k_stride = (long long)KV * D;
+  const float* q_b = q + ((long long)b * Sq * H + h) * D;
+  const float* k_b = k + ((long long)b * Sk * KV + kvh) * D;
+  const float* v_b = v + ((long long)b * Sk * KV + kvh) * D;
+  // key tiles of the block's band, from a multiple of BN
+  const int q_last = min(q0 + BM, Sq) - 1;
+  const int lo = window >= 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
+
+  auto stage = [&](int i) {
+    const int k0 = lo + i * BN;
+    float* dst = sm + L::kv_off + (i & 1) * L::stage;
+    load_tile<BN, DP, LD, kF32Threads>(dst, k_b + k0 * k_stride, k_stride,
+                                       Sk - k0, D, vec, tid);
+    load_tile<BN, DP, LD, kF32Threads>(dst + BN * LD, v_b + k0 * k_stride,
+                                       k_stride, Sk - k0, D, vec, tid);
+    cp_async_commit();
+  };
+
+  Rows rw;
+  rw.r0 = row_lo + g;
+  rw.r1 = rw.r0 + 8;
+  rw.tq = tq;
+  rw.Sk = Sk;
+  rw.causal = causal;
+  rw.window = window;
+  rw.capped = softcap > 0.f;
+  rw.mul = rw.capped ? 2.f * kLog2e * scale / softcap : scale * kLog2e;
+  rw.cap2 = softcap * kLog2e;
+
+  float o[OT][4];
+  zero(o);
+  float m0r = kNegInf, m1r = kNegInf, l0 = 0.f, l1 = 0.f;
+  if (n_tiles > 0) {
+    load_tile<BM, DP, LD, kF32Threads>(sm, q_b + q0 * q_stride, q_stride,
+                                       Sq - q0, D, vec, tid);
+    stage(0);                           // one group with the Q tile
   }
-  float m = kNegInf;
-  float l = 0.f;
-
-  // keys of the band [k_lo, k_hi) of the block's rows
-  const int q_last = min(q0 + kF32Warps, Sq) - 1;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += kKT) {
-    const int kt = min(kKT, k_hi - k0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kt * D; idx += kF32Threads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const long long off = (((long long)b * Sk + k0 + j) * KV + kvh) * D + d;
-      ks[j * D + d] = k[off];
-      vs[j * D + d] = v[off];
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      stage(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-
-    float s[kKT];
-    unsigned valid = 0u;
-    float m_tile = kNegInf;
+    const int k0 = lo + i * BN;
+    // a tile wholly past this warp's rows (causal) or wholly before their
+    // window changes nothing: no products
+    const bool any = row_lo < Sq && (!causal || k0 <= row_hi) &&
+                     (window < 0 || k0 + BN - 1 > row_lo - window);
+    if (any) {
+      const float* Kt = sm + L::kv_off + (i & 1) * L::stage;
+      const float* Vt = Kt + BN * LD;
+      float s[BN / 8][4];
+      zero(s);
+      warp_mma<BN / 8, DP / 8, false, false, true, true>(s, sm, LD, Kt, LD,
+                                                         m0, 0, g, tq);
+      float alpha0, alpha1;
+      softmax_tile<BN>(reinterpret_cast<float(&)[BN / 2]>(s), rw, k0, row_lo,
+                       row_hi, m0r, m1r, l0, l1, alpha0, alpha1);
 #pragma unroll
-    for (int j = 0; j < kKT; ++j) {
-      float part = 0.f;
-      if (j < kt) {
+      for (int ot = 0; ot < OT; ++ot) {
+        o[ot][0] *= alpha0;
+        o[ot][1] *= alpha0;
+        o[ot][2] *= alpha1;
+        o[ot][3] *= alpha1;
+      }
+      // O += P V: P's A fragment of keys 8kt .. 8kt + 7 is the accumulator
+      // tile kt in the k order (2tq, 2tq + 1); V's B rows likewise
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) part += qr[i] * ks[j * D + d];
+      for (int kt = 0; kt < BN / 8; ++kt) {
+        uint32_t pb[4], ps[4];
+        split_tf32<true>(s[kt][0], pb[0], ps[0]);     // row g, key 2tq
+        split_tf32<true>(s[kt][2], pb[1], ps[1]);     // row g + 8, key 2tq
+        split_tf32<true>(s[kt][1], pb[2], ps[2]);     // row g, key 2tq + 1
+        split_tf32<true>(s[kt][3], pb[3], ps[3]);     // row g + 8, 2tq + 1
+        const float* vr = Vt + (kt * 8 + 2 * tq) * LD + g;
+#pragma unroll
+        for (int ot = 0; ot < OT; ++ot) {
+          uint2 b0, b1;
+          split_tf32<true>(vr[ot * 8], b0.x, b0.y);
+          split_tf32<true>(vr[LD + ot * 8], b1.x, b1.y);
+          mma3<true, true>(o[ot], pb, ps, b0, b1);
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (softcap > 0.f) part = softcap * tanhf(part / softcap);
-      const int kpos = k0 + j;
-      const bool ok = j < kt && (!causal || kpos <= qpos) &&
-                      (window < 0 || kpos > qpos - window);
-      s[j] = ok ? part : kNegInf;
-      valid |= ok ? (1u << j) : 0u;
-      m_tile = fmaxf(m_tile, s[j]);
     }
-    const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKT; ++j) {
-      const float p = ((valid >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      s[j] = p;
-      psum += p;
-    }
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int d = lane + 32 * i;
-      float a = acc[i] * alpha;
-      if (d < D) {
-#pragma unroll
-        for (int j = 0; j < kKT; ++j)
-          if (j < kt) a += s[j] * vs[j * D + d];
-      }
-      acc[i] = a;
-    }
+    __syncthreads();    // the stage is free again
   }
 
-  if (!active) return;
-  const float denom = fmaxf(l, 1e-20f);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-20f);
+  const float d1 = fmaxf(l1, 1e-20f);
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) out[q_off + d] = acc[i] / denom;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rw.r1 : rw.r0;
+    if (row >= Sq) continue;
+    const float d = half ? d1 : d0;
+    const float m = half ? m1r : m0r;          // log2 units
+    if (tq == 0)
+      lse[((long long)b * H + h) * Sq + row] =
+          (m == kNegInf ? kNegInf : m * kLn2) + logf(d);
+    float* dst = out + (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int ot = 0; ot < OT; ++ot) {
+      const int c = ot * 8 + 2 * tq;
+      const float x = o[ot][2 * half] / d, y = o[ot][2 * half + 1] / d;
+      if (c + 1 < D && D % 2 == 0) {
+        *reinterpret_cast<float2*>(dst + c) = make_float2(x, y);
+      } else {
+        if (c < D) dst[c] = x;
+        if (c + 1 < D) dst[c + 1] = y;
+      }
+    }
   }
-  if (lane == 0) lse[((long long)b * H + h) * Sq + qpos] = m + logf(denom);
 }
 
-template <int NI>
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int Sq, int Sk, int H, int KV, int D,
                int causal, int window, float scale, float softcap,
                cudaStream_t stream) {
-  dim3 grid((Sq + kF32Warps - 1) / kF32Warps, H, B);
-  flash_f32_kernel<NI><<<grid, kF32Threads, 0, stream>>>(
+  using L = F32Smem<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 4 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const dim3 grid(H, B, (Sq + kF32BM - 1) / kF32BM);
+  flash_f32_tc_kernel<DP><<<grid, kF32Threads, L::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), Sq, Sk, H, KV, D, causal, window, scale,
-      softcap);
+      softcap, vec);
   return (int)cudaGetLastError();
 }
 
@@ -773,9 +849,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     if (D <= 128) return launch_wgmma<128>(REPRO_ARGS);
     return launch_wgmma<256>(REPRO_ARGS);
   }
-  if (D <= 32) return launch_f32<1>(REPRO_ARGS);
-  if (D <= 64) return launch_f32<2>(REPRO_ARGS);
-  if (D <= 128) return launch_f32<4>(REPRO_ARGS);
-  return launch_f32<8>(REPRO_ARGS);
+  if (D <= 32) return launch_f32<32>(REPRO_ARGS);
+  if (D <= 64) return launch_f32<64>(REPRO_ARGS);
+  if (D <= 128) return launch_f32<128>(REPRO_ARGS);
+  return launch_f32<256>(REPRO_ARGS);
 #undef REPRO_ARGS
 }

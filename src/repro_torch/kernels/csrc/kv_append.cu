@@ -17,9 +17,13 @@
 // vectors (falling back to 8/4/2-byte vectors when a row or a base pointer
 // is not 16-byte aligned), neighbouring threads on neighbouring addresses,
 // every index read on the device (no host round trip), no shared memory.
-// Nothing more is worth doing for 128 KB; the launch itself is the cost a
-// later PR removes by fusing the append into the attention kernel or
-// capturing the step in a CUDA graph.
+// Nothing more is worth doing for 128 KB: the launch itself is the cost.
+// The serve step therefore does not launch this kernel: the fused entry
+// point of paged_attention.cu (repro_paged_attention_append_chunk, the op
+// paged_attention_append_chunk) writes the same rows, with the same
+// dropping of out-of-range targets, inside the attention launch.  This
+// kernel stays the counterpart of the JAX op, for appends that no
+// attention follows.
 //
 // Races: pad tokens of idle slots and of chunk tails past a slot's valid
 // count are routed by the caller to the reserved null page 0 (or to

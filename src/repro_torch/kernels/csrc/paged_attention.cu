@@ -67,6 +67,24 @@
 // float32 (the card tests' and comparisons' dtype) keeps an exact scalar
 // path: one warp per query row, lanes over the head dim, 16-key f32 tiles
 // in shared memory, on the same split plan and merge.  D <= 256.
+//
+// The fused append (repro_paged_attention_append_chunk; both kernels take
+// it as the compile-time flag kFused, so the plain entry point's
+// instantiations are the kernels above as they were).  The serve step
+// used to launch kv_append.cu twice (K, V) before this kernel: two
+// launches of 128 KB each, whose time was all launch and DRAM latency.
+// Fused, the block of split 0 and row group 0 of each (KV head, sequence)
+// writes that head's C new K and V rows to pool[page_ids[b, c],
+// slot_ids[b, c]] first, pads included, dropping out-of-range targets as
+// kv_append.cu does; and every block that loads a key of the chunk's own
+// positions [lengths[b], lengths[b] + C) reads it from the new rows, not
+// from the pool, so no block waits on another and there is no flag or
+// atomic between them.  The new rows hold the bits the append stores (the
+// pools' dtype is theirs), so the output is bitwise that of the two
+// appends and the unfused kernel.  Other blocks read only keys before
+// lengths[b], which the append does not touch: the engine's targets are
+// unpublished staging slots of the sequence's own pages or the null
+// page 0, which only idle slots read (as before, pads race there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,31 +113,32 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 
 // Rows [0, n_rows) x columns [0, DP) of a bf16 tile into shared memory
 // (row stride LD), by all NTHREADS threads of the block: row j comes from
-// src + row_off(j); a row whose offset is negative, and every column >= D,
-// becomes 0.  With vec_ok (D % 8 == 0 and 16-byte aligned rows) the copy
-// is asynchronous (cp.async, 16 bytes a thread; commit and wait are the
-// caller's); otherwise it is element by element.
-template <int DP, int LD, int NTHREADS, typename RowOff>
+// row_ptr(j); a null row, and every column >= D, becomes 0 (`any` is a
+// valid address for the zero-filling copies).  With vec_ok (D % 8 == 0
+// and 16-byte aligned rows) the copy is asynchronous (cp.async, 16 bytes
+// a thread; commit and wait are the caller's); otherwise it is element by
+// element.
+template <int DP, int LD, int NTHREADS, typename RowPtr>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
+                                          const __nv_bfloat16* any,
                                           int n_rows, int D, int vec_ok,
-                                          RowOff row_off) {
+                                          RowPtr row_ptr) {
   if (vec_ok) {
     constexpr int vpr = DP / 8;
     for (int idx = threadIdx.x; idx < n_rows * vpr; idx += NTHREADS) {
       const int row = idx / vpr;
       const int c = (idx - row * vpr) * 8;
-      const long long off = row_off(row);
-      const bool ok = off >= 0 && c < D;
-      cp_async16(dst + row * LD + c, ok ? src + off + c : src, ok);
+      const __nv_bfloat16* p = row_ptr(row);
+      const bool ok = p != nullptr && c < D;
+      cp_async16(dst + row * LD + c, ok ? p + c : any, ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < n_rows * DP; idx += NTHREADS) {
       const int row = idx / DP;
       const int c = idx - row * DP;
-      const long long off = row_off(row);
-      dst[row * LD + c] = (off >= 0 && c < D) ? src[off + c]
-                                              : __float2bfloat16(0.f);
+      const __nv_bfloat16* p = row_ptr(row);
+      dst[row * LD + c] = (p != nullptr && c < D) ? p[c]
+                                                  : __float2bfloat16(0.f);
     }
   }
 }
@@ -166,6 +185,72 @@ struct PageWalk {          // key positions of one sequence and KV head
   }
 };
 
+// The fused append's operands: the chunk's new K and V rows, [B, C, KV, D]
+// in the pools' dtype, the (page, slot) each token lands at, [B, C] int32
+// (models/attention.py paged_chunk_ids), and the pools to write.  The
+// kernel reads the pools through its own const __restrict__ operands and
+// writes them only through these, rows no block reads (see the header),
+// so its loads stay read-only ones.  Unused without kFused.
+struct Append {
+  const void* k_new;
+  const void* v_new;
+  const int* page_ids;
+  const int* slot_ids;
+  void* pool_k;
+  void* pool_v;
+};
+
+// The new rows of one sequence and KV head: key start + c is row c
+template <typename E>
+struct NewRows {
+  const E* k;              // k_new[b, 0, kv, :]
+  const E* v;
+  int start;               // lengths[b]
+  long long stride;        // KV * D
+  __device__ __forceinline__ NewRows(const Append& ap, int b, int C, int KV,
+                                     int kv, int D, int start_)
+      : k(static_cast<const E*>(ap.k_new) + ((long long)b * C * KV + kv) * D),
+        v(static_cast<const E*>(ap.v_new) + ((long long)b * C * KV + kv) * D),
+        start(start_), stride((long long)KV * D) {}
+  __device__ __forceinline__ long long off(int kpos) const {
+    return (long long)(kpos - start) * stride;
+  }
+};
+
+// The fused append of sequence b, KV head kv, by the NTH threads of one
+// block: row c of the chunk lands at pool[page_ids[b, c], slot_ids[b, c],
+// kv], pads included; an out-of-range target is dropped, as kv_append.cu
+// drops it.  16-byte pieces when vec (D * sizeof(E) a multiple of 16 and
+// every base on 16 bytes), else element by element.
+template <typename E, int NTH>
+__device__ __forceinline__ void append_rows(const Append& ap, int b, int kv,
+                                            int C, int KV, int D, int P,
+                                            int T, bool vec) {
+  E* pk = static_cast<E*>(ap.pool_k);
+  E* pv = static_cast<E*>(ap.pool_v);
+  const E* kn = static_cast<const E*>(ap.k_new);
+  const E* vn = static_cast<const E*>(ap.v_new);
+  const int per = vec ? D * (int)sizeof(E) / 16 : D;   // pieces a row
+  for (int idx = threadIdx.x; idx < C * per; idx += NTH) {
+    const int c = idx / per;
+    const int e = idx - c * per;
+    const int page = ap.page_ids[b * C + c];
+    const int slot = ap.slot_ids[b * C + c];
+    if (page < 0 || page >= P || slot < 0 || slot >= T) continue;
+    const long long src = ((long long)(b * C + c) * KV + kv) * D;
+    const long long dst = (((long long)page * T + slot) * KV + kv) * D;
+    if (vec) {
+      reinterpret_cast<int4*>(pk + dst)[e] =
+          reinterpret_cast<const int4*>(kn + src)[e];
+      reinterpret_cast<int4*>(pv + dst)[e] =
+          reinterpret_cast<const int4*>(vn + src)[e];
+    } else {
+      pk[dst + e] = kn[src + e];
+      pv[dst + e] = vn[src + e];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -181,15 +266,16 @@ struct PaWarps {
 // Keys [k0, k0 + kBK) of K and V into shared memory (row stride LD) with
 // cp.async, 16 bytes a thread, through `pages` (the table entry of each key
 // of the tile, in shared memory); keys >= k_hi and columns >= D are
-// zero-filled.
-template <int DP, int LD>
+// zero-filled.  kFused: keys from nr.start on come from the new rows.
+template <int DP, int LD, bool kFused>
 __device__ __forceinline__ void gather_kv(__nv_bfloat16* ks,
                                           __nv_bfloat16* vs,
                                           const __nv_bfloat16* pool_k,
                                           const __nv_bfloat16* pool_v,
                                           const int* pages,
-                                          const PageWalk& pw, int k0,
-                                          int k_hi, int D) {
+                                          const PageWalk& pw,
+                                          const NewRows<__nv_bfloat16>& nr,
+                                          int k0, int k_hi, int D) {
   constexpr int kT = PaWarps<DP>::threads;
   constexpr int vpr = DP / 8;                      // 16-byte copies a key
   static_assert(kBK * vpr % kT == 0, "whole copies a thread");
@@ -199,9 +285,18 @@ __device__ __forceinline__ void gather_kv(__nv_bfloat16* ks,
     const int row = idx / vpr;
     const int c = (idx - row * vpr) * 8;
     const bool ok = k0 + row < k_hi && c < D;
-    const long long off = ok ? pw.at(pages[row], k0 + row) + c : 0;
-    cp_async16(ks + row * LD + c, pool_k + off, ok);
-    cp_async16(vs + row * LD + c, pool_v + off, ok);
+    const __nv_bfloat16 *sk = pool_k, *sv = pool_v;
+    if (kFused && ok && k0 + row >= nr.start) {
+      const long long off = nr.off(k0 + row) + c;
+      sk = nr.k + off;
+      sv = nr.v + off;
+    } else if (ok) {
+      const long long off = pw.at(pages[row], k0 + row) + c;
+      sk = pool_k + off;
+      sv = pool_v + off;
+    }
+    cp_async16(ks + row * LD + c, sk, ok);
+    cp_async16(vs + row * LD + c, sv, ok);
   }
 }
 
@@ -223,7 +318,7 @@ struct PaSmem {
   static constexpr size_t bytes = pg_off + (size_t)page_slots * kBK * 4;
 };
 
-template <int DP, int KG>
+template <int DP, int KG, bool kFused>
 __global__ void __launch_bounds__(PaWarps<DP>::threads, 1)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ pool_k,
@@ -234,7 +329,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                        int C, int H, int KV, int D, int P, int T, int N,
                        int splits, int window, float scale, float softcap,
-                       int vec_ok) {
+                       int vec_ok, Append ap) {
   using L = PaSmem<DP>;
   constexpr int LD = L::LD;
   constexpr int KW = kBK / KG;      // keys of a tile per warp
@@ -266,6 +361,11 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int R = C * G;
   const int m_tiles = (min(kRows, R - row0) + 15) / 16;
   const int start = lengths[b];
+  if constexpr (kFused) {
+    if (sp == 0 && row0 == 0)
+      append_rows<__nv_bfloat16, NTh>(ap, b, kv, C, KV, D, P, T, vec_ok);
+  }
+  const NewRows<__nv_bfloat16> nr(ap, b, C, KV, kv, D, start);
 
   int k_lo, k_hi, t_lo, t_hi;
   const int n_tiles = key_tiles(start, C, T, N, window, &k_lo, &k_hi);
@@ -302,18 +402,27 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int k0 = k_lo + t * kBK;
       const size_t at = (size_t)((t - t_lo) % S) * kBK * LD;
       if (vec_ok) {
-        gather_kv<DP, LD>(Ks + at, Vs + at, pool_k, pool_v,
-                          pg + ((t - t_lo) % PS) * kBK, pw, k0, k_hi, D);
+        gather_kv<DP, LD, kFused>(Ks + at, Vs + at, pool_k, pool_v,
+                                  pg + ((t - t_lo) % PS) * kBK, pw, nr, k0,
+                                  k_hi, D);
         const int ka = k0 + (S - 1) * kBK + (int)threadIdx.x;
         if (threadIdx.x < kBK)
           cp_async4(pg + ((t + S - 1 - t_lo) % PS) * kBK + threadIdx.x,
                     ka < k_hi ? page_entry(ka) : pw.row, ka < k_hi);
       } else {
-        auto key_off = [&](int j) -> long long {
-          return k0 + j < k_hi ? pw.off(k0 + j) : -1LL;
+        auto key_row = [&](const __nv_bfloat16* pool,
+                           const __nv_bfloat16* fresh,
+                           int kpos) -> const __nv_bfloat16* {
+          if (kpos >= k_hi) return nullptr;
+          if (kFused && kpos >= start) return fresh + nr.off(kpos);
+          return pool + pw.off(kpos);
         };
-        load_rows<DP, LD, NTh>(Ks + at, pool_k, kBK, D, 0, key_off);
-        load_rows<DP, LD, NTh>(Vs + at, pool_v, kBK, D, 0, key_off);
+        load_rows<DP, LD, NTh>(Ks + at, pool_k, kBK, D, 0, [&](int j) {
+          return key_row(pool_k, nr.k, k0 + j);
+        });
+        load_rows<DP, LD, NTh>(Vs + at, pool_v, kBK, D, 0, [&](int j) {
+          return key_row(pool_v, nr.v, k0 + j);
+        });
       }
     }
     cp_async_commit();
@@ -322,8 +431,9 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // Q in a copy group of its own; the entries of the first S - 1 tiles
   // read directly; then those tiles
   load_rows<DP, LD, NTh>(
-      Qs, q, m_tiles * 16, D, vec_ok, [&](int j) -> long long {
-        return row0 + j < R ? row_id(row0 + j) * D : -1LL;
+      Qs, q, m_tiles * 16, D, vec_ok,
+      [&](int j) -> const __nv_bfloat16* {
+        return row0 + j < R ? q + row_id(row0 + j) * D : nullptr;
       });
   cp_async_commit();
   if (vec_ok) {
@@ -569,7 +679,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 constexpr int kF32Warps = 8;            // query rows per block, one warp each
 constexpr int kKT = 16;                 // keys per shared-memory tile
 
-template <int NI>
+template <int NI, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ pool_k,
@@ -580,7 +690,7 @@ paged_attention_f32_kernel(const float* __restrict__ q,
                            float* __restrict__ ws_acc,
                            float* __restrict__ ws_ml, int C, int H, int KV,
                            int D, int P, int T, int N, int splits, int window,
-                           float scale, float softcap) {
+                           float scale, float softcap, int vec, Append ap) {
   __shared__ float ks[kKT * NI * 32];
   __shared__ float vs[kKT * NI * 32];
 
@@ -597,6 +707,10 @@ paged_attention_f32_kernel(const float* __restrict__ q,
   const int h = kv * G + (active ? row % G : 0);
   const int start = lengths[b];
   const int qpos = start + c;
+  if constexpr (kFused) {
+    if (sp == 0 && blockIdx.x == 0)
+      append_rows<float, kThreads>(ap, b, kv, C, KV, D, P, T, vec);
+  }
 
   int k_lo, k_hi, t_lo, t_hi;
   const int n_tiles = key_tiles(start, C, T, N, window, &k_lo, &k_hi);
@@ -628,13 +742,25 @@ paged_attention_f32_kernel(const float* __restrict__ q,
 
   for (int k0 = key_lo; k0 < key_hi; k0 += kKT) {
     const int kt = min(kKT, key_hi - k0);
+    // kFused: keys from start on (the tile's last kt - kp) are new rows
+    const int kp = kFused ? max(0, min(kt, start - k0)) : kt;
     __syncthreads();   // the previous tile is fully consumed
-    for (int idx = threadIdx.x; idx < kt * D; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kp * D; idx += kThreads) {
       const int j = idx / D;
       const int d = idx - j * D;
       const long long off = pw.off(k0 + j) + d;
       ks[j * D + d] = pool_k[off];
       vs[j * D + d] = pool_v[off];
+    }
+    if constexpr (kFused) {
+      const NewRows<float> nr(ap, b, C, KV, kv, D, start);
+      for (int idx = kp * D + threadIdx.x; idx < kt * D; idx += kThreads) {
+        const int j = idx / D;
+        const int d = idx - j * D;
+        const long long off = nr.off(k0 + j) + d;
+        ks[j * D + d] = nr.k[off];
+        vs[j * D + d] = nr.v[off];
+      }
     }
     __syncthreads();
     if (!active) continue;
@@ -794,32 +920,38 @@ int merge(const void* ws_acc, const void* ws_ml, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-template <int DP, int KG>
+// 16-byte copies need D * sizeof(element) % 16 == 0 and every float
+// operand (q, the pools and the fused append's new rows) on 16 bytes
+inline int vec_copies(int D, int esz, const void* q, const void* pool_k,
+                  const void* pool_v, const Append& ap) {
+  return (D * esz) % 16 == 0 &&
+         ((uintptr_t)q | (uintptr_t)pool_k | (uintptr_t)pool_v |
+          (uintptr_t)ap.k_new | (uintptr_t)ap.v_new) % 16 == 0;
+}
+
+template <int DP, int KG, bool kFused>
 int launch_bf16(const void* q, const void* pool_k, const void* pool_v,
                 const void* page_table, const void* lengths, void* out,
                 void* ws_acc, void* ws_ml, int B, int C, int H, int KV,
                 int D, int P, int T, int N, int splits, int window,
-                float scale, float softcap, cudaStream_t stream) {
+                float scale, float softcap, cudaStream_t stream,
+                const Append& ap) {
   const size_t smem = PaSmem<DP>::bytes;
   constexpr int NTh = PaWarps<DP>::threads;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<DP, KG>,
+      paged_attention_kernel<DP, KG, kFused>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // 16-byte copies need D % 8 == 0 and 16-byte aligned q and pools
-  const int vec_ok =
-      D % 8 == 0 &&
-      ((uintptr_t)q | (uintptr_t)pool_k | (uintptr_t)pool_v) % 16 == 0;
   const int row_groups = (C * (H / KV) + kRows - 1) / kRows;
   dim3 grid(splits, KV * row_groups, B);
-  paged_attention_kernel<DP, KG><<<grid, NTh, smem, stream>>>(
+  paged_attention_kernel<DP, KG, kFused><<<grid, NTh, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(pool_k),
       static_cast<const __nv_bfloat16*>(pool_v),
       static_cast<const int*>(page_table), static_cast<const int*>(lengths),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_acc),
       static_cast<float*>(ws_ml), C, H, KV, D, P, T, N, splits, window,
-      scale, softcap, vec_ok);
+      scale, softcap, vec_copies(D, 2, q, pool_k, pool_v, ap), ap);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return merge<__nv_bfloat16>(ws_acc, ws_ml, lengths, out, B, C, H, D, T, N,
@@ -830,41 +962,62 @@ int launch_bf16(const void* q, const void* pool_k, const void* pool_v,
   const void *q, const void *pool_k, const void *pool_v,                    \
       const void *page_table, const void *lengths, void *out, void *ws_acc, \
       void *ws_ml, int B, int C, int H, int KV, int D, int P, int T, int N, \
-      int splits, int window, float scale, float softcap, cudaStream_t s
+      int splits, int window, float scale, float softcap, cudaStream_t s,  \
+      const Append &ap
 #define REPRO_ARGS q, pool_k, pool_v, page_table, lengths, out, ws_acc, \
                    ws_ml, B, C, H, KV, D, P, T, N, splits, window,      \
-                   scale, softcap, s
+                   scale, softcap, s, ap
 
 // Key groups per 16-row tile: as many as the block's warps allow, at most
 // four (16 keys a warp of each 64-key tile)
-template <int DP>
+template <int DP, bool kFused>
 int dispatch_kg(REPRO_PARAMS) {
   const int m_tiles = (min(kRows, C * (H / KV)) + 15) / 16;
   const int per_tile = PaWarps<DP>::warps / m_tiles;
-  if (per_tile >= 4) return launch_bf16<DP, 4>(REPRO_ARGS);
+  if (per_tile >= 4) return launch_bf16<DP, 4, kFused>(REPRO_ARGS);
   if constexpr (PaWarps<DP>::warps == 16) {   // at most 8 row tiles
-    return launch_bf16<DP, 2>(REPRO_ARGS);
+    return launch_bf16<DP, 2, kFused>(REPRO_ARGS);
   } else {
-    if (per_tile >= 2) return launch_bf16<DP, 2>(REPRO_ARGS);
-    return launch_bf16<DP, 1>(REPRO_ARGS);
+    if (per_tile >= 2) return launch_bf16<DP, 2, kFused>(REPRO_ARGS);
+    return launch_bf16<DP, 1, kFused>(REPRO_ARGS);
   }
 }
 
-template <int NI>
+template <int NI, bool kFused>
 int launch_f32(REPRO_PARAMS) {
   const int rows = C * (H / KV);
   dim3 grid((rows + kF32Warps - 1) / kF32Warps, KV, B * splits);
-  paged_attention_f32_kernel<NI><<<grid, kThreads, 0, s>>>(
+  paged_attention_f32_kernel<NI, kFused><<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), static_cast<const int*>(page_table),
       static_cast<const int*>(lengths), static_cast<float*>(out),
       static_cast<float*>(ws_acc), static_cast<float*>(ws_ml), C, H, KV, D,
-      P, T, N, splits, window, scale, softcap);
+      P, T, N, splits, window, scale, softcap,
+      vec_copies(D, 4, q, pool_k, pool_v, ap), ap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return merge<float>(ws_acc, ws_ml, lengths, out, B, C, H, D, T, N, splits,
                       window, s);
 }
+
+template <bool kFused>
+int run(REPRO_PARAMS, int is_bf16) {
+  if (B <= 0 || C <= 0 || D <= 0 || D > 256 || KV <= 0 || H % KV != 0 ||
+      splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    if (D <= 64) return dispatch_kg<64, kFused>(REPRO_ARGS);
+    if (D <= 128) return dispatch_kg<128, kFused>(REPRO_ARGS);
+    return dispatch_kg<256, kFused>(REPRO_ARGS);
+  }
+  if (D <= 32) return launch_f32<1, kFused>(REPRO_ARGS);
+  if (D <= 64) return launch_f32<2, kFused>(REPRO_ARGS);
+  if (D <= 128) return launch_f32<4, kFused>(REPRO_ARGS);
+  return launch_f32<8, kFused>(REPRO_ARGS);
+}
+#undef REPRO_ARGS
+#undef REPRO_PARAMS
 
 }  // namespace
 
@@ -881,20 +1034,31 @@ extern "C" int repro_paged_attention_chunk(
     void* ws_ml, int B, int C, int H, int KV, int D, int P, int T, int N,
     int splits, int window, float scale, float softcap, int is_bf16,
     void* stream) {
-  if (B <= 0 || C <= 0 || D <= 0 || D > 256 || KV <= 0 || H % KV != 0 ||
-      splits < 1 || splits > kMaxSplits ||
-      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D <= 64) return dispatch_kg<64>(REPRO_ARGS);
-    if (D <= 128) return dispatch_kg<128>(REPRO_ARGS);
-    return dispatch_kg<256>(REPRO_ARGS);
-  }
-  if (D <= 32) return launch_f32<1>(REPRO_ARGS);
-  if (D <= 64) return launch_f32<2>(REPRO_ARGS);
-  if (D <= 128) return launch_f32<4>(REPRO_ARGS);
-  return launch_f32<8>(REPRO_ARGS);
+  return run<false>(q, pool_k, pool_v, page_table, lengths, out, ws_acc,
+                    ws_ml, B, C, H, KV, D, P, T, N, splits, window, scale,
+                    softcap, static_cast<cudaStream_t>(stream),
+                    Append{nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr},
+                    is_bf16);
 }
-#undef REPRO_ARGS
-#undef REPRO_PARAMS
+
+// repro_paged_attention_chunk with the chunk's append fused in: k_new,
+// v_new [B, C, KV, D] (the pools' dtype) land at pool[page_ids[b, c],
+// slot_ids[b, c]] (page_ids, slot_ids: [B, C] int32), in place, and the
+// chunk's keys are read from them.  The output and every pool byte off
+// the null page 0 are those of repro_kv_append_chunk on K and on V, then
+// repro_paged_attention_chunk.
+extern "C" int repro_paged_attention_append_chunk(
+    const void* q, const void* k_new, const void* v_new, void* pool_k,
+    void* pool_v, const void* page_table, const void* lengths,
+    const void* page_ids, const void* slot_ids, void* out, void* ws_acc,
+    void* ws_ml, int B, int C, int H, int KV, int D, int P, int T, int N,
+    int splits, int window, float scale, float softcap, int is_bf16,
+    void* stream) {
+  return run<true>(q, pool_k, pool_v, page_table, lengths, out, ws_acc,
+                   ws_ml, B, C, H, KV, D, P, T, N, splits, window, scale,
+                   softcap, static_cast<cudaStream_t>(stream),
+                   Append{k_new, v_new, static_cast<const int*>(page_ids),
+                          static_cast<const int*>(slot_ids), pool_k, pool_v},
+                   is_bf16);
+}

@@ -1,7 +1,20 @@
-"""The schedule of the flash attention backward kernels
+"""The schedules of the flash attention kernels' float32 forward
+(``flash_fwd_f32_tiled``, ``csrc/flash_attention.cu``'s
+``flash_f32_tc_kernel``) and of the backward kernels
 (``csrc/flash_attention_bwd.cu``) in plain PyTorch, step for step: the
 counterpart of ``blockwise.py`` for the CPU tests.  Nothing on the main
-path calls it.
+path calls them.
+
+The float32 forward: one block per (``q_tile`` query rows, head h) walks
+the key tiles of its band, ``k_tile`` keys a tile from a multiple of
+``k_tile``, with the online softmax in log2 units (the bf16 kernels'
+expressions: finite NEG_INF, masked probabilities exactly 0, the
+denominator clamped at 1e-20, the softcap as ``c (1 - 2 / (1 + 2^(2 y
+log2 e)))``).  Both products are 3xTF32, as ``csrc/mma_tf32.cuh`` takes
+them: each operand split into TF32 big and small parts (the mantissa
+rounded to 10 bits, to nearest with ties away from zero, as
+``cvt.rna.tf32.f32``), and ``a_small b_big + a_big b_small + a_big b_big``
+summed in float32.
 
 The pre-pass writes ``delta = rowsum(dO * out)`` and the forward's ``lse``
 into rows padded to whole ``pad``-row tiles; a padded row has delta 0 and
@@ -41,6 +54,9 @@ from typing import Optional, Tuple
 import torch
 
 PAD_LSE = 1e30
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -52,6 +68,85 @@ def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
     pad = torch.zeros((x.shape[0], n - x.shape[1], *x.shape[2:]),
                       dtype=x.dtype)
     return torch.cat([x, pad], dim=1)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of float32 operands in 3xTF32: each split
+    into big = tf32(x) and small = tf32(x - big), the small products
+    first, all three summed in float32."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def flash_fwd_f32_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_tile: int = 64,
+                        k_tile: int = 32
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Sq, H, D], lse [B, H, Sq]) of float32 q, k, v through the
+    float32 forward kernel's decomposition (``q_tile`` query rows a block,
+    ``k_tile`` keys a step)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    if softcap is not None:
+        mul, cap2 = 2.0 * LOG2E * scale / softcap, softcap * LOG2E
+    else:
+        mul = scale * LOG2E
+    n_kt = _cdiv(Sk, k_tile)
+    kf = _rows(k.float(), n_kt * k_tile).repeat_interleave(G, dim=2)
+    vf = _rows(v.float(), n_kt * k_tile).repeat_interleave(G, dim=2)
+    qf = _rows(q.float(), _cdiv(Sq, q_tile) * q_tile)
+    out = torch.zeros(B, Sq, H, D)
+    lse = torch.zeros(B, H, Sq)
+    for qt in range(_cdiv(Sq, q_tile)):
+        q0 = qt * q_tile
+        q_last = min(q0 + q_tile, Sq) - 1
+        lo = max(0, q0 - window + 1) // k_tile * k_tile \
+            if window is not None else 0
+        hi = min(Sk, q_last + 1) if causal else Sk
+        qpos = torch.arange(q0, q0 + q_tile)[:, None]
+        qs = qf[:, q0:q0 + q_tile].transpose(1, 2)            # [B, H, R, D]
+        m = torch.full((B, H, q_tile, 1), NEG_INF)
+        l = torch.zeros(B, H, q_tile, 1)
+        o = torch.zeros(B, H, q_tile, D)
+        for k0 in range(lo, hi, k_tile):
+            ks = kf[:, k0:k0 + k_tile].transpose(1, 2)        # [B, H, K, D]
+            vs = vf[:, k0:k0 + k_tile].transpose(1, 2)
+            s = mm_3xtf32("bhqd,bhkd->bhqk", qs, ks)
+            if softcap is not None:
+                x = cap2 * (1.0 - 2.0 / (1.0 + torch.exp2(s * mul)))
+            else:
+                x = s * mul
+            kpos = torch.arange(k0, k0 + k_tile)[None, :]
+            vis = kpos < Sk
+            if causal:
+                vis = vis & (kpos <= qpos)
+            if window is not None:
+                vis = vis & (kpos > qpos - window)
+            x = torch.where(vis, x, NEG_INF)
+            m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(vis, torch.exp2(x - m_new), 0.0)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + mm_3xtf32("bhqk,bhkd->bhqd", p, vs)
+            m = m_new
+        d = l.clamp_min(1e-20)
+        rows = slice(0, q_last + 1 - q0)
+        out[:, q0:q_last + 1] = (o / d)[:, :, rows].transpose(1, 2)
+        m2 = torch.where(m == NEG_INF, NEG_INF, m * LN2)
+        lse[:, :, q0:q_last + 1] = (m2 + torch.log(d))[:, :, rows, 0]
+    return out.to(q.dtype), lse
 
 
 def flash_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,9 +3,9 @@
 ``gqa_train`` is the full-sequence forward of training and bulk logits,
 through ``kernels.attention`` (the flash kernel).  ``gqa_serve`` is the
 chunked serve step over the paged KV pool: up to C tokens per sequence
-appended (``kernels.kv_append_chunk``) and attended
-(``kernels.paged_attention_chunk``) in one fixed-shape call; decode is the
-C=1 slice.  The pools are updated IN PLACE (the JAX version returns new
+appended and attended (``kernels.paged_attention_append_chunk``: the
+append and the attention in one launch) in one fixed-shape call; decode is
+the C=1 slice.  The pools are updated IN PLACE (the JAX version returns new
 pools).  MLA and ``gqa_cross`` wait for their slices (ROADMAP queue 1).
 """
 
@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import attention as attention_op
-from ..kernels import kv_append_chunk, paged_attention_chunk
+from ..kernels import paged_attention_append_chunk
 from .config import ModelConfig
 from .spec import ParamSpec
 
@@ -144,12 +144,9 @@ def gqa_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     T = pool_k.shape[1]
     positions, page_ids, slot_ids = paged_chunk_ids(page_table, lengths, C, T)
     q, k, v = _qkv(p, cfg, x, positions if use_rope else None, use_rope)
-    pool_k = kv_append_chunk(pool_k, k.contiguous(), page_ids, slot_ids,
-                             impl=impl)
-    pool_v = kv_append_chunk(pool_v, v.contiguous(), page_ids, slot_ids,
-                             impl=impl)
-    out = paged_attention_chunk(q.contiguous(), pool_k, pool_v, page_table,
-                                lengths, window=window,
-                                softcap=cfg.attn_logit_softcap, impl=impl)
+    out = paged_attention_append_chunk(
+        q.contiguous(), k.contiguous(), v.contiguous(), pool_k, pool_v,
+        page_table, lengths, page_ids, slot_ids, window=window,
+        softcap=cfg.attn_logit_softcap, impl=impl)
     out = out.reshape(B, C, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cfg.dtype)
     return out, pool_k, pool_v

@@ -2,7 +2,10 @@
 over the code paths chip_smoke.py does not reach at the serving shapes:
 float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
-MQA, window and softcap; the flash kernel over causal, windowed,
+MQA, window and softcap; the serve step's fused append and attention,
+bitwise against the unfused kernel path over the same loaders, splits and
+pages and over idle slots, pads on the null page and straddling chunks;
+the flash kernel over causal, windowed,
 softcapped, non-causal and ragged shapes in float32 and bf16 at head dims
 64, 128 and 256, groups of 1 and 6, operands TMA cannot address as given,
 and its repeatability, and its backward kernel over the same shapes (and
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (attention, attention_bwd, attention_fwd,
                                  common, kv_append_chunk, paged_attention,
+                                 paged_attention_append_chunk,
                                  paged_attention_chunk, ssd_chunk,
                                  ssd_chunk_bwd, ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
@@ -179,6 +183,107 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
                         pt[:, :1])
 
 
+FUSED_CASES = [
+    # B, C, H, KV, D, P, T, N, layout, window, softcap, dtype
+    (8, 16, 12, 2, 128, 600, 16, 64, "spread", None, None, "bfloat16"),
+    (8, 1, 12, 2, 128, 600, 16, 64, "spread", None, None, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "idle", None, None, "bfloat16"),
+    (8, 1, 12, 2, 128, 600, 16, 64, "idle", None, None, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "straddle", None, None, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "pads", None, None, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "spread", 256, None, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "spread", None, 30.0, "bfloat16"),
+    (8, 16, 12, 2, 128, 600, 16, 64, "spread", None, None, "float32"),
+    (8, 1, 12, 2, 128, 600, 16, 64, "idle", None, None, "float32"),
+    (2, 4, 4, 2, 32, 16, 8, 4, "spread", None, None, "float32"),  # 1 split
+    (3, 5, 4, 1, 12, 40, 8, 8, "spread", None, None, "bfloat16"),  # D=12
+    (3, 5, 4, 2, 12, 40, 8, 8, "straddle", 9, None, "float32"),   # D=12
+    (2, 3, 4, 2, 256, 24, 32, 6, "spread", None, None, "bfloat16"),  # T=32
+    (2, 16, 16, 1, 64, 40, 16, 12, "idle", None, None, "bfloat16"),  # G=16
+    (3, 16, 2, 2, 64, 48, 16, 12, "straddle", 20, None, "bfloat16"),  # G=1
+]
+
+
+def fused_inputs(rng, B, C, H, KV, D, P, T, N, kind, dtype, dev):
+    """q, k_new, v_new, pools, table, lengths and the chunk's (page, slot)
+    ids of one scenario; every sequence has distinct pages off the null
+    page, and ``kind`` is "spread" (lengths anywhere a chunk fits),
+    "straddle" (every chunk starts C // 2 tokens before a page boundary),
+    "pads" (sequence 0's chunk runs from mid page 1 into page 2, whose
+    table entry and every later one is 0: its tokens there land on the
+    null page, each slot once) or "idle" (the last slot at length 0 with an
+    all-zero row)."""
+    pt = rng.permutation(np.arange(1, P))[:B * N].reshape(B, N)
+    if kind == "straddle":
+        lens = rng.integers(1, N - 1, B) * T - C // 2
+    else:
+        lens = rng.integers(0, N * T - C + 1, B)
+    if kind == "pads":
+        lens[0] = T + T // 2
+        pt[0, 2:] = 0
+    if kind == "idle":
+        pt[-1] = 0
+        lens[-1] = 0
+    pt = torch.from_numpy(pt.astype(np.int32)).to(dev)
+    lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    _, pids, sids = paged_chunk_ids(pt, lens, C, T)
+    return (randn(rng, (B, C, H, D), dtype, dev),
+            randn(rng, (B, C, KV, D), dtype, dev),
+            randn(rng, (B, C, KV, D), dtype, dev),
+            randn(rng, (P, T, KV, D), dtype, dev),
+            randn(rng, (P, T, KV, D), dtype, dev), pt, lens, pids, sids)
+
+
+@pytest.mark.parametrize("B,C,H,KV,D,P,T,N,kind,window,softcap,dtype",
+                         FUSED_CASES)
+def test_fused_append_attention_equals_unfused_kernel_path(
+        cuda, B, C, H, KV, D, P, T, N, kind, window, softcap, dtype):
+    """The fused kernel's output bitwise that of kv_append_chunk on each
+    pool and then paged_attention_chunk, its pools byte-equal off the null
+    page 0 (where pad writes race), one launch under its own name; and the
+    plain version to TOL."""
+    rng = np.random.default_rng(B * 100 + C * 10 + D)
+    q, kn, vn, pk, pv, pt, lens, pids, sids = fused_inputs(
+        rng, B, C, H, KV, D, P, T, N, kind, dtype, cuda)
+    kw = dict(window=window, softcap=softcap)
+    a_k, a_v = pk.clone(), pv.clone()
+    kv_append_chunk(a_k, kn, pids, sids)
+    kv_append_chunk(a_v, vn, pids, sids)
+    want = paged_attention_chunk(q, a_k, a_v, pt, lens, **kw)
+    common.reset_launch_counts()
+    f_k, f_v = pk.clone(), pv.clone()
+    got = paged_attention_append_chunk(q, kn, vn, f_k, f_v, pt, lens, pids,
+                                       sids, **kw)
+    r_k, r_v = pk.clone(), pv.clone()
+    plain = paged_attention_append_chunk(q, kn, vn, r_k, r_v, pt, lens,
+                                         pids, sids, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["paged_attention_append_chunk"] == 1
+    assert common.LAUNCHES["kv_append_chunk"] == 0
+    assert common.LAUNCHES["paged_attention_chunk"] == 0
+    assert torch.equal(got, want)
+    for f, a, r in ((f_k, a_k, r_k), (f_v, a_v, r_v)):
+        assert torch.equal(f[1:], a[1:]) and torch.equal(f[1:], r[1:])
+    torch.testing.assert_close(got.float(), plain.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_fused_append_attention_rejects_what_it_cannot_take(cuda):
+    rng = np.random.default_rng(0)
+    q, kn, vn, pk, pv, pt, lens, pids, sids = fused_inputs(
+        rng, 2, 4, 4, 2, 32, 16, 8, 4, "spread", "bfloat16", cuda)
+    with pytest.raises(ValueError):                  # k_new of another C
+        paged_attention_append_chunk(q, kn[:, :3].contiguous(), vn, pk, pv,
+                                     pt, lens, pids, sids)
+    with pytest.raises(TypeError):                   # k_new not the pools'
+        paged_attention_append_chunk(q, kn.float(), vn, pk, pv, pt, lens,
+                                     pids, sids)
+    with pytest.raises(ValueError):                  # non-contiguous
+        paged_attention_append_chunk(
+            q, kn.transpose(2, 3).contiguous().transpose(2, 3), vn, pk, pv,
+            pt, lens, pids, sids)
+
+
 def _smoke(cuda):
     cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
                               dtype=torch.float32)
@@ -266,6 +371,11 @@ FLASH_CASES = [
     (2, 333, 300, 6, 6, 128, False, None, 30.0, "float32"),
     (1, 150, 50, 6, 2, 256, True, 40, None, "float32"),
     (3, 1, 300, 12, 2, 64, False, None, None, "float32"),
+    # the float32 forward's tensor-core kernel (64-row blocks, 32-key tiles)
+    # at phase 1's float32 mask edges: a ragged S, a window, a softcap
+    (1, 1000, 1000, 12, 2, 128, True, None, None, "float32"),
+    (1, 1000, 1000, 12, 2, 128, True, 256, None, "float32"),
+    (1, 1000, 1000, 12, 2, 128, True, None, 30.0, "float32"),
 ]
 
 
@@ -299,6 +409,21 @@ def test_flash_kernel_is_bitwise_repeatable(cuda, D):
     v = randn(rng, (1, 1500, 2, D), "bfloat16", cuda)
     first = attention_fwd(q, k, v, causal=True)
     second = attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_f32_kernel_is_bitwise_repeatable(cuda, D):
+    """The float32 forward (3xTF32 tensor cores) gives the same bits every
+    call: no atomics, a fixed product order."""
+    rng = np.random.default_rng(D + 1)
+    q = randn(rng, (1, 700, 6, D), "float32", cuda)
+    k = randn(rng, (1, 700, 2, D), "float32", cuda)
+    v = randn(rng, (1, 700, 2, D), "float32", cuda)
+    first = attention_fwd(q, k, v, causal=True, softcap=30.0)
+    second = attention_fwd(q, k, v, causal=True, softcap=30.0)
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])

@@ -219,14 +219,22 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
                                  torch.tensor([0], dtype=torch.int32),
                                  impl="cuda")
     with pytest.raises(ValueError):
+        tk.paged_attention_append_chunk(
+            new, new, new, pool, pool, ids,
+            torch.tensor([0], dtype=torch.int32), ids, slots, impl="cuda")
+    with pytest.raises(ValueError):
         tk.kv_append_chunk(pool, new, ids, slots, impl="pallas")
     tk.kv_append_chunk(pool, new, ids, slots)               # CPU -> plain
     tk.kv_append_chunk(pool, new, ids, slots, impl="ref")
     tk.paged_attention_chunk(new, pool, pool, ids,
                              torch.tensor([0], dtype=torch.int32))
+    tk.paged_attention_append_chunk(new, new, new, pool, pool, ids,
+                                    torch.tensor([0], dtype=torch.int32),
+                                    ids, slots)
     assert pool[1, :2].eq(1).all()
     assert common.LAUNCHES == {"kv_append_chunk": 0,
                                "paged_attention_chunk": 0,
+                               "paged_attention_append_chunk": 0,
                                "flash_attention": 0,
                                "flash_attention_bwd": 0, "ssd_chunk": 0,
                                "ssd_chunk_bwd": 0}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase-1 flash cases, forward and backward, timed for
-several checkouts of this repository on one card, in turns.
+"""chip_smoke.py's phase-1 flash cases, forward (bf16 and float32) and
+backward, timed for several checkouts of this repository on one card, in
+turns.
 
     python3 tools/flash_ab.py ROOT [ROOT ...]
 
@@ -39,6 +40,13 @@ CASES = [
 ]
 # phase 1's bf16 backward cases, keyword arguments of flash_bwd_case
 BWD_CASES = [("flash bwd" + name[5:], S, kw) for name, S, kw in CASES]
+# phase 1's float32 forward cases (the dtype by name: torch loads later)
+F32_CASES = [
+    ("flash S=512 D=64 float32", 512, {"D": 64}),
+    ("flash S=1000 ragged float32", 1000, {}),
+    ("flash S=1000 window=256 float32", 1000, {"window": 256}),
+    ("flash S=1000 softcap=30 float32", 1000, {"softcap": 30.0}),
+]
 
 
 def plain_bwd_case(cs, rng, name: str, S: int, causal=True, window=None,
@@ -71,7 +79,9 @@ def run_tree(root: Path, turn: int) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for i, (name, S, kw) in enumerate(CASES):
+    fwd = CASES + [(name, S, {**kw, "dtype": torch.float32})
+                   for name, S, kw in F32_CASES]
+    for i, (name, S, kw) in enumerate(fwd):
         c = cs.flash_case(np.random.default_rng(i), name, S, **kw)
         print(json.dumps({"tree": str(root), "turn": turn, "case": name,
                           "ms": c["ms"], "ms_timing": c["ms_timing"],
