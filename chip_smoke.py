@@ -34,10 +34,11 @@ sm_90a) and then, failing with a non-zero exit on any error:
      plain forward.  It times kernel, plain version and one PyTorch
      library call where there is one (a yardstick the port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
-     greedy) at full width through ``ServeClient`` with one POSIX and one
-     STRICT session, and checks that every serve step launched the fused
-     append and attention once on every layer and neither standalone
-     serving kernel;
+     greedy) at full width through ``ServeClient`` (prefix cache on, as
+     by default; the prompts share no page) with one POSIX and one STRICT
+     session, and checks that every serve step launched the fused append
+     and attention once on every layer and neither standalone serving
+     kernel;
   3. runs one mixed prefill+decode ``serve_step`` of the full model twice
      from cloned caches, with the kernels and with the plain versions,
      and compares logits and pools;
@@ -65,7 +66,25 @@ sm_90a) and then, failing with a non-zero exit on any error:
      perturbation (PERF.md §6, PR 17);
   8. serves the same 8 requests as phase 2 with mamba2-1.3b at full width
      (the recurrent serve path runs no kernel: it checks that none
-     launched) and profiles a prefill and a decode window.
+     launched, and that the engine refused the prefix cache) and profiles
+     a prefill and a decode window;
+  9. drives the engine's mechanisms on qwen2-1.5b at full width and depth
+     through ``ServeClient(max_batch=8, max_seq=1024, page_tokens=16)``:
+     (a) 7 requests adopting a published 256-token prefix, (b) a fork whose
+     tail page is CoW'd, (c) the host tier (a 16-page chain demoted by a
+     flood of prompts and promoted back, bit for bit, the promotion's
+     freed arena slots rewritten by a demotion in the same step), (d)
+     speculative decoding in a POSIX and a STRICT session (crash replay
+     equal to the committed pages after every step) and (e) (a) under
+     ``Obs(trace=True)`` (a valid trace, ledgers summing to the phase
+     totals).  In float32 activations each scenario's 32 greedy tokens a
+     request equal those of the same requests without the mechanism; in
+     bf16 (the timing lane) (a), (c) and (d) run with and without it,
+     every request finishing with 32 tokens and the float32 lane's paging
+     counts, and it prints their prefill steps and wall time, the
+     adopters' time to first token, the decode step with and without
+     speculation, the promote lag and the demotion time a page.  Every
+     step launches the fused append and attention once a layer.
 
 Every phase runs its model at full depth.
 
@@ -880,7 +899,9 @@ def serve_main_path(api, params, cfg, per_layer_step: dict) -> dict:
             "output_tokens_per_s": out_tokens / wall,
             "tokens_processed": eng.tokens_processed,
             "strict_commits": len(commits), "launches": launches,
-            "prompt_lens": [len(r.prompt) for r, _ in reqs]}
+            "prompt_lens": [len(r.prompt) for r, _ in reqs],
+            "prefix_cache": eng.prefix_cache is not None,
+            "pages_adopted": eng.controller.pages_adopted}
 
 
 def logits_d2h_ms(cfg) -> dict:
@@ -1017,6 +1038,337 @@ def path_vs_plain(api, params, cfg) -> dict:
     if worst > PATH_REL_TOL * scale or pool_err > PATH_REL_TOL * pool_scale:
         raise AssertionError(f"kernel path vs plain path: {res}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the engine's mechanisms (prefix cache, fork, host tier,
+# speculative decoding, obs) on qwen2-1.5b at full width and depth
+# ---------------------------------------------------------------------------
+
+MECH_NEW = 32                    # greedy tokens of every phase-9 request
+MECH_PREFIX = 256                # (a), (c): the shared prefix, 16 pages
+# (c): 40 usable pages (trie capacity 20) over an arena of exactly the
+# 16-page chain.  The flood publishes 20 pages, so the trie's capacity and
+# the pool's pressure push the whole chain (and nothing else) to the
+# host; the promotion then frees every arena slot, and the demotion that
+# the next publish makes in the same step lands in one of them
+TIER_POOL, TIER_HOST = 41, 16
+
+
+def mech_client(api, params, device, **kw):
+    from repro_torch.serve import ServeClient
+    return ServeClient(api, params, max_batch=B, max_seq=MAX_SEQ,
+                       page_tokens=T, device=device, **kw)
+
+
+def drive(eng, reqs, layers=None, after_step=None) -> dict:
+    """Step ``eng`` until it is idle, host clock around each step (ending
+    in a synchronize on a CUDA engine).  Every request of ``reqs`` must
+    finish with MECH_NEW tokens, none truncated; with ``layers`` every
+    step must launch the fused append and attention once a layer and no
+    other serving kernel (counts set to 0 first).  ``ttft_ms``: each
+    request's first token, from the start of the drive."""
+    from repro_torch.kernels import common
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    common.reset_launch_counts()
+    steps0 = eng.steps
+    prefill, decode, first = [], [], {}
+    t0 = time.perf_counter()
+    while eng.waiting or eng.active:
+        wide = bool(eng.waiting) or any(r.in_prefill
+                                        for r in eng.active.values())
+        ts = time.perf_counter()
+        eng.step()
+        sync()
+        te = time.perf_counter()
+        (prefill if wide else decode).append((te - ts) * 1e3)
+        for r in reqs:
+            if r.output and r.rid not in first:
+                first[r.rid] = (te - t0) * 1e3
+        if after_step is not None:
+            after_step()
+    wall = time.perf_counter() - t0
+    steps = eng.steps - steps0
+    if layers is not None:
+        launches = dict(common.LAUNCHES)
+        want = {"paged_attention_append_chunk": layers * steps}
+        assert launches == {k: want.get(k, 0) for k in launches}, \
+            (launches, steps)
+    for r in reqs:
+        assert r.done and not r.truncated and len(r.output) == MECH_NEW, r
+    return {"steps": steps, "prefill_steps": len(prefill),
+            "prefill_ms": sum(prefill), "decode_steps": len(decode),
+            "decode_step_ms_median": (statistics.median(decode)
+                                      if decode else None),
+            "wall_s": wall, "ttft_ms": [first[r.rid] for r in reqs]}
+
+
+def mech_prefix(api, params, cfg, device, on, layers=None, obs=None):
+    """(a): a 256-token prefix with 8 tails of 16-200 tokens; one request
+    alone publishes the prefix, then 7 run together and (with the prefix
+    cache) adopt its 16 pages.  With ``obs``, (e): the trace validates and
+    the request ledgers sum to the phase totals."""
+    from repro_torch.obs import validate_chrome_trace
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(1, cfg.vocab, MECH_PREFIX).tolist()
+    tails = [rng.integers(1, cfg.vocab, int(n)).tolist()
+             for n in rng.integers(16, 201, 8)]
+    client = mech_client(api, params, device, prefix_cache=on, obs=obs)
+    eng = client.engine
+    sess = client.open_session()
+    first = sess.submit(prefix + tails[0], MECH_NEW)
+    alone = drive(eng, [first], layers)
+    reqs = [sess.submit(prefix + t, MECH_NEW) for t in tails[1:]]
+    together = drive(eng, reqs, layers)
+    out = {"outputs": [first.output] + [r.output for r in reqs],
+           "prefix_tokens": [r.prefix_tokens for r in reqs],
+           "tokens_processed": eng.tokens_processed,
+           "pages_adopted": eng.controller.pages_adopted,
+           "alone": alone, "together": together}
+    if on:
+        assert out["prefix_tokens"] == [MECH_PREFIX] * 7, out
+        assert out["pages_adopted"] == 7 * MECH_PREFIX // T, out
+    if obs is not None:
+        problems = validate_chrome_trace(obs.tracer.to_chrome())
+        assert not problems, problems[:5]
+        every = [first] + reqs
+        steps = sum(r.ledger["steps"] for r in every)
+        for comp in ("scheduler", "device", "persistence"):
+            total = (obs.ledger.phase_totals("prefill")[comp]
+                     + obs.ledger.phase_totals("decode")[comp])
+            summed = sum(r.ledger[comp + "_ns"] for r in every)
+            assert 0 <= total - summed <= 2 * steps, (comp, total, summed)
+        out["trace_events"] = len(obs.tracer)
+        out["overhead_shares"] = obs.ledger.breakdown()["shares"]
+    return out
+
+
+def mech_fork(api, params, cfg, device, on, layers=None):
+    """(b): a 100-token prompt (the tail page holds 4 prompt tokens), forked
+    after its 8th output token; parent and child go on greedily."""
+    rng = np.random.default_rng(10)
+    client = mech_client(api, params, device, prefix_cache=on)
+    eng = client.engine
+    req = client.open_session().submit(
+        rng.integers(1, cfg.vocab, 100).tolist(), MECH_NEW)
+    reqs, out = [req], {}
+    if on:
+        while len(req.output) < 8:
+            eng.step()
+        child = eng.fork(req)
+        ctrl = eng.controller
+        idx, filled = divmod(ctrl.seq_length(req.seq_id), T)
+        src = int(ctrl.page_table()[req.seq_id][idx])
+        dst = int(ctrl.page_table()[child.seq_id][idx])
+        assert filled and src != dst and ctrl.pages_copied >= 1
+        for pool in eng._pool_leaves():      # the CoW'd tail, bit for bit
+            assert torch.equal(pool[:, src, :filled], pool[:, dst, :filled])
+        reqs.append(child)
+        out["pages_copied"] = ctrl.pages_copied
+    drive(eng, reqs, layers)
+    out["outputs"] = [r.output for r in reqs]
+    return out
+
+
+def trie_chain(pc, tokens) -> list:
+    """The trie's nodes for ``tokens``' full pages, without touching the
+    trie's LRU stamps or hit counts (``match_links`` would)."""
+    level, out = pc._root, []
+    for i in range(len(tokens) // pc.page_tokens):
+        node = level.get(tuple(tokens[i * pc.page_tokens:
+                                      (i + 1) * pc.page_tokens]))
+        if node is None:
+            break
+        out.append(node)
+        level = node.children
+    return out
+
+
+def mech_tier(api, params, cfg, device, on, layers=None):
+    """(c): a request publishes a 16-page prefix; a flood of four distinct
+    88-token prompts demotes it to the host; a 16-token request S and a
+    request R with the prefix are admitted together: R's chain is
+    promoted, and S's publish in the flip's step demotes a page into an
+    arena slot the promotion has just freed."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(1, cfg.vocab, MECH_PREFIX).tolist()
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab, n).tolist()
+
+    a_prompt, flood = prefix + prompt(8), [prompt(88) for _ in range(4)]
+    s_prompt, r_prompt = prompt(T), prefix + prompt(12)
+    client = mech_client(api, params, device, pool_pages=TIER_POOL,
+                         prefix_cache=on,
+                         host_cache_pages=TIER_HOST if on else 0)
+    eng = client.engine
+    sess = client.open_session()
+    a = sess.submit(a_prompt, MECH_NEW)
+    drive(eng, [a], layers)
+    if on:
+        nodes = trie_chain(eng.prefix_cache, prefix)
+        assert len(nodes) == MECH_PREFIX // T
+        before = [[v.clone() for v in eng._gather_page(nd.page)]
+                  for nd in nodes]
+    fl = [sess.submit(p, MECH_NEW) for p in flood]
+    drive(eng, fl, layers)
+    same_step = []
+    if on:
+        assert all(nd.on_host for nd in nodes), "chain not demoted whole"
+        tier = eng.tier
+
+        def after_step():
+            same_step.append((eng.promote_events, tier.pages_demoted))
+        same_step.append((0, tier.pages_demoted))
+    s = sess.submit(s_prompt, MECH_NEW)
+    r = sess.submit(r_prompt, MECH_NEW)
+    res = drive(eng, [s, r], layers, after_step if on else None)
+    out = {"outputs": [a.output] + [f.output for f in fl]
+           + [s.output, r.output], "sr": res}
+    if on:
+        assert r.prefix_tokens == MECH_PREFIX
+        assert tier.pages_demoted >= 16 and tier.pages_promoted >= 16
+        for nd, want in zip(nodes, before):     # promoted bit for bit
+            assert not nd.on_host
+            for v, w in zip(eng._gather_page(nd.page), want):
+                assert torch.equal(v, w)
+        # a demotion in the step whose flip freed every arena slot
+        flips = [i for i in range(1, len(same_step))
+                 if same_step[i][0] > same_step[i - 1][0]]
+        assert flips and same_step[flips[0]][1] > \
+            same_step[flips[0] - 1][1], same_step
+        out.update(pages_demoted=tier.pages_demoted,
+                   pages_promoted=tier.pages_promoted,
+                   promote_events=eng.promote_events,
+                   promote_lag_ms=eng.promote_lag_ns
+                   / eng.promote_events / 1e6,
+                   demote_ms_per_page=tier.demote_ns
+                   / tier.pages_demoted / 1e6,
+                   arena_read_waits=tier.arena.read_waits)
+    return out
+
+
+def mech_spec(api, params, cfg, device, on, layers=None):
+    """(d): a POSIX and a STRICT session, two requests each on prompts of a
+    32-token motif repeated four times, with ``SpecConfig(k=4)``.  After
+    every step each live STRICT sequence's crash replay equals its
+    committed full pages."""
+    from repro_torch.core import Mode, OpLog, PMDevice, replay_kv_commits
+    from repro_torch.serve import SpecConfig
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab, 32).tolist() * 4 for _ in range(4)]
+    oplog = OpLog(PMDevice(size=16 * 1024 * 1024), base_block=1,
+                  num_blocks=64)
+    client = mech_client(api, params, device, prefix_cache=False,
+                         oplog=oplog)
+    eng = client.engine
+    spec = SpecConfig(k=4) if on else None
+    posix = client.open_session(mode=Mode.POSIX, spec=spec)
+    strict = client.open_session(mode=Mode.STRICT, spec=spec)
+    reqs = [(strict if i % 2 else posix).submit(p, MECH_NEW)
+            for i, p in enumerate(prompts)]
+    checks = [0]
+
+    def after_step():
+        state = replay_kv_commits(oplog.scan())
+        for r in reqs:
+            if r.mode is Mode.STRICT and not r.done:
+                assert state.get(r.seq_id, {}) == \
+                    eng.controller.committed_extents(r.seq_id), r
+                checks[0] += 1
+    res = drive(eng, reqs, layers, after_step)
+    assert checks[0] > 0
+    out = {"outputs": [r.output for r in reqs], "drive": res,
+           "replay_checks": checks[0]}
+    if on:
+        assert eng.spec_drafted_tokens > 0
+        out.update(spec_steps=eng.spec_steps,
+                   drafted=eng.spec_drafted_tokens,
+                   accepted=eng.spec_accepted_tokens,
+                   rollbacks=eng.spec_rollbacks,
+                   accept_rate=eng.spec_accepted_tokens
+                   / eng.spec_drafted_tokens)
+    return out
+
+
+def engine_mechanisms(cfg, device="cuda") -> dict:
+    """Phase 9 on ``cfg`` (the CPU rehearsal runs it on the SMOKE config).
+
+    A gate lane in float32 activations: each scenario twice from the same
+    weights on fresh clients, with its mechanism and without (no prefix
+    cache, spec or tier), every request's 32 greedy tokens equal in the
+    two (float32 rounds the C=16 verify and the C=1 decode, or split plans
+    of other batches, ~1e-6 apart; bf16 would flip argmaxes).  A timing
+    lane in bf16, the serving dtype: (a), (c), (d) with and without, each
+    request finishing with 32 tokens and the paging counts of the float32
+    lane.  Every drive holds each step to one fused launch a layer."""
+    from repro_torch.convert import cast_params
+    from repro_torch.models import build_model, init_params
+    from repro_torch.obs import Obs
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lane = dataclasses.replace(cfg, dtype=dtype)
+        api = build_model(lane)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = cast_params(init_params(api.init_specs(), gen,
+                                         device=device), lane)
+        layers = lane.n_layers if torch.device(device).type == "cuda" \
+            else None
+        args = (api, params, lane, device)
+        a = {on: mech_prefix(*args, on, layers) for on in (True, False)}
+        c = {on: mech_tier(*args, on, layers) for on in (True, False)}
+        d = {on: mech_spec(*args, on, layers) for on in (True, False)}
+        saved = (a[False]["tokens_processed"]
+                 - a[True]["tokens_processed"])
+        name = str(dtype).removeprefix("torch.")
+        if dtype == torch.float32:
+            b = {on: mech_fork(*args, on, layers) for on in (True, False)}
+            e = mech_prefix(*args, True, layers, obs=Obs(trace=True))
+            for what, x in (("a", a), ("c", c), ("d", d)):
+                assert x[True]["outputs"] == x[False]["outputs"], what
+            assert saved == 7 * MECH_PREFIX, saved
+            assert b[True]["outputs"][0] == b[True]["outputs"][1] \
+                == b[False]["outputs"][0]
+            assert e["outputs"] == a[True]["outputs"]
+            gate = {"pages_adopted": a[True]["pages_adopted"],
+                    "pages_demoted": c[True]["pages_demoted"],
+                    "pages_promoted": c[True]["pages_promoted"]}
+            out[name] = {**gate, "tokens_saved": saved,
+                         "pages_copied": b[True]["pages_copied"],
+                         "spec_drafted": d[True]["drafted"],
+                         "spec_accept_rate": d[True]["accept_rate"],
+                         "strict_replay_checks": d[True]["replay_checks"],
+                         "arena_read_waits": c[True]["arena_read_waits"],
+                         "trace_events": e["trace_events"],
+                         "obs_overhead_shares": e["overhead_shares"]}
+        else:
+            got = {"pages_adopted": a[True]["pages_adopted"],
+                   "pages_demoted": c[True]["pages_demoted"],
+                   "pages_promoted": c[True]["pages_promoted"]}
+            assert got == gate, (got, gate)
+            on, off = a[True]["together"], a[False]["together"]
+            out[name] = {
+                **got,
+                "adopters_prefill_steps": [on["prefill_steps"],
+                                           off["prefill_steps"]],
+                "adopters_prefill_wall_ms": [on["prefill_ms"],
+                                             off["prefill_ms"]],
+                "adopters_ttft_ms_median": [statistics.median(on["ttft_ms"]),
+                                            statistics.median(off["ttft_ms"])],
+                "spec_decode_step_ms_median": [
+                    d[True]["drive"]["decode_step_ms_median"],
+                    d[False]["drive"]["decode_step_ms_median"]],
+                "spec_decode_steps": [d[True]["drive"]["decode_steps"],
+                                      d[False]["drive"]["decode_steps"]],
+                "spec_accept_rate": d[True]["accept_rate"],
+                "promote_lag_ms": c[True]["promote_lag_ms"],
+                "demote_ms_per_page": c[True]["demote_ms_per_page"],
+                "arena_read_waits": c[True]["arena_read_waits"]}
+        del params, api, args
+        release()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1274,6 +1626,9 @@ def main() -> int:
         "paged_attention_append_chunk": 1, "kv_append_chunk": 0,
         "paged_attention_chunk": 0})
     log("phase2", json.dumps(main_path))
+    # the client's prefix cache is on, as in the reference; the prompts are
+    # distinct, so no chain is adopted
+    assert main_path["prefix_cache"] and main_path["pages_adopted"] == 0
     log("phase2 logits_d2h", json.dumps(logits_d2h_ms(cfg)))
     log("phase2 profile", json.dumps(profile_windows(api, params, cfg, {
         "paged_attention_append_chunk": PAGED_KERNELS,
@@ -1335,12 +1690,17 @@ def main() -> int:
     params = cast_params(init_params(api.init_specs(), gen, device="cuda"),
                          cfg)
     torch.cuda.reset_peak_memory_stats()
-    log("phase8", json.dumps(serve_main_path(api, params, cfg, {})))
+    phase8 = serve_main_path(api, params, cfg, {})
+    log("phase8", json.dumps(phase8))
+    assert not phase8["prefix_cache"]    # refused for recurrent state
     log("phase8 profile", json.dumps(profile_windows(api, params, cfg)))
     log("phase8 peak_mem_gb",
         round(torch.cuda.max_memory_allocated() / 2**30, 3))
     del params
     release()
+
+    for lane, res in engine_mechanisms(get_config("qwen2-1.5b")).items():
+        log(f"phase9 {lane}", json.dumps(res))
 
     by = {c["case"]: c for c in cases}
     kernels = []

@@ -15,7 +15,10 @@ L, H, P and N and chunks longer than 256, its backward kernel over the same
 (and its repeatability and argument checks), and its autograd Function's
 gradients — and the SMOKE
 models' serve step, greedy engine output and train step (qwen2 and
-mamba2), kernel path against plain path.
+mamba2), kernel path against plain path; and the engine's host tier and
+speculative decoding on the card: a bf16 page round trip through the
+pinned arena bit for bit, an arena slot rewritten while the promotion
+that read it is still in flight, and a verify step after a rollback.
 
 Needs a card: every test skips without one.  On the card, run
 
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import HostArena
 from repro_torch.kernels import (attention, attention_bwd, attention_fwd,
                                  common, kv_append_chunk, paged_attention,
                                  paged_attention_append_chunk,
@@ -38,7 +42,7 @@ from repro_torch.kernels import (attention, attention_bwd, attention_fwd,
                                  ssd_chunk_bwd, ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import paged_chunk_ids
-from repro_torch.serve import ServingEngine
+from repro_torch.serve import ServingEngine, SpecConfig
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.optimizer import leaves
 
@@ -327,6 +331,143 @@ def test_smoke_engine_on_card_streams_cpu_tokens(cuda):
         eng.run_until_done()
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------- host tier
+
+
+def _tier_engine(cuda, dtype, host_pages):
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype=dtype)
+    api = build_model(cfg)
+    params = init_params(api.init_specs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    return ServingEngine(api, params, max_batch=2, max_seq=64,
+                         page_tokens=8, host_cache_pages=host_pages,
+                         prefix_cache=True, device=cuda)
+
+
+def _page(eng, page):
+    return [v.clone() for v in eng._gather_page(page)]
+
+
+def test_tier_round_trips_bf16_pages_bit_for_bit(cuda):
+    """Demote a published bf16 chain into the pinned arena and promote it
+    back on the side stream: the promoted pages hold the same bits."""
+    eng = _tier_engine(cuda, torch.bfloat16, 8)
+    prompt = list(range(5, 22))                  # 2 full pages + tail
+    req = eng.submit(prompt, max_new_tokens=3)
+    eng.run_until_done()
+    pc = eng.prefix_cache
+    chain, n_tok = pc.match_links(prompt)
+    assert n_tok == 16
+    want = [_page(eng, nd.page) for nd in chain]
+    assert pc.release(pc.pinned_pages) >= 2
+    assert all(nd.on_host for nd in chain)
+    regions = [b for r in eng.tier.arena._regions.values() for b in r]
+    assert regions and all(b.is_pinned() and b.dtype == torch.bfloat16
+                           for b in regions)
+    req2 = eng.submit(prompt, max_new_tokens=3)
+    eng.run_until_done()
+    assert req2.prefix_tokens == 16 and eng.tier.pages_promoted == 2
+    for nd, w in zip(chain, want):
+        assert not nd.on_host
+        for got, exp in zip(_page(eng, nd.page), w):
+            assert torch.equal(got.view(torch.int16), exp.view(torch.int16))
+    assert req2.output == req.output
+
+
+def test_promotion_slot_rewritten_by_a_demotion_before_the_next_step(cuda):
+    """Hazard of the asynchronous promotion: the flip frees the arena
+    slots while their H2D copies are still queued (here behind a held
+    device); a demotion before the next step lands in one of them.  It
+    waits for the copy, so the promoted page gets the demoted chain's
+    bits and the arena the new page's."""
+    eng = _tier_engine(cuda, torch.float32, 2)
+    pc = eng.prefix_cache
+    p_prompt, q_prompt = list(range(5, 22)), list(range(40, 57))
+    first = eng.submit(p_prompt, max_new_tokens=3)
+    eng.run_until_done()
+    p_nodes, _ = pc.match_links(p_prompt)
+    want = [_page(eng, nd.page) for nd in p_nodes]
+    assert pc.release(pc.pinned_pages) == 2 and eng.tier.arena.full
+    eng.submit(q_prompt, max_new_tokens=3)
+    eng.run_until_done()
+    q_nodes, _ = pc.match_links(q_prompt)
+    q_want = _page(eng, q_nodes[0].page)
+    r = eng.submit(p_prompt, max_new_tokens=3)
+    eng._admit()
+    assert r.promoting
+    torch.cuda._sleep(1_000_000_000)             # hold the device ~0.5 s
+    eng._flip_promotions(None, overlapped=False)
+    assert eng.tier.host_pages == 0 and not r.promoting
+    assert pc._demote(q_nodes[0])                # into a just-freed slot
+    assert eng.tier.arena.read_waits == 1
+    eng.run_until_done()
+    for nd, w in zip(p_nodes, want):
+        for got, exp in zip(_page(eng, nd.page), w):
+            assert torch.equal(got, exp)
+    for got, exp in zip(eng.tier.read(q_nodes[0].host_slot), q_want):
+        assert torch.equal(got, exp.cpu())
+    assert r.output == first.output
+
+
+def test_arena_put_waits_for_the_copy_reading_its_slot(cuda):
+    """The arena's own guard, without the engine's stream order: a host
+    write into a slot whose H2D copy is still queued waits for it."""
+    arena = HostArena(1, pin_memory=True)
+    src = torch.arange(1 << 16, dtype=torch.float32, device=cuda)
+    slot = arena.put([src])
+    dst = torch.empty_like(src)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(1_000_000_000)
+        dst.copy_(arena.get(slot)[0], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    arena.mark_read(slot, ev)
+    arena.free(slot)
+    assert arena.put([torch.zeros(1 << 16)]) == slot
+    assert arena.read_waits == 1
+    torch.cuda.synchronize()
+    assert torch.equal(dst, src)
+
+
+def test_spec_verify_after_rollback_runs_the_fused_kernel(cuda):
+    """A speculative step after a rollback feeds 1 + k tokens through the
+    fused append and attention over the rolled-back (staged, unpublished)
+    slots: one launch a layer and step, and the greedy stream of the CPU
+    engine and of the card without speculation."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    params = init_params(api.init_specs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    prompt = ([5, 6, 7, 8, 9, 10, 11, 12, 13] * 2)[:18]
+    calls, outs = [], []
+    for dev, spec in ((cuda, SpecConfig(k=4)), (torch.device("cpu"),
+                                                 SpecConfig(k=4)),
+                      (cuda, None)):
+        holder = {}
+
+        def step(p, t, c, n, impl=None):
+            calls.append((dev.type, spec is not None, int(n.max()),
+                          holder["eng"].spec_rollbacks))
+            return api.serve_step(p, t, c, n, impl=impl)
+        eng = ServingEngine(dataclasses.replace(api, serve_step=step),
+                            params, max_batch=2, max_seq=64, page_tokens=8,
+                            spec=spec, device=dev)
+        holder["eng"] = eng
+        common.reset_launch_counts()
+        req = eng.submit(prompt, max_new_tokens=24)
+        eng.run_until_done()
+        if dev.type == "cuda":
+            assert common.LAUNCHES["paged_attention_append_chunk"] == \
+                cfg.n_layers * eng.steps
+        outs.append(req.output)
+    assert outs[0] == outs[1] == outs[2]
+    assert any(c[:3] == ("cuda", True, 5) and c[3] >= 1 for c in calls), \
+        calls
 
 
 FLASH_CASES = [

@@ -193,6 +193,11 @@ def test_abandoned_stream_cancels_and_frees_pages(pair):
     gen.close()
     ctrl = tc.engine.controller
     assert not tc.engine.active and tc.engine.cancels == 1
+    # the prompt's full page stays pinned by the prefix cache (on by
+    # default, as in the reference); every other page is back
+    assert ctrl.num_free_pages == \
+        ctrl.geom.num_pages - 1 - tc.engine.prefix_cache.pinned_pages
+    tc.engine.prefix_cache.clear()
     assert ctrl.num_free_pages == ctrl.geom.num_pages - 1
 
 
@@ -219,12 +224,30 @@ def test_client_without_device_defaults_to_cuda(pair):
         pair[2].init_caches(1, 16, 8)
 
 
+def test_client_builds_a_prefix_cache_by_default_like_reference(pair):
+    """The reference's ``ServeClient`` turns the prefix cache on unless
+    told otherwise; so does the port's, and the engine alone leaves it
+    off, in both."""
+    japi, jparams, tapi, tparams = pair
+    kw = dict(max_batch=1, max_seq=32, page_tokens=8)
+    jc, tc = (JaxServeClient(japi, jparams, **kw),
+              ServeClient(tapi, tparams, device="cpu", **kw))
+    assert jc.engine.prefix_cache is not None
+    assert tc.engine.prefix_cache is not None
+    assert ServeClient(tapi, tparams, device="cpu", prefix_cache=False,
+                       **kw).engine.prefix_cache is None
+    assert ServingEngine(tapi, tparams, device="cpu",
+                         **kw).prefix_cache is None
+
+
 def test_port_imports_neither_jax_nor_repro():
     code = textwrap.dedent("""
         import sys, torch
         from repro_torch.configs import get_config
         from repro_torch.models import build_model, init_params
         from repro_torch.serve import ServeClient
+        import repro_torch.core.tier, repro_torch.obs
+        import repro_torch.serve.prefix_cache
         cfg = get_config("qwen2-1.5b", smoke=True)
         api = build_model(cfg)
         g = torch.Generator(device="cpu").manual_seed(0)
