@@ -84,7 +84,25 @@ sm_90a) and then, failing with a non-zero exit on any error:
      counts, and it prints their prefill steps and wall time, the
      adopters' time to first token, the decode step with and without
      speculation, the promote lag and the demotion time a page.  Every
-     step launches the fused append and attention once a layer.
+     step launches the fused append and attention once a layer;
+ 10. drives the engine cluster at full width and depth through
+     ``ServeClient(n_engines=2, n_spares=1)``, one PMDevice + OpLog per
+     engine: 16 qwen2-1.5b requests (phase 2's 8 prompts and 8 of two
+     shared-prefix families, 32 greedy tokens each) with and without the
+     busiest engine killed mid-decode (each of its sessions 8 tokens in),
+     in float32 activations (gates: tokens equal in the two runs, one
+     steal, one death, a session migrated, no straggler flag) and in bf16
+     (prints: the kill's detection in ticks and seconds, migration ms a
+     session and a page, the migrated sessions' largest gap between two
+     tokens, output tokens/s, and an open-loop Poisson run's time to first
+     token and latency with and without a kill); then mamba2-1.3b in
+     float32 with tests/test_cluster.py's kill (its recurrent state
+     migrates, tokens equal).  In every run each request finishes with its
+     tokens and a rid of its own, each live engine's STRICT log replays to
+     its committed pages after every tick, its pool is whole at the end
+     but for its trie's pins, every engine serves one copy of the weights,
+     and every qwen2 step of every engine, restored pages included,
+     launches the fused append and attention once a layer.
 
 Every phase runs its model at full depth.
 
@@ -104,6 +122,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -217,9 +236,15 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_events(prof) -> list:
-    """Kernel / memcpy / memset intervals of a torch.profiler run, read
-    from its Chrome trace (ts and dur in microseconds)."""
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the runtime / driver calls that put a kernel, copy or set on a stream
+API_CATS = ("cuda_runtime", "cuda_driver")
+API_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def trace_events(prof) -> list:
+    """Every complete event of a torch.profiler run, read from its Chrome
+    trace (ts and dur in microseconds)."""
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     path = TRACE_DIR / "profile.tmp.json"
     prof.export_chrome_trace(str(path))
@@ -227,8 +252,35 @@ def device_events(prof) -> list:
     path.unlink()
     if isinstance(events, dict):
         events = events.get("traceEvents", [])
-    return [e for e in events if e.get("ph") == "X"
-            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def device_events(prof) -> list:
+    """Kernel / memcpy / memset intervals of a torch.profiler run."""
+    return [e for e in trace_events(prof) if e.get("cat") in DEVICE_CATS]
+
+
+def lost_events(events: list) -> dict:
+    """Checks a trace for lost events: the correlation ids of its device
+    kernels, copies and sets against those of the runtime and driver calls
+    that enqueued them.  Empty when every call has its device event and
+    every device event its call; else both counts and the names of the
+    unmatched events of each side, counted."""
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+    dev = {corr(e): e for e in events if e.get("cat") in DEVICE_CATS}
+    api = {corr(e): e for e in events if e.get("cat") in API_CATS
+           and any(k in e.get("name", "") for k in API_CALLS)}
+    if dev and dev.keys() == api.keys():
+        return {}
+
+    def names(side, ids):
+        return dict(Counter(side[i].get("name", "")[:60] for i in ids))
+    return {"device_events": len(dev), "api_calls": len(api),
+            "calls_without_device_event": names(
+                api, api.keys() - dev.keys()),
+            "device_events_without_call": names(
+                dev, dev.keys() - api.keys())}
 
 
 def device_ms(fn, reps: int = 20):
@@ -927,7 +979,10 @@ def profiled_window(step, n_steps: int, ops) -> dict:
     host clock around the window (ending in a synchronize); device busy
     time is the union of kernel/copy intervals; idle share = 1 - busy/wall;
     ``ops`` maps each of the port's ops to the names of every kernel it
-    launches: the op's device time per step is the sum over them."""
+    launches: the op's device time per step is the sum over them.  A
+    trace that lost events (``lost_events``) reports its counts as
+    ``lost`` and busy time and idle share as None: the union of what it
+    kept would read low."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -937,7 +992,12 @@ def profiled_window(step, n_steps: int, ops) -> dict:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ev = sorted(device_events(prof), key=lambda e: e["ts"])
+    events = trace_events(prof)
+    lost = lost_events(events)
+    if lost:
+        log(f"  cupti: window of {n_steps} steps lost events: {lost}")
+    ev = sorted((e for e in events if e.get("cat") in DEVICE_CATS),
+                key=lambda e: e["ts"])
     busy, end = 0.0, -1e30
     for e in ev:
         lo, hi = e["ts"], e["ts"] + e["dur"]
@@ -952,8 +1012,11 @@ def profiled_window(step, n_steps: int, ops) -> dict:
     mine = {op: [e for e in ev if any(k in e["name"] for k in names)]
             for op, names in ops.items()}
     return {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
-            "device_busy_ms_per_step": busy / n_steps / 1e3,
-            "idle_share": 1.0 - busy / wall_us if wall_us else None,
+            "device_busy_ms_per_step": None if lost
+            else busy / n_steps / 1e3,
+            "idle_share": None if lost or not wall_us
+            else 1.0 - busy / wall_us,
+            "lost": lost,
             "ops_ms_per_step": {op: sum(e["dur"] for e in x) / n_steps / 1e3
                                 for op, x in mine.items()},
             "ops_kernels_per_step": {op: len(x) / n_steps
@@ -1372,6 +1435,353 @@ def engine_mechanisms(cfg, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the engine cluster (prefix routing, the fault ladder, session
+# migration) on qwen2-1.5b and mamba2-1.3b at full width and depth
+# ---------------------------------------------------------------------------
+
+CLUSTER_KILL_AFTER = 8           # qwen2: the victim's sessions' tokens at the kill
+# the open-loop run of the bf16 lane: Poisson arrivals, and the kill's time
+OPEN_LOOP_RATE, OPEN_LOOP_SEED, OPEN_LOOP_KILL_S = 2.0, 0, 3.0
+
+
+def cluster_prompts(cfg) -> list:
+    """Phase 2's 8 prompts (64-480 tokens) interleaved with 8 of two
+    shared-prefix families (a 256-token prefix, tails of 16-160 tokens),
+    so the router's affinity has work."""
+    rng = np.random.default_rng(0)
+    base = [rng.integers(1, cfg.vocab, int(n)).tolist()
+            for n in rng.integers(64, 481, 8)]
+    rng = np.random.default_rng(13)
+    heads = [rng.integers(1, cfg.vocab, MECH_PREFIX).tolist()
+             for _ in range(2)]
+    fams = [heads[i % 2] + rng.integers(1, cfg.vocab, int(n)).tolist()
+            for i, n in enumerate(rng.integers(16, 161, 8))]
+    return [p for pair in zip(base, fams) for p in pair]
+
+
+def cluster_client(api, params, device, **kw):
+    """``ServeClient(n_engines=2, n_spares=1)`` at phase 2's geometry
+    unless ``kw`` says otherwise, with one PMDevice + OpLog per engine
+    (each engine is its own volume), and the logs in engine order."""
+    from repro_torch.core import OpLog, PMDevice
+    from repro_torch.serve import ServeClient
+    logs = []
+
+    def make_oplog():
+        logs.append(OpLog(PMDevice(size=16 * 1024 * 1024), base_block=1,
+                          num_blocks=64))
+        return logs[-1]
+    geometry = {"max_batch": B, "max_seq": MAX_SEQ, "page_tokens": T}
+    client = ServeClient(api, params, n_engines=2, n_spares=1,
+                         make_oplog=make_oplog, device=device,
+                         **{**geometry, **kw})
+    return client, logs
+
+
+def busiest_mid_decode():
+    """The qwen2 kill: the shard engine holding the most requests after
+    the first tick, killed at the first tick at which each of its active
+    sessions has CLUSTER_KILL_AFTER output tokens (its queued requests,
+    if any, are requeued)."""
+    box = {}
+
+    def kill_when(c):
+        if "victim" not in box:
+            box["victim"] = max(range(2), key=lambda e: (
+                len(c.engines[e].active) + len(c.engines[e].waiting), -e))
+        eng = c.engines[box["victim"]]
+        if eng.active and all(len(r.output) >= CLUSTER_KILL_AFTER
+                              for r in eng.active.values()):
+            return box["victim"]
+        return None
+    return kill_when
+
+
+def busiest_after(ticks: int):
+    """tests/test_cluster.py's kill: the busiest shard engine after
+    ``ticks`` ticks."""
+    def kill_when(c):
+        if c.ticks < ticks:
+            return None
+        return max(range(2), key=lambda e: (len(c.engines[e].active),
+                                            len(c.engines[e].waiting)))
+    return kill_when
+
+
+def cluster_run(client, logs, params, prompts, n_new, layers=None,
+                kill_when=None) -> dict:
+    """Submit ``prompts`` (POSIX and STRICT sessions in turns of two) and
+    tick the cluster until idle, host clock around each tick (ending in a
+    synchronize on a CUDA device); ``kill_when(cluster)``, asked after
+    each tick until it names an engine, kills it.  Gates: every request
+    finishes with ``n_new`` tokens and a rid of its own; after every tick
+    each live engine's STRICT log replays to the committed pages of its
+    live STRICT sessions, and to nothing at the end; each live engine's
+    pool is whole but for its trie's pins; every engine serves the
+    weights ``params`` hold (one copy); with ``layers``, every model step
+    of every engine launches the fused append and attention ``layers``
+    times and no other serving kernel (none at all for ``layers=0``)."""
+    from repro_torch.core import Mode, replay_kv_commits
+    from repro_torch.kernels import common
+    from repro_torch.train.optimizer import leaves
+    c = client.engine
+    dev = c.engines[0].device
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else (lambda: None))
+    posix = client.open_session(mode=Mode.POSIX)
+    strict = client.open_session(mode=Mode.STRICT)
+    reqs = [(strict if (i // 2) % 2 else posix).submit(p, n_new)
+            for i, p in enumerate(prompts)]
+    migrations = []
+    real_migrate = c._migrate
+
+    def timed_migrate(src, targets):
+        eng = c.engines[src]
+        pages = sum(len(eng.controller.snapshot_seq(r.seq_id).pages)
+                    for r in eng.active.values() if not r.promoting)
+        sessions = len(eng.active)
+        sync()
+        t = time.perf_counter()
+        real_migrate(src, targets)
+        sync()
+        migrations.append({"src": src, "targets": list(targets),
+                           "sessions": sessions, "pages": pages,
+                           "ms": (time.perf_counter() - t) * 1e3})
+    c._migrate = timed_migrate
+    token_t = {r.rid: [] for r in reqs}
+    kill = detect = None
+    replay_checks = 0
+    sync()
+    common.reset_launch_counts()
+    steps0 = [e.steps for e in c.engines]
+    t0 = time.perf_counter()
+    while c.waiting or c.active:
+        c.step()
+        sync()
+        now = time.perf_counter() - t0
+        for r in reqs:
+            token_t[r.rid] += [now] * (len(r.output) - len(token_t[r.rid]))
+        for eid, log in enumerate(logs):
+            if eid in c._killed:
+                continue
+            eng = c.engines[eid]
+            state = replay_kv_commits(log.scan())
+            for r in eng.active.values():
+                if r.mode is Mode.STRICT and not r.promoting:
+                    assert state.get(r.seq_id, {}) == \
+                        eng.controller.committed_extents(r.seq_id), r.rid
+                    replay_checks += 1
+        if kill_when is not None and kill is None:
+            victim = kill_when(c)
+            if victim is not None:
+                moved = [r.rid for r in c.engines[victim].active.values()]
+                busy = sum(len(e.active) + len(e.waiting)
+                           for i, e in enumerate(c.engines)
+                           if i != victim and i not in c._killed)
+                c.kill(victim)
+                kill = {"engine": victim, "tick": c.ticks, "t": now,
+                        "rids": moved, "queued": len(c.engines[victim].waiting),
+                        "survivors_busy": busy}
+        if kill is not None and detect is None and c.migrations:
+            detect = {"tick": c.ticks, "t": now}
+    wall = time.perf_counter() - t0
+    del c._migrate                 # back to the method (and no cycle)
+    for r in reqs:
+        assert r.done and not r.truncated and len(r.output) == n_new, r
+    assert len({r.rid for r in c.finished}) == len(c.finished) == len(reqs)
+    live = [e for e in range(len(c.engines)) if e not in c._killed]
+    for eid in live:
+        eng = c.engines[eid]
+        pinned = eng.prefix_cache.pinned_pages if eng.prefix_cache else 0
+        assert eng.controller.pages_in_use == pinned, eid
+        if eid < len(logs):
+            assert replay_kv_commits(logs[eid].scan()) == {}, eid
+    want = [x.data_ptr() for x in leaves(params)]
+    for eng in c.engines:
+        assert [x.data_ptr() for x in leaves(eng.params)] == want
+    steps = sum(e.steps - s for e, s in zip(c.engines, steps0))
+    if layers is not None:
+        launches = dict(common.LAUNCHES)
+        fused = {"paged_attention_append_chunk": layers * steps}
+        assert launches == {k: fused.get(k, 0) if layers else 0
+                            for k in launches}, (launches, steps)
+    st = c.stats()
+    out = {"outputs": [r.output for r in reqs], "ticks": c.ticks,
+           "engine_steps": steps, "wall_s": wall,
+           "output_tokens_per_s": len(reqs) * n_new / wall,
+           "engine_of_request": [r.engine_id for r in reqs],
+           "router": st["router"], "migrations": st["migrations"],
+           "sessions_migrated": st["sessions_migrated"],
+           "sessions_requeued": st["sessions_requeued"],
+           "restore_retries": st["restore_retries"],
+           "steals": c.policy.steals, "remeshes": c.policy.remeshes,
+           "deaths": c.monitor.deaths,
+           "straggler_flags": c.monitor.straggler_flags,
+           "strict_replay_checks": replay_checks,
+           "migration_events": migrations}
+    moved_pages = sum(m["pages"] for m in migrations)
+    moved_sessions = sum(m["sessions"] for m in migrations)
+    if moved_sessions:
+        ms = sum(m["ms"] for m in migrations)
+        out["migration_ms_per_session"] = ms / moved_sessions
+        out["migration_ms_per_page"] = ms / moved_pages if moved_pages \
+            else None
+    if kill is not None:
+        moved = [r for r in reqs if r.rid in kill["rids"]]
+        gaps = []
+        for r in moved:
+            t = token_t[r.rid]
+            gaps.append(max((b - a for a, b in zip(t, t[1:])
+                             if a <= kill["t"] < b), default=0.0))
+        out["kill"] = {
+            "engine": kill["engine"], "tick": kill["tick"],
+            "sessions": len(moved), "queued": kill["queued"],
+            "survivors_busy": kill["survivors_busy"],
+            "detect_ticks": detect["tick"] - kill["tick"] if detect else None,
+            "detect_s": detect["t"] - kill["t"] if detect else None,
+            "gap_across_kill_ms_max": max(gaps) * 1e3 if gaps else None,
+            "dead_log_entries": (len(list(logs[kill["engine"]].scan()))
+                                 if kill["engine"] < len(logs) else None)}
+    return out
+
+
+def cluster_open_loop(api, params, cfg, device, kill: bool) -> dict:
+    """The bf16 lane's open-loop run: the 16 requests at Poisson arrivals
+    (OPEN_LOOP_RATE a second, seed OPEN_LOOP_SEED) through
+    ``OpenLoopDriver``; with ``kill``, the busiest shard engine dies
+    OPEN_LOOP_KILL_S seconds in.  Every request finishes with its tokens."""
+    from repro_torch.core import Mode
+    from repro_torch.serve import ArrivalSpec, OpenLoopDriver, poisson_schedule
+    client, _ = cluster_client(api, params, device)
+    c = client.engine
+    posix = client.open_session(mode=Mode.POSIX)
+    strict = client.open_session(mode=Mode.STRICT)
+    prompts = cluster_prompts(cfg)
+    sched = poisson_schedule(len(prompts), OPEN_LOOP_RATE,
+                             seed=OPEN_LOOP_SEED)
+    workload = [ArrivalSpec(t, p, MECH_NEW,
+                            session=strict if (i // 2) % 2 else posix)
+                for i, (t, p) in enumerate(zip(sched, prompts))]
+
+    def kill_busiest():
+        c.kill(max((e for e in range(2) if e not in c._killed),
+                   key=lambda e: (len(c.engines[e].active),
+                                  len(c.engines[e].waiting))))
+    res = OpenLoopDriver(client, session=posix).run(
+        workload, faults=[(OPEN_LOOP_KILL_S, kill_busiest)] if kill else [])
+    assert all(r.t_done is not None and r.n_output == MECH_NEW
+               for r in res.records)
+    pct = res.percentiles()
+    st = c.stats()
+    return {**{f"{m}_ms": {q: v * 1e3 for q, v in pct[m].items()}
+               for m in ("ttft", "tpot", "latency")},
+            "makespan_s": res.makespan,
+            "output_tokens_per_s": res.throughput_tok_s,
+            "ticks": c.ticks, "migrations": st["migrations"],
+            "sessions_migrated": st["sessions_migrated"],
+            "sessions_requeued": st["sessions_requeued"],
+            "fault": st["fault"],
+            "straggler_flags": c.monitor.straggler_flags}
+
+
+def engine_cluster(qwen_cfg, mamba_cfg, device="cuda") -> dict:
+    """Phase 10 (the CPU rehearsal runs it on the SMOKE configs).
+
+    qwen2 in float32 activations (the gate lane): the 16 requests with
+    and without the busiest engine killed mid-decode, every request's 32
+    greedy tokens equal in the two, one steal, one death, at least one
+    session migrated, the kill landing while the survivor serves and the
+    victim's queued requests requeued, no straggler flagged in either
+    run.  qwen2 in bf16
+    (the timing lane): the same two runs, and an open-loop run with and
+    without a kill.  mamba2 in float32: tests/test_cluster.py's kill at
+    full width (2 engines and a spare, max_batch 2, 6 family prompts, 12
+    tokens, the kill after 3 ticks), tokens equal, its recurrent state
+    migrated.  ``cluster_run``'s gates hold in every run."""
+    from repro_torch.convert import cast_params
+    from repro_torch.models import build_model, init_params
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lane = dataclasses.replace(qwen_cfg, dtype=dtype)
+        api = build_model(lane)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = cast_params(init_params(api.init_specs(), gen,
+                                         device=device), lane)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        prompts = cluster_prompts(lane)
+        layers = lane.n_layers if cuda else None
+        runs = {}
+        for kill in (False, True):
+            client, logs = cluster_client(api, params, device)
+            runs[kill] = cluster_run(
+                client, logs, params, prompts, MECH_NEW, layers,
+                busiest_mid_decode() if kill else None)
+            del client, logs
+            if cuda:
+                release()
+        plain, killed = runs[False], runs[True]
+        name = str(dtype).removeprefix("torch.")
+        res = {"unkilled": {k: v for k, v in plain.items()
+                            if k != "outputs"},
+               "killed": {k: v for k, v in killed.items()
+                          if k != "outputs"},
+               "tokens_equal": killed["outputs"] == plain["outputs"]}
+        if dtype == torch.float32:
+            assert res["tokens_equal"], "a migrated session diverged"
+            assert killed["steals"] == 1 and killed["deaths"] == 1, killed
+            assert killed["sessions_migrated"] >= 1, killed
+            # the kill lands while the survivor still serves, and the
+            # victim's queued requests are requeued
+            assert killed["kill"]["survivors_busy"] >= 1, killed
+            assert killed["kill"]["queued"] >= 1, killed
+            assert killed["sessions_requeued"] >= killed["kill"]["queued"]
+            assert plain["straggler_flags"] == 0, plain
+            assert killed["straggler_flags"] == 0, killed
+        else:
+            res["open_loop"] = {
+                name: cluster_open_loop(api, params, lane, device, kill)
+                for name, kill in (("unkilled", False), ("killed", True))}
+        if cuda:
+            res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out[f"qwen2 {name}"] = res
+        del params, api
+        if cuda:
+            release()
+    lane = dataclasses.replace(mamba_cfg, dtype=torch.float32)
+    api = build_model(lane)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = cast_params(init_params(api.init_specs(), gen, device=device),
+                         lane)
+    rng = np.random.default_rng(7)
+    heads = [rng.integers(1, lane.vocab, 16).tolist() for _ in range(2)]
+    prompts = [heads[i % 2] + rng.integers(1, lane.vocab, 6 + i % 5).tolist()
+               for i in range(6)]
+    runs = {}
+    for kill in (False, True):
+        client, logs = cluster_client(api, params, device, max_batch=2,
+                                      max_seq=64, page_tokens=8,
+                                      heartbeat_timeout=3.0)
+        runs[kill] = cluster_run(client, logs, params, prompts, 12,
+                                 0 if cuda else None,
+                                 busiest_after(3) if kill else None)
+        del client, logs
+        if cuda:
+            release()
+    plain, killed = runs[False], runs[True]
+    assert killed["outputs"] == plain["outputs"], "mamba2 state diverged"
+    assert killed["sessions_migrated"] >= 1, killed
+    out["mamba2 float32"] = {
+        "unkilled": {k: v for k, v in plain.items() if k != "outputs"},
+        "killed": {k: v for k, v in killed.items() if k != "outputs"},
+        "tokens_equal": True}
+    del params, api
+    if cuda:
+        release()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training at full width; phase 5: kernel path vs plain path
 # ---------------------------------------------------------------------------
 
@@ -1527,7 +1937,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"nvidia-smi: {smi.stdout.strip()}")
+    card = smi.stdout.strip()
+    log(f"nvidia-smi: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     log("tf32: matmul off, cudnn off")
@@ -1701,6 +2112,12 @@ def main() -> int:
 
     for lane, res in engine_mechanisms(get_config("qwen2-1.5b")).items():
         log(f"phase9 {lane}", json.dumps(res))
+
+    t10 = time.perf_counter()
+    for lane, res in engine_cluster(get_config("qwen2-1.5b"),
+                                    get_config("mamba2-1.3b")).items():
+        log(f"phase10 {lane}", json.dumps({"card": card, **res}))
+    log(f"phase10 seconds {time.perf_counter() - t10:.1f}")
 
     by = {c["case"]: c for c in cases}
     kernels = []

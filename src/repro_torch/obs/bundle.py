@@ -236,11 +236,34 @@ def attach_serving(obs: Obs, engine) -> None:
                          monotonic=True)
 
 
+def attach_cluster(obs: Obs, cluster) -> None:
+    """Wire the cluster plane (``serve.cluster.EngineCluster``) into the
+    registry: routing, migration, and (via ``attach_fault``) liveness
+    counters.  Per-engine data-plane metrics live in the engines' own
+    Obs bundles when ``per_engine_obs`` is set."""
+    reg = obs.registry
+    reg.register("cluster.ticks", lambda: cluster.ticks, monotonic=True)
+    reg.register("cluster.engines_live",
+                 lambda: len(cluster.engines) - len(cluster._killed))
+    reg.register("cluster.migrations", lambda: cluster.migrations,
+                 monotonic=True)
+    reg.register("cluster.sessions_migrated",
+                 lambda: cluster.sessions_migrated, monotonic=True)
+    reg.register("cluster.sessions_requeued",
+                 lambda: cluster.sessions_requeued, monotonic=True)
+    reg.register("cluster.restore_retries", lambda: cluster.restore_retries,
+                 monotonic=True)
+    reg.register("cluster.pending_restores", lambda: len(cluster._pending))
+    reg.register("router.routed_home", lambda: cluster.router.routed_home,
+                 monotonic=True)
+    reg.register("router.spills", lambda: cluster.router.spills,
+                 monotonic=True)
+    attach_fault(obs, cluster.policy)
+
+
 def attach_fault(obs: Obs, policy) -> None:
-    """Wire the dist fault plane (``dist.fault.FaultPolicy``; duck-typed,
-    the plane itself is not ported yet: ROADMAP queue 1, item 1.7) into
-    the registry: liveness and mitigation counters.  The reference's
-    ``attach_cluster`` comes with the cluster."""
+    """Wire the dist fault plane (``dist.fault.FaultPolicy``) into the
+    registry: liveness and mitigation counters."""
     reg = obs.registry
     mon = policy.monitor
     reg.register("fault.heartbeats", lambda: mon.beats, monotonic=True)

@@ -1,7 +1,8 @@
-"""Session-oriented serving client over one engine (port of
-``repro/serve/api.py``, single-engine form).
+"""Session-oriented serving client (port of ``repro/serve/api.py``).
 
-``ServeClient`` owns ONE engine (one pool, one step) and
+``ServeClient`` owns ONE engine (one pool, one step), or with
+``n_engines > 1`` (or spares) an ``EngineCluster`` of them (DESIGN.md §12),
+and
 ``open_session(mode=...)`` hands out ``Session`` handles, each with its own
 consistency mode, default sampling and speculative-decode config, that
 coexist on that engine: a STRICT session's page publishes are oplogged, a
@@ -15,23 +16,22 @@ chains and skip their prefill.
         ...
 
 ``Session.generate`` DRIVES the shared engine while it yields, so
-concurrently iterated sessions interleave (continuous batching).  The
-reference's cluster mode (``n_engines``, ``n_spares``, ``make_oplog``,
-``heartbeat_timeout``) is not ported yet: passing one raises (ROADMAP
-queue 1, item 1.7).
+concurrently iterated sessions interleave (continuous batching).  For
+open-loop traffic, submit via ``Session.submit`` and pump
+``ServeClient.step`` / ``run_until_done`` yourself (serve/arrival.py).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 from ..core.modes import Mode
 from ..core.oplog import OpLog
 from ..models.registry import ModelAPI
 from ..obs import Obs
-from .engine import (Request, SamplingParams, ServingEngine, SpecConfig,
-                     refuse_cluster_args)
+from .cluster import EngineCluster
+from .engine import Request, SamplingParams, ServingEngine, SpecConfig
 from .tokenizer import ByteTokenizer
 
 Prompt = Union[str, List[int]]
@@ -147,9 +147,11 @@ class Session:
 
 
 class ServeClient:
-    """Front end over one ``ServingEngine`` on ``device``: session
-    management, the tokenizer front, the prefix cache (ON by default),
-    the optional host tier and obs bundle, and the engine pump."""
+    """Front end over one ``ServingEngine`` on ``device`` — or, with
+    ``n_engines > 1`` (or spares), an ``EngineCluster`` of them (DESIGN.md
+    §12): session management, the tokenizer front, the prefix cache (ON
+    by default), the optional host tier and obs bundle, and the engine
+    pump.  Sessions are oblivious to which they sit on."""
 
     def __init__(self, api: ModelAPI, params, *, max_batch: int = 8,
                  max_seq: int = 512, page_tokens: int = 16,
@@ -159,24 +161,46 @@ class ServeClient:
                  prefix_cache: bool = True,
                  host_cache_pages: int = 0,
                  pool_pages: Optional[int] = None,
+                 n_engines: int = 1, n_spares: int = 0,
+                 make_oplog: Optional[Callable[[], OpLog]] = None,
+                 heartbeat_timeout: float = 6.0,
                  tokenizer: Optional[ByteTokenizer] = None,
                  obs: Optional[Obs] = None,
-                 device="cuda", **cluster) -> None:
+                 device="cuda") -> None:
         # host_cache_pages > 0 attaches the host-memory cold tier under
         # the device pool (DESIGN.md §8a): evicted prefix chains spill
         # D2H instead of being forgotten, and matching admissions promote
         # them back with an asynchronous copy.  pool_pages caps the device
         # pool below its geometry (pressure modeling / capacity planning).
-        refuse_cluster_args(cluster)
         self._default_mode = default_mode
         self.tokenizer = tokenizer if tokenizer is not None \
             else ByteTokenizer()
-        self.engine = ServingEngine(
-            api, params, max_batch=max_batch, max_seq=max_seq,
-            page_tokens=page_tokens, chunk_tokens=chunk_tokens, seed=seed,
-            mode=default_mode, oplog=oplog, prefix_cache=prefix_cache,
-            host_cache_pages=host_cache_pages, pool_pages=pool_pages,
-            obs=obs, device=device)
+        if n_engines > 1 or n_spares > 0:
+            # cluster mode: each engine is its own durability domain, so
+            # a single shared oplog would interleave volumes — STRICT
+            # sessions need one log per engine via the factory
+            if oplog is not None:
+                raise ValueError(
+                    "cluster mode: pass make_oplog (one log per engine "
+                    "volume), not a single shared oplog")
+            self.engine = EngineCluster(
+                api, params, n_engines=n_engines, n_spares=n_spares,
+                heartbeat_timeout=heartbeat_timeout, max_batch=max_batch,
+                max_seq=max_seq, page_tokens=page_tokens,
+                chunk_tokens=chunk_tokens, seed=seed, mode=default_mode,
+                make_oplog=make_oplog, prefix_cache=prefix_cache,
+                host_cache_pages=host_cache_pages, pool_pages=pool_pages,
+                obs=obs, device=device)
+        else:
+            self.engine = ServingEngine(
+                api, params, max_batch=max_batch, max_seq=max_seq,
+                page_tokens=page_tokens, chunk_tokens=chunk_tokens,
+                seed=seed, mode=default_mode,
+                oplog=oplog if oplog is not None
+                else (make_oplog() if make_oplog is not None else None),
+                prefix_cache=prefix_cache,
+                host_cache_pages=host_cache_pages, pool_pages=pool_pages,
+                obs=obs, device=device)
         self.obs = obs
         self._sids = itertools.count()
         self.sessions: Dict[int, Session] = {}
@@ -203,8 +227,16 @@ class ServeClient:
         return self.engine.run_until_done(max_steps)
 
     def stats(self) -> Dict[str, object]:
+        if isinstance(self.engine, EngineCluster):
+            out: Dict[str, object] = {
+                "cluster": self.engine.stats(),
+                "sessions": len(self.sessions),
+            }
+            if self.obs is not None:
+                out["obs"] = self.obs.stats()
+            return out
         ctrl = self.engine.controller
-        out: Dict[str, object] = {
+        out = {
             "steps": self.engine.steps,
             "pages_relinked": ctrl.pages_relinked,
             "pages_copied": ctrl.pages_copied,

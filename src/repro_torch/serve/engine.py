@@ -32,9 +32,16 @@ again; an arena slot a copy still reads is rewritten only after that
 copy's event (``core.tier``).  With ``obs`` on, a CUDA engine
 synchronizes after each step's dispatch so device time is attributed
 honestly; with obs off the step never synchronizes beyond the logits
-pull.  The reference's cluster hooks (``detach``, the slot-state
-gather/scatter, a shared ``step_fn``) are not ported (ROADMAP queue 1,
-item 1.7).
+pull.
+
+The cluster hooks (``serve.cluster``, DESIGN.md §12): ``detach`` for a
+session that migrates off a live engine, and the snapshot's reads and
+writes.  A snapshot copies its pages and
+recurrent state on the device when it is taken (``_capture_pages``,
+``_gather_slot_state``), since the source may reuse those pages before the
+restore; a restore writes the target's pages on the compute stream after
+its promotions (``_write_page``), never through the tier's side stream,
+and its page-table row is mirrored only at the flip.
 """
 
 from __future__ import annotations
@@ -56,23 +63,6 @@ from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
 from ..obs import Obs, attach_serving
 from .prefix_cache import PrefixCache, _Node
-
-# the reference's arguments that belong to the engine cluster
-CLUSTER_ARGS = frozenset({"n_engines", "n_spares", "make_oplog",
-                          "heartbeat_timeout", "step_fn"})
-
-
-def refuse_cluster_args(args: Dict[str, object]) -> None:
-    """Raise for the reference's cluster arguments (not ported yet) and
-    for any other unknown keyword."""
-    unknown = set(args) - CLUSTER_ARGS
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
-    if args:
-        raise NotImplementedError(
-            f"{sorted(args)} configure the engine cluster, which is not "
-            "ported yet (ROADMAP queue 1, item 1.7)")
-
 
 @dataclass(frozen=True)
 class SamplingParams:
@@ -133,6 +123,8 @@ class Request:
     promoting: bool = False              # host-tier H2D copy in flight: the
                                          # slot is held out of the step until
                                          # the page-table flip lands
+    engine_id: Optional[int] = None      # owning engine in a cluster (the
+                                         # router tags it; migration retags)
     done: bool = False
     truncated: bool = False              # finished early (pool backpressure)
     stalled: bool = False                # run_until_done hit max_steps first
@@ -168,8 +160,7 @@ class ServingEngine:
                  host_cache_pages: int = 0,
                  pool_pages: Optional[int] = None,
                  obs: Optional[Obs] = None,
-                 device="cuda", **cluster) -> None:
-        refuse_cluster_args(cluster)
+                 device="cuda") -> None:
         self.api = api
         self.device = resolve_device(device)
         self.params = cast_params(
@@ -267,6 +258,13 @@ class ServingEngine:
                spec: Optional[SpecConfig] = None) -> Request:
         if not prompt:
             raise ValueError("empty prompt")
+        # an id outside the vocabulary would index past the embedding
+        # table inside step() (on a CUDA tensor, a device-side assert that
+        # leaves the context unusable); the reference's gather clamps it
+        vocab = self.api.cfg.vocab
+        bad = [t for t in prompt if not 0 <= t < vocab]
+        if bad:
+            raise ValueError(f"token ids {bad[:4]} outside [0, {vocab})")
         # statically infeasible prompts are rejected here; prompts that fit
         # but contend for pages at runtime go through backpressure and come
         # back flagged ``truncated``.  Bounds: every prefill chunk starts at
@@ -702,6 +700,26 @@ class ServingEngine:
         elif req.slot is not None and self.active.get(req.slot) is req:
             self._finish(req.slot, req)
 
+    def detach(self, req: Request) -> None:
+        """Hand a LIVE request off this engine (session migration,
+        DESIGN.md §12): release its slot, sequence, and any staged
+        promotion WITHOUT finishing it — the caller re-installs it on
+        another engine from its snapshot.  ``free_seq`` tombstones
+        (OP_UNLINK) the sequence in THIS engine's log, so this volume's
+        crash replay never resurrects a session that moved away.  Called
+        only on a live source (straggler steal); a dead engine's state is
+        frozen and merely read."""
+        if req in self.waiting:
+            self.waiting.remove(req)
+            return
+        if req.slot is not None and self.active.get(req.slot) is req:
+            self._promotions = [p for p in self._promotions
+                                if p["req"] is not req]
+            self.controller.free_seq(req.seq_id)
+            del self.active[req.slot]
+            req.slot = None
+            req.seq_id = None
+
     def _finish(self, slot: int, req: Request) -> None:
         req.done = True
         req.stalled = False      # it completed after all: not a timeout
@@ -871,6 +889,26 @@ class ServingEngine:
         self._await_promotions()
         return [pool[:, page] for pool in self._pool_leaves()]
 
+    def _capture_pages(self, pages: List[int]) -> List[List[torch.Tensor]]:
+        """A copy of ``pages`` across every layer pool (one gather per
+        pool), per page in the ``_pool_leaves`` order: the snapshot's
+        bytes.  A copy, not views, because the source may write those
+        pages again before the restore reads them (a detached source
+        frees them; a parked snapshot waits while others go on)."""
+        self._await_promotions()
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        stacked = [pool.index_select(1, idx) for pool in self._pool_leaves()]
+        return [[s[:, i] for s in stacked] for i in range(len(pages))]
+
+    def _write_page(self, views: List[torch.Tensor], page: int) -> None:
+        """Write a snapshot's page into device page ``page`` on the compute
+        stream, after the promotions enqueued so far (a restore: the
+        page is staged, and its page-table row is mirrored only at the
+        flip)."""
+        self._await_promotions()
+        for pool, v in zip(self._pool_leaves(), views):
+            pool[:, page].copy_(v)
+
     def _scatter_page(self, views: List[torch.Tensor],
                       page: int) -> Optional[torch.cuda.Event]:
         """H2D write of a demoted page's bytes into device page ``page``.
@@ -879,11 +917,10 @@ class ServingEngine:
         for every earlier writer of the page; returns the event after
         them (the compute stream waits on it before it next touches a
         pool page).  On the CPU the copy is done on return."""
-        leaves = self._pool_leaves()
         if self._copy_stream is None:
-            for pool, v in zip(leaves, views):
-                pool[:, page].copy_(v)
+            self._write_page(views, page)
             return None
+        leaves = self._pool_leaves()
         stream = self._copy_stream
         with torch.cuda.stream(stream):
             for pool, v in zip(leaves, views):
@@ -943,6 +980,22 @@ class ServingEngine:
         published positions).  Zeroes the slot in place."""
         self._walk_state(
             lambda leaf, batch_dim: leaf.select(batch_dim, slot).zero_())
+
+    def _gather_slot_state(self, slot: int) -> List[torch.Tensor]:
+        """A copy of one slot's recurrent/SSM state across every conv/h/ssd
+        leaf, in the ``_walk_state`` order (the migration payload for
+        recurrent archs), each leaf in its own dtype."""
+        out: List[torch.Tensor] = []
+        self._walk_state(lambda leaf, batch_dim: out.append(
+            leaf.select(batch_dim, slot).clone()))
+        return out
+
+    def _scatter_slot_state(self, slot: int,
+                            views: List[torch.Tensor]) -> None:
+        """Write a gathered slot state into ``slot`` (same walk order)."""
+        it = iter(views)
+        self._walk_state(lambda leaf, batch_dim: leaf.select(
+            batch_dim, slot).copy_(next(it)))
 
     def _copy_slot_state(self, src: int, dst: int) -> None:
         """Copy one slot's recurrent state into another, in place."""

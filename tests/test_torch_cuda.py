@@ -18,7 +18,10 @@ models' serve step, greedy engine output and train step (qwen2 and
 mamba2), kernel path against plain path; and the engine's host tier and
 speculative decoding on the card: a bf16 page round trip through the
 pinned arena bit for bit, an arena slot rewritten while the promotion
-that read it is still in flight, and a verify step after a rollback.
+that read it is still in flight, and a verify step after a rollback; and
+the engine cluster on the card: a session restored beside a queued
+promotion, and a kill whose migrated sessions stream the CPU cluster's
+tokens.
 
 Needs a card: every test skips without one.  On the card, run
 
@@ -42,7 +45,8 @@ from repro_torch.kernels import (attention, attention_bwd, attention_fwd,
                                  ssd_chunk_bwd, ssd_chunk_fwd, ssd_chunk_ref)
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import paged_chunk_ids
-from repro_torch.serve import ServingEngine, SpecConfig
+from repro_torch.serve import (EngineCluster, ServingEngine, SpecConfig,
+                               restore_session, snapshot_session)
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.optimizer import leaves
 
@@ -431,6 +435,77 @@ def test_arena_put_waits_for_the_copy_reading_its_slot(cuda):
     assert arena.read_waits == 1
     torch.cuda.synchronize()
     assert torch.equal(dst, src)
+
+
+def test_restore_beside_a_queued_promotion_writes_on_the_compute_stream(
+        cuda):
+    """A snapshot restored onto an engine whose promotion copies are still
+    queued on the side stream (behind a held device) writes its pages on
+    the compute stream after them, never through the tier: the restored
+    pages hold the captured bits, the promoted ones the demoted chain's,
+    and both sessions stream the tokens of undisturbed runs."""
+    eng = _tier_engine(cuda, torch.float32, 2)
+    pc = eng.prefix_cache
+    p_prompt, s_prompt = list(range(5, 22)), list(range(60, 83))
+    first = eng.submit(p_prompt, max_new_tokens=6)
+    eng.run_until_done()
+    p_nodes, _ = pc.match_links(p_prompt)
+    want = [_page(eng, nd.page) for nd in p_nodes]
+    assert pc.release(pc.pinned_pages) == 2
+    src = ServingEngine(eng.api, eng.params, max_batch=2, max_seq=64,
+                        page_tokens=8, device=cuda)
+    alone = src.submit(s_prompt, max_new_tokens=8)
+    src.run_until_done()
+    moved = src.submit(s_prompt, max_new_tokens=8)
+    while len(moved.output) < 3:
+        src.step()
+    snap = snapshot_session(src, moved)
+    captured = [[v.clone() for v in views] for views in snap.page_bytes]
+    src.detach(moved)
+    r = eng.submit(p_prompt, max_new_tokens=6)
+    eng._admit()
+    assert r.promoting
+    torch.cuda._sleep(1_000_000_000)             # hold the device ~0.5 s
+    eng._flip_promotions(None, overlapped=False)
+    assert eng._promote_event is not None
+    restore_session(eng, snap)
+    assert eng._promote_event is None            # the compute stream waits
+    pages = eng.controller.snapshot_seq(moved.seq_id).pages
+    for page, views in zip(pages, captured):
+        for got, exp in zip(_page(eng, page), views):
+            assert torch.equal(got, exp)
+    eng.run_until_done()
+    for nd, w in zip(p_nodes, want):
+        for got, exp in zip(_page(eng, nd.page), w):
+            assert torch.equal(got, exp)
+    assert r.output == first.output and moved.output == alone.output
+
+
+def test_cluster_kill_on_card_streams_cpu_tokens(cuda):
+    """tests/test_cluster.py's kill on the card: the busiest engine dies
+    after 3 ticks, its sessions migrate to the spare (the fused kernel
+    then runs on the restored pages) and every stream equals the CPU
+    cluster's, which runs the plain versions."""
+    cfg, api, params = _smoke(cuda)
+    rng = np.random.default_rng(7)
+    heads = [list(rng.integers(1, cfg.vocab, 16)) for _ in range(2)]
+    prompts = [heads[i % 2] + list(rng.integers(1, cfg.vocab, 6 + i % 5))
+               for i in range(6)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        c = EngineCluster(api, params, n_engines=2, n_spares=1, max_batch=2,
+                          max_seq=64, page_tokens=8, heartbeat_timeout=3.0,
+                          device=dev)
+        reqs = [c.submit(p, max_new_tokens=12) for p in prompts]
+        for _ in range(3):
+            c.step()
+        c.kill(max(range(2), key=lambda e: (len(c.engines[e].active),
+                                            len(c.engines[e].waiting))))
+        c.run_until_done(max_steps=600)
+        assert all(r.done and len(r.output) == 12 for r in reqs)
+        assert c.sessions_migrated >= 1 and c.policy.steals == 1
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
 
 
 def test_spec_verify_after_rollback_runs_the_fused_kernel(cuda):

@@ -310,8 +310,8 @@ def test_overhead_ledger_breakdown_shares():
 
 
 def test_attach_fault_reads_a_duck_typed_fault_plane():
-    """The fault plane is not ported yet (ROADMAP queue 1, item 1.7);
-    ``attach_fault`` reads whatever carries its counters."""
+    """``attach_fault`` reads whatever carries the fault plane's counters
+    (the cluster's ``FaultPolicy`` or a stand-in)."""
     mon = SimpleNamespace(beats=3, heartbeats_missed=1, deaths=1,
                           straggler_flags=1, alive_workers=lambda: [0, 1])
     pol = SimpleNamespace(monitor=mon, steals=1, remeshes=1, spares=[])

@@ -10,6 +10,7 @@ engine does and refuses the prefix cache and speculation."""
 
 import numpy as np
 import pytest
+import torch
 
 from torch_engine_pair import (assert_pages_close, audit, client, counters,
                                drain, engine, entries, leaf_bits, libs,
@@ -365,14 +366,40 @@ def test_trie_capacity_evicts_lru():
     assert kv.num_free_pages == 63
 
 
-def test_client_refuses_the_cluster_arguments(pair):
-    """The reference's cluster arguments raise and name ROADMAP 1.7."""
+def test_client_builds_a_cluster_from_the_cluster_arguments(pair):
+    """The reference's cluster arguments build an ``EngineCluster``, each
+    taking effect (a lone ``make_oplog`` gives a single engine its log, as
+    in the reference); unknown keywords still raise."""
+    from repro_torch.core import OpLog, PMDevice
+    from repro_torch.serve import EngineCluster
+
     _, lib = pair
-    for kw in ({"n_engines": 2}, {"n_spares": 1}, {"make_oplog": list},
-               {"heartbeat_timeout": 3.0}):
-        with pytest.raises(NotImplementedError, match="1.7"):
-            ServeClient(lib.api, lib.params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="1.7"):
-        engine(lib, step_fn=lambda *a: None)
+
+    def make_oplog():
+        return OpLog(PMDevice(size=4 * 1024 * 1024), base_block=1,
+                     num_blocks=16)
+    for kw in ({"n_engines": 2}, {"n_spares": 1},
+               {"n_engines": 2, "make_oplog": make_oplog},
+               {"n_engines": 2, "heartbeat_timeout": 3.0}):
+        c = ServeClient(lib.api, lib.params, max_batch=1, max_seq=32,
+                        page_tokens=8, device="cpu", **kw)
+        assert isinstance(c.engine, EngineCluster)
+        engines = c.engine.engines
+        assert len(engines) == 2
+        logs = [e.controller.oplog for e in engines]
+        if "make_oplog" in kw:
+            assert None not in logs and logs[0] is not logs[1]
+        else:
+            assert logs == [None, None]
+        assert c.engine.monitor.timeout_s == kw.get("heartbeat_timeout", 6.0)
+        assert list(c.open_session().generate([3, 4, 5], 2))
+    single = ServeClient(lib.api, lib.params, max_batch=1, max_seq=32,
+                         page_tokens=8, device="cpu", make_oplog=make_oplog)
+    assert single.engine.controller.oplog is not None
+    if not torch.cuda.is_available():            # the card is the default
+        with pytest.raises(RuntimeError, match="is_available"):
+            ServeClient(lib.api, lib.params, n_engines=2, n_spares=1)
     with pytest.raises(TypeError):
         ServeClient(lib.api, lib.params, device="cpu", n_engine=2)
+    with pytest.raises(TypeError):
+        engine(lib, n_engines=2)

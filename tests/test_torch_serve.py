@@ -248,6 +248,9 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.serve import ServeClient
         import repro_torch.core.tier, repro_torch.obs
         import repro_torch.serve.prefix_cache
+        import repro_torch.dist, repro_torch.launch.serve
+        import repro_torch.serve.router, repro_torch.serve.snapshot
+        import repro_torch.serve.cluster, repro_torch.serve.arrival
         cfg = get_config("qwen2-1.5b", smoke=True)
         api = build_model(cfg)
         g = torch.Generator(device="cpu").manual_seed(0)

@@ -1,5 +1,6 @@
 """Shared by the port's engine tests (tests/test_torch_{prefix,tier,spec,
-obs}.py): the JAX package's serving stack and the port's side by side,
+obs,cluster,arrival}.py): the JAX package's serving stack and the port's
+side by side,
 as two namespaces with the same names, so that each scenario is written
 once and run on both engines from the same weights.
 
@@ -21,6 +22,7 @@ import torch
 import repro.core as jax_core
 import repro.core.kvcache as jax_kvcache
 import repro.core.oplog as jax_oplog
+import repro.dist.fault as jax_fault
 import repro.obs as jax_obs
 import repro.serve as jax_serve
 from repro.configs import get_config as jax_get_config
@@ -33,6 +35,7 @@ from repro_torch import serve as port_serve
 from repro_torch.configs import get_config
 from repro_torch.core import kvcache as port_kvcache
 from repro_torch.core import oplog as port_oplog
+from repro_torch.dist import fault as port_fault
 from repro_torch.models import build_model
 
 # the controller counters every scenario holds equal across the engines
@@ -40,14 +43,29 @@ COUNTERS = ("pages_adopted", "pages_copied", "pages_relinked", "pins_taken",
             "pages_allocated", "pages_freed")
 
 
-def _lib(name, core, kvcache, oplog, obs, serve, api, params, kw):
+def _lib(name, core, kvcache, oplog, obs, serve, fault, api, params, kw):
     return SimpleNamespace(
         name=name, api=api, params=params, kw=kw,
         Engine=serve.ServingEngine, Client=serve.ServeClient,
         SpecConfig=serve.SpecConfig, SamplingParams=serve.SamplingParams,
         Mode=core.Mode, PMDevice=core.PMDevice, OpLog=oplog.OpLog,
-        OP_TRUNCATE=oplog.OP_TRUNCATE, replay=kvcache.replay_kv_commits,
-        Obs=obs.Obs, validate=obs.validate_chrome_trace)
+        OP_TRUNCATE=oplog.OP_TRUNCATE, OP_KV_COMMIT=oplog.OP_KV_COMMIT,
+        replay=kvcache.replay_kv_commits,
+        KVGeometry=kvcache.KVGeometry, PagedKVCache=kvcache.PagedKVCache,
+        KVPoolFullError=kvcache.KVPoolFullError,
+        Obs=obs.Obs, validate=obs.validate_chrome_trace,
+        Cluster=serve.EngineCluster, PrefixRouter=serve.PrefixRouter,
+        prefix_hash=serve.prefix_hash,
+        snapshot_session=serve.snapshot_session,
+        restore_session=serve.restore_session,
+        MigrationError=serve.MigrationError,
+        ByteTokenizer=serve.ByteTokenizer,
+        OpenLoopDriver=serve.OpenLoopDriver, ArrivalSpec=serve.ArrivalSpec,
+        poisson_schedule=serve.poisson_schedule,
+        trace_schedule=serve.trace_schedule,
+        HeartbeatMonitor=fault.HeartbeatMonitor,
+        FaultPolicy=fault.FaultPolicy, StealPlan=fault.StealPlan,
+        RemeshPlan=fault.RemeshPlan, plan_steal=fault.plan_steal)
 
 
 def libs(arch: str = "qwen2-1.5b", params_fn=None):
@@ -67,9 +85,10 @@ def libs(arch: str = "qwen2-1.5b", params_fn=None):
     jparams = jax.tree.map(jnp.asarray, np_params)
     tparams = convert.params_from_numpy(np_params, device="cpu")
     return (_lib("jax", jax_core, jax_kvcache, jax_oplog, jax_obs, jax_serve,
-                 japi, jparams, {}),
+                 jax_fault, japi, jparams, {}),
             _lib("torch", port_core, port_kvcache, port_oplog, port_obs,
-                 port_serve, build_model(tcfg), tparams, {"device": "cpu"}))
+                 port_serve, port_fault, build_model(tcfg), tparams,
+                 {"device": "cpu"}))
 
 
 def engine(lib, **kw):
@@ -78,6 +97,10 @@ def engine(lib, **kw):
 
 def client(lib, **kw):
     return lib.Client(lib.api, lib.params, **kw, **lib.kw)
+
+
+def cluster(lib, **kw):
+    return lib.Cluster(lib.api, lib.params, **kw, **lib.kw)
 
 
 def oplog(lib):
@@ -103,17 +126,20 @@ def _leaves(eng, page):
     return [np.asarray(v) for v in views]
 
 
+def bits(v) -> np.ndarray:
+    """An array's bits: float32 as uint32, bfloat16 as uint16 (JAX's
+    ml_dtypes arrays and the port's tensors alike)."""
+    if isinstance(v, torch.Tensor):
+        as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        v = v.contiguous().view(as_int[v.dtype]).numpy()
+    v = np.ascontiguousarray(v)
+    return v.view(np.uint32 if v.itemsize == 4 else np.uint16)
+
+
 def leaf_bits(eng, page) -> list:
     """One physical page's bits in every layer pool ([L, T, KV, D] each,
-    the engine's own gather order): float32 as uint32, bfloat16 as uint16
-    (JAX's ml_dtypes arrays and the port's tensors alike)."""
-    out = []
-    for v in _leaves(eng, page):
-        if isinstance(v, torch.Tensor):
-            as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-            v = v.view(as_int[v.dtype]).numpy()
-        out.append(v.view(np.uint32 if v.itemsize == 4 else np.uint16))
-    return out
+    the engine's own gather order)."""
+    return [bits(v) for v in _leaves(eng, page)]
 
 
 def page_bits(eng, page) -> np.ndarray:
