@@ -102,7 +102,26 @@ sm_90a) and then, failing with a non-zero exit on any error:
      its committed pages after every tick, its pool is whole at the end
      but for its trie's pins, every engine serves one copy of the weights,
      and every qwen2 step of every engine, restored pages included,
-     launches the fused append and attention once a layer.
+     launches the fused append and attention once a layer;
+ 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width and
+     depth, phase 4's shape, ``run_training`` with a
+     ``CheckpointManager(keep=1)``: on a SYNC ``USplit``, 4 steps with a
+     save every 2 and a crash after step 3; ``Volume.mount`` of the same
+     device and a fresh manager over a STRICT ``USplit``, whose run
+     restores step 2 bitwise equal to the state that save was given (all
+     43 leaves) and gives steps 3-4 the losses of an uninterrupted run
+     (rtol 1e-5, or the spread of two uninterrupted runs where they
+     differ); its STRICT save of step 4 restored bitwise after a mount
+     with oplog recovery; every relink commit copying nothing; a POSIX
+     ``save(blocking=False)`` followed by one more in-place step, whose
+     restore equals the state before that step.  It prints each save's
+     and restore's ms and GB/s by part (D2H / H2D, the store's write /
+     read, the relink fsync, the manifest, the crc), the bytes, the peak
+     device memory with the non-blocking snapshot and the phase's
+     seconds.  (b) runs ``repro_torch.launch.train`` as a subprocess twice
+     (qwen2-1.5b SMOKE, 8 steps, a checkpoint every 4; mamba2-1.3b SMOKE,
+     STRICT, 2 spares): exit 0, a falling loss, ``copied_bytes=0`` and the
+     path's kernels launched.
 
 Every phase runs its model at full depth.
 
@@ -117,6 +136,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -307,21 +327,26 @@ def device_ms(fn, reps: int = 20):
     return sum(e["dur"] for e in ev) / reps / 1e3
 
 
-def kernel_names(fn, tries: int = 3) -> list:
+def kernel_names(fn, want=(), tries: int = 3) -> list:
     """The names of the device events of one traced call of ``fn``, from
-    the first of ``tries`` traces that recorded any (a trace here can lose
-    every event; see device_ms); empty if none did."""
+    the first of ``tries`` traces that recorded a name holding each of
+    ``want`` (a trace here can lose every event, or some; see
+    device_ms); else from the last trace that recorded any, or empty if
+    none did."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    got = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e["name"] for e in device_events(prof)]
         if names:
-            return names
-    return []
+            got = names
+            if all(any(k in n for n in names) for k in want):
+                break
+    return got
 
 
 def kernel_split(fn, reps: int = 20) -> dict:
@@ -786,8 +811,8 @@ def ssd_work(Bp, L, H, P, N, esz, part="fwd"):
 def check_ran(name: str, fn, kernels) -> str:
     """The kernels a traced call of ``fn`` ran must include ``kernels``: a
     time filed under them is never another's (a trace that lost every
-    event shows nothing)."""
-    ran = kernel_names(fn)
+    event shows nothing; one that lost some is taken again)."""
+    ran = kernel_names(fn, kernels)
     missing = [k for k in kernels if not any(k in n for n in ran)]
     if ran and missing:
         raise AssertionError(f"{name}: no {missing} in {ran}")
@@ -1782,6 +1807,317 @@ def engine_cluster(qwen_cfg, mamba_cfg, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the checkpointed trainer (the SplitFS store, the checkpoint
+# manager, crash and resume, and the launch.train entry point)
+# ---------------------------------------------------------------------------
+
+RESUME_RTOL = 1e-5               # tests/test_train_serve.py:92
+# staging files of phase 11's stores: each new file sorts the pool's whole
+# free list (the store's contiguous allocator), so fewer, larger files
+# make a save cheaper; one of them preallocated
+CKPT_STAGING_BYTES = 2 * 1024 * 1024 * 1024
+CKPT_STAGING_PREALLOC = 1
+
+
+def state_equal(a, b) -> bool:
+    """Every leaf bitwise equal, with its dtype and shape."""
+    from repro_torch.train.optimizer import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def clone_tree(tree):
+    """A copy of every leaf of a nested dict, on its device."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def ckpt_times(t: dict) -> dict:
+    """A manager's ``last_save`` / ``last_restore`` in ms by part, with
+    the bytes and GB/s."""
+    out = {k + "_ms": v * 1e3 for k, v in t.items()
+           if k not in ("bytes", "seconds")}
+    out.update(bytes=t["bytes"], ms=t["seconds"] * 1e3,
+               gb_per_s=t["bytes"] / t["seconds"] / 1e9)
+    return out
+
+
+def ckpt_store(nbytes: int, mode, staging_bytes: int, keep: int = 1,
+               device=None):
+    """A formatted volume for ``keep`` checkpoints of ``nbytes`` and the
+    one being staged, on ``device`` when given (formatting a buffer already
+    touched costs a tenth of a fresh one's first touch)."""
+    from repro_torch.launch.train import checkpoint_volume
+    return checkpoint_volume(nbytes, mode=mode, keep=keep,
+                             staging_file_bytes=staging_bytes,
+                             staging_prealloc=CKPT_STAGING_PREALLOC,
+                             device=device)
+
+
+def remount(store, mode, staging_bytes: int, **kw):
+    """A fresh ``USplit`` over ``Volume.mount`` of the store's PM device,
+    as a restarted process would build it."""
+    from repro_torch.core import USplit, Volume
+    vol = Volume.mount(store.device, store.volume.geometry)
+    return USplit(vol, mode=mode, staging_file_bytes=staging_bytes,
+                  staging_prealloc=CKPT_STAGING_PREALLOC,
+                  staging_background=False, **kw)
+
+
+def checkpointed_trainer(cfg, device="cuda", layers=None,
+                         seq_len=TRAIN_S, batch=TRAIN_BATCH,
+                         microbatches=TRAIN_MB,
+                         staging_bytes=CKPT_STAGING_BYTES) -> dict:
+    """Phase 11 (a) (the CPU rehearsal runs it on the SMOKE config at a
+    small shape): ``run_training`` with a ``CheckpointManager(keep=1)`` at
+    phase 4's shape, ``cfg``'s widths and ``layers`` layers (None: all),
+    three saves and three restores of the whole state.
+
+    (1, 2) On a fresh SYNC volume, 4 steps with a save every 2 and a crash
+    after step 3; the save of step 2 keeps a device clone of the state it
+    was given.  ``Volume.mount`` of the same PM device and a fresh manager
+    over a STRICT ``USplit``: the resumed run restores step 2, bitwise
+    equal to that clone (every leaf), its pipeline resumes at step 2, and
+    its losses of steps 3-4 equal those of an uninterrupted run (rtol
+    1e-5, or the spread of two uninterrupted runs where they differ).
+    (4) The resumed run's save of step 4 is a STRICT one; the device is
+    mounted again with oplog recovery, as a crash right after that save
+    leaves it, and the restore equals the state saved, bitwise.  The
+    crashed image is the device's own buffer: ``torn_copy`` with no torn
+    tail copies it byte for byte, and at full depth the host cannot hold
+    two volumes.  (3) Every relink commit copies nothing.  (5) POSIX
+    ``save(blocking=False)``, one more in-place step, ``wait()``: the
+    restore equals a device clone of the state before that step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import Mode
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.launch.train import state_bytes
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import (AdamWConfig, LoopConfig, make_train_step,
+                                   run_training)
+    from repro_torch.train.optimizer import leaves
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = build_model(cfg)
+    nbytes = state_bytes(api)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=4)
+    loop = LoopConfig(steps=4, ckpt_every=2, microbatches=microbatches)
+
+    def pipe():
+        return TokenPipeline(cfg, global_batch=batch, seq_len=seq_len,
+                             seed=0)
+
+    saved = {}        # step -> device clone of the state its save was given
+    saves, restores = [], []
+
+    class Held(CheckpointManager):
+        """Keeps a clone of the state each save is given, and holds each
+        restore bitwise to the clone of its step."""
+
+        def save(self, step, tree, extra=None, blocking=True):
+            super().save(step, tree, extra, blocking)
+            saves.append({"step": step, "mode": self.store.mode.name,
+                          **ckpt_times(self.last_save)})
+            saved[step] = clone_tree(tree)
+
+        def restore(self, like, step=None):
+            got = super().restore(like, step)
+            if got is not None:
+                restores.append({"step": got[0],
+                                 "bitwise": state_equal(got[1],
+                                                        saved.pop(got[0])),
+                                 **ckpt_times(self.last_restore)})
+            return got
+
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "state_bytes": nbytes, "state_gb": nbytes / 1e9,
+           "shape": {"batch": batch, "seq_len": seq_len,
+                     "microbatches": microbatches},
+           "staging_file_bytes": staging_bytes}
+    t0 = time.perf_counter()
+    store_a = ckpt_store(nbytes, Mode.SYNC, staging_bytes)
+    out["pm_device_bytes"] = store_a.device.size
+    out["first_format_s"] = time.perf_counter() - t0
+
+    # (1, 2): crash after step 3, the save of step 2 behind it
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_training(api, pipe(), loop, opt, ckpt=Held(store_a, keep=1),
+                     device=device, crash_at=3)
+        raise AssertionError("crash_at=3 did not raise")
+    except RuntimeError as e:
+        assert "injected crash at step 3" in str(e), e
+    out["crashed_run_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store_b = remount(store_a, Mode.STRICT, staging_bytes)
+    out["remount_s"] = time.perf_counter() - t0
+    copied = {"crashed": store_a.stats.copied_bytes}
+    del store_a
+    gc.collect()
+    pipe_b = pipe()
+    t0 = time.perf_counter()
+    resumed = run_training(api, pipe_b, loop, opt,
+                           ckpt=Held(store_b, keep=1), device=device)
+    out["resumed_run_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in common.LAUNCHES.items() if v}
+    if cuda and cfg.family != "ssm":
+        # 5 steps; each layer's forward runs twice (remat "full"), its
+        # backward once
+        want = {"flash_attention": 5 * 2 * cfg.n_layers * microbatches,
+                "flash_attention_bwd": 5 * cfg.n_layers * microbatches}
+        for k, n in want.items():
+            assert common.LAUNCHES[k] == n, (k, common.LAUNCHES)
+    assert resumed.restored_from == 2 and resumed.steps_run == 2, resumed
+    assert pipe_b.snapshot() == 4, pipe_b.snapshot()
+    assert restores[0]["step"] == 2 and restores[0]["bitwise"], restores
+    copied["resumed"] = store_b.stats.copied_bytes
+    log_entries = store_b.stats.log_entries
+
+    base = run_training(api, pipe(), loop, opt, device=device)
+    again = run_training(api, pipe(), loop, opt, device=device)
+    spread = max(abs(a - b) / abs(b)
+                 for a, b in zip(again.losses[2:], base.losses[2:]))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(resumed.losses, base.losses[2:]))
+    tol = RESUME_RTOL if spread == 0.0 else max(RESUME_RTOL, spread)
+    out["resume"] = {
+        "restored_from": resumed.restored_from,
+        "losses_resumed_3_4": resumed.losses,
+        "losses_uninterrupted_3_4": base.losses[2:],
+        "losses_second_uninterrupted_3_4": again.losses[2:],
+        "max_rel_diff": rel, "uninterrupted_spread": spread,
+        "rtol": tol, "rtol_from": ("reference rtol 1e-5 (two uninterrupted "
+                                   "runs bitwise equal)" if spread == 0.0
+                                   else "max(1e-5, uninterrupted spread)")}
+    assert rel <= tol, out["resume"]
+
+    # (4): the STRICT save of step 4, recovered from the device as it stands
+    t0 = time.perf_counter()
+    store_c = remount(store_b, Mode.STRICT, staging_bytes,
+                      oplog_slot=store_b.oplog_slot, recover=True)
+    out["recover_mount_s"] = time.perf_counter() - t0
+    del store_b
+    gc.collect()
+    got = Held(store_c, keep=1).restore(saved[4])
+    assert got is not None and got[0] == 4, got and got[0]
+    del got
+    copied["recovered"] = store_c.stats.copied_bytes
+    out["strict"] = {"restored_step": restores[1]["step"],
+                     "bitwise": restores[1]["bitwise"],
+                     "log_entries": log_entries}
+    assert restores[1]["bitwise"], restores
+    pm = store_c.device
+    del store_c
+    gc.collect()
+
+    # (5) on a state one step past its init
+    step, init_state = make_train_step(api, opt, microbatches=microbatches)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = init_state(init_params(api.init_specs(), gen, device=device),
+                       device=device)
+    data = {k: torch.from_numpy(v).to(device)
+            for k, v in pipe().batch_at(0).items()}
+    state, m = step(state, data)
+    float(m["loss"])
+    store_p = ckpt_store(nbytes, Mode.POSIX, staging_bytes, device=pm)
+    mgr = CheckpointManager(store_p, keep=1)
+    want = clone_tree(state)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr.save(5, state, blocking=False)
+    returned_ms = (time.perf_counter() - t0) * 1e3
+    state, m = step(state, data)                  # in place
+    float(m["loss"])
+    mgr.wait()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    saves.append({"step": 5, "mode": "POSIX", **ckpt_times(mgr.last_save)})
+    got = mgr.restore(state)
+    restores.append({"step": got[0], "bitwise": state_equal(got[1], want),
+                     **ckpt_times(mgr.last_restore)})
+    out["posix_nonblocking"] = {
+        "save_returned_ms": returned_ms, "save_waited_ms": wait_ms,
+        "restored_step": got[0],
+        "equals_state_before_the_step": restores[-1]["bitwise"],
+        "state_changed_by_the_step": not state_equal(state, want)}
+    if cuda:
+        # the state, the step's activations and grads, the snapshot, and
+        # this check's own clone of the state
+        out["posix_nonblocking"]["peak_mem_gb"] = (
+            torch.cuda.max_memory_allocated() / 2**30)
+    copied["posix"] = store_p.stats.copied_bytes
+    out["copied_bytes"] = copied
+    out["saves"], out["restores"] = saves, restores
+    assert got[0] == 5 and out["posix_nonblocking"][
+        "equals_state_before_the_step"], out
+    assert out["posix_nonblocking"]["state_changed_by_the_step"], out
+    assert not any(copied.values()), copied
+    del got, want, state, store_p, mgr, pm
+    gc.collect()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase 11 (b): the entry point's two runs of its docstring, each with the
+# kernels its path must launch on the card
+ENTRY_RUNS = (
+    (["--arch", "qwen2-1.5b", "--smoke", "--steps", "8", "--ckpt-every",
+      "4"], ("flash_attention", "flash_attention_bwd")),
+    (["--arch", "mamba2-1.3b", "--smoke", "--steps", "8", "--ckpt-every",
+      "4", "--mode", "strict", "--spares", "2"],
+     ("ssd_chunk", "ssd_chunk_bwd")))
+
+
+def entry_point_start(args: list, device="cuda"):
+    """Start ``repro_torch.launch.train.main`` with ``args`` in a
+    subprocess (as ``python -m repro_torch.launch.train`` runs it), which
+    also prints its kernel launch counts; returns the process and its
+    start time."""
+    code = ("import json, sys; from repro_torch.kernels import common; "
+            "from repro_torch.launch.train import main; main(sys.argv[1:]); "
+            "print('launches', json.dumps(common.LAUNCHES))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen([sys.executable, "-c", code, *args,
+                             "--device", device], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def entry_point_run(args: list, kernels=(), device="cuda",
+                    started=None) -> dict:
+    """The run of ``args`` (``started`` by ``entry_point_start``, or
+    started here): exit 0, a falling loss, ``copied_bytes=0`` and a
+    launch of each of ``kernels``."""
+    proc, t0 = started or entry_point_start(args, device)
+    stdout, stderr = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = stdout.splitlines()
+    assert proc.returncode == 0, (args, stdout[-2000:], stderr[-4000:])
+    loss = next(l for l in lines if " steps, loss " in l)
+    first, last = map(float, loss.split("loss ")[1].split(" ")[0:3:2])
+    store = next(l for l in lines if l.startswith("[train] store:"))
+    launches = json.loads(next(l for l in lines
+                               if l.startswith("launches "))[9:])
+    res = {"args": args, "rc": proc.returncode, "seconds": seconds,
+           "loss_first": first, "loss_last": last, "store": store,
+           "launches": {k: v for k, v in launches.items() if v}}
+    assert last < first, res
+    assert "copied_bytes=0," in store, res
+    assert all(res["launches"].get(k) for k in kernels), res
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training at full width; phase 5: kernel path vs plain path
 # ---------------------------------------------------------------------------
 
@@ -1923,6 +2259,7 @@ def release() -> None:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2118,6 +2455,26 @@ def main() -> int:
                                     get_config("mamba2-1.3b")).items():
         log(f"phase10 {lane}", json.dumps({"card": card, **res}))
     log(f"phase10 seconds {time.perf_counter() - t10:.1f}")
+
+    t11 = time.perf_counter()
+    log(f"phase11 starts at {t11 - t_script:.1f} s")
+    # (b)'s two processes run beside (a), whose first minute formats its
+    # PM volume on the host
+    started = [entry_point_start(args) for args, _ in ENTRY_RUNS]
+    try:
+        log("phase11 (a)", json.dumps({"card": card, **checkpointed_trainer(
+            get_config("qwen2-1.5b"))}))
+        release()
+        for (args, kernels), run in zip(ENTRY_RUNS, started):
+            log("phase11 (b)", json.dumps({"card": card, **entry_point_run(
+                args, kernels, started=run)}))
+    finally:
+        for proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"phase11 seconds {time.perf_counter() - t11:.1f}; script "
+        f"{time.perf_counter() - t_script:.1f} s")
 
     by = {c["case"]: c for c in cases}
     kernels = []

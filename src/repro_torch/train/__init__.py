@@ -1,5 +1,6 @@
 """Training on one device: AdamW, the train_step builder (microbatch
-accumulation) and the loop."""
+accumulation) and the fault-aware loop (SplitFS checkpoints, heartbeats,
+the steal / remesh ladder)."""
 from .loop import LoopConfig, LoopResult, run_training
 from .optimizer import (AdamWConfig, adamw_init, adamw_update, global_norm,
                         schedule)
