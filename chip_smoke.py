@@ -31,8 +31,12 @@ sm_90a) and then, failing with a non-zero exit on any error:
      H=64, P=64, N=128) in float32 and bf16, at a ragged L=100, H=6 and
      at chunk 512 (key and query tiles walked in windows of 256), and the
      op's forward + backward through autograd against autograd of the
-     plain forward.  It times kernel, plain version and one PyTorch
-     library call where there is one (a yardstick the port never calls);
+     plain forward; and MLA's latent shape (16 heads over one KV head of
+     576, one pool passed as K and V) at C=16 and C=1, with and without an
+     idle slot, in bf16 (the latent kernel) and float32 (the scalar path),
+     and ``kv_append_chunk`` at that row.  It times kernel, plain version
+     and one PyTorch library call where there is one (a yardstick the
+     port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` (prefix cache on, as
      by default; the prompts share no page) with one POSIX and one STRICT
@@ -121,9 +125,23 @@ sm_90a) and then, failing with a non-zero exit on any error:
      seconds.  (b) runs ``repro_torch.launch.train`` as a subprocess twice
      (qwen2-1.5b SMOKE, 8 steps, a checkpoint every 4; mamba2-1.3b SMOKE,
      STRICT, 2 spares): exit 0, a falling loss, ``copied_bytes=0`` and the
-     path's kernels launched.
+     path's kernels launched;
+ 12. serves MoE and MLA (run before phase 11): deepseek-v2-lite-16b at
+     full width and all 27 layers in bf16, weights cast as they are born,
+     phase 2's 8 requests through ``ServeClient`` with every step launching
+     ``kv_append_chunk`` and ``paged_attention_chunk`` (the latent kernel,
+     D=576) once a layer and nothing else, a profiled prefill and decode
+     window, init and serving peak memory, and one step's kernel path
+     against its plain path on the same MoE routes (the router logits held
+     to phase 3's bound too); grok-1-314b the same way at full width on 2
+     of its 64 layers (the fused op with softcap 30, 8 experts top-2); then
+     a float32 two-engine cluster of deepseek at full width and depth
+     (max_batch 2, so every expert's capacity is exact) whose busiest
+     engine dies mid-decode: its MLA pages migrate to the spare and every
+     request's 12 tokens equal the unkilled run's.
 
-Every phase runs its model at full depth.
+Every phase runs its model at full depth, but grok-1-314b (2 of 64
+layers: its bf16 weights are ~632 GB).
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -132,6 +150,7 @@ before it lists the kernels with their launch counts, times and bounds.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -224,7 +243,7 @@ FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_tc_kernel"}
 # the kernels of the serve step's fused append and attention
 PAGED_KERNELS = ("paged_attention_kernel", "paged_attention_f32_kernel",
-                 "paged_attention_merge_kernel")
+                 "paged_attention_merge_kernel", "paged_latent_kernel")
 # the flash backward's kernels of each dtype
 FLASH_BWD_KERNELS = {
     torch.bfloat16: ("flash_bwd_prep_kernel", "flash_bwd_kv_kernel",
@@ -444,7 +463,8 @@ def randn(rng, *shape, dtype=torch.bfloat16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def kv_append_case(rng, C: int, name: str) -> dict:
+def kv_append_case(rng, C: int, name: str, *, kv=KV, d=D) -> dict:
+    """``kv``, ``d``: the pool's row (MLA's latent: one head of 576)."""
     from repro_torch.kernels import kv_append_chunk
     from repro_torch.models.attention import paged_chunk_ids
 
@@ -453,8 +473,8 @@ def kv_append_case(rng, C: int, name: str) -> dict:
         rng.integers(0, LONGEST - C, B).astype(np.int32)).cuda()
     lengths[B - 1] = 0
     _, pids, sids = paged_chunk_ids(pt, lengths, C, T)
-    pool = randn(rng, P, T, KV, D)
-    new = randn(rng, B, C, KV, D)
+    pool = randn(rng, P, T, kv, d)
+    new = randn(rng, B, C, kv, d)
     out_k = kv_append_chunk(pool.clone(), new, pids, sids)
     out_r = kv_append_chunk(pool.clone(), new, pids, sids, impl="ref")
     torch.cuda.synchronize()
@@ -468,17 +488,20 @@ def kv_append_case(rng, C: int, name: str) -> dict:
         plain_ms=lambda: kv_append_chunk(work, new, pids, sids, impl="ref"),
         library_ms=lambda: work.index_put_((pl, sl), new))
     nbytes = 2 * new.numel() * new.element_size() + 2 * pids.numel() * 4
-    return {"case": name, "C": C, "max_abs_err": err, **t,
+    return {"case": name, "C": C, "KV": kv, "D": d, "max_abs_err": err, **t,
             **bound(nbytes, 0, BF16_FLOPS)}
 
 
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
                    straddle=False, table_pages=PAGES_PER_SEQ, full=False,
-                   idle=False, dtype=torch.bfloat16) -> dict:
+                   idle=False, dtype=torch.bfloat16, h=H, kv=KV, d=D,
+                   alias=False) -> dict:
     """``table_pages`` < PAGES_PER_SEQ narrows the page table (a table of
     at most 64 keys runs the kernel's single-split path); ``full`` puts
     every sequence at 1008 keys (the table's last entry stays the null
-    page); ``idle`` gives the last slot length 0 and an all-zero row."""
+    page); ``idle`` gives the last slot length 0 and an all-zero row;
+    ``h``, ``kv``, ``d`` the heads and head dim, and ``alias`` one pool
+    passed as K and V (MLA's latent: 16 heads over one KV head of 576)."""
     import torch.nn.functional as F
     from repro_torch.kernels import common, paged_attention_chunk
 
@@ -494,9 +517,9 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     if idle:
         starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
-    q = randn(rng, B, C, H, D, dtype=dtype)
-    pk = randn(rng, P, T, KV, D, dtype=dtype)
-    pv = randn(rng, P, T, KV, D, dtype=dtype)
+    q = randn(rng, B, C, h, d, dtype=dtype)
+    pk = randn(rng, P, T, kv, d, dtype=dtype)
+    pv = pk if alias else randn(rng, P, T, kv, d, dtype=dtype)
     kw = dict(window=window, softcap=softcap)
     out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
     splits = common.LAST_SPLITS["paged_attention_chunk"]   # as launched
@@ -516,8 +539,8 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         # yardstick: SDPA over the pages gathered beforehand (gather and
         # mask construction are outside the timed call)
         S = table_pages * T
-        k = pk[pt.long()].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
-        v = pv[pt.long()].reshape(B, S, KV, D).repeat_interleave(H // KV, 2)
+        k = pk[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
+        v = pv[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
         kpos = torch.arange(S, device="cuda")[None, None, :]
         qpos = lengths.long()[:, None, None] + \
             torch.arange(C, device="cuda")[None, :, None]
@@ -529,19 +552,27 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4)
     t = {"library_ms": None, **timings(**fns)}
-    return {"case": name, "C": C, "dtype": str(dtype), "splits": splits,
+    kernel = (PAGED_KERNELS[3] if d > 256 and dtype == torch.bfloat16
+              else PAGED_KERNELS[0] if dtype == torch.bfloat16
+              else PAGED_KERNELS[1])
+    return {"case": name, "C": C, "dtype": str(dtype), "H": h, "KV": kv,
+            "D": d, "aliased_pools": alias, "splits": splits,
             "max_abs_err": err, "tolerance": {"atol": tol, "rtol": tol}, **t,
-            **paged_bound(starts, C, window, table_pages, q.element_size())}
+            "kernel": kernel if d <= 256 else check_ran(
+                name, fns["ms"], (kernel,)),
+            **paged_bound(starts, C, window, table_pages, q.element_size(),
+                          h=h, kv=kv, d=d, pools=1 if alias else 2)}
 
 
 def paged_bound(starts, C: int, window, table_pages: int, esz: int,
-                append: bool = False) -> dict:
+                append: bool = False, h=H, kv=KV, d=D, pools=2) -> dict:
     """The bound of one paged attention call on this run's data: the keys
     each sequence's chunk can see, [max(0, start - window + 1),
-    min(start + C, N*T)), read once with the table entries that hold them,
-    q read and out written; the products 4 H D a visible (query, key)
-    pair.  ``append``: the fused call, which also reads the chunk's new K
-    and V rows and its (page, slot) ids and writes the rows into the
+    min(start + C, N*T)), read once from each of ``pools`` pools (1: one
+    pool passed as K and V, read once) with the table entries that hold
+    them, q read and out written; the products 4 h d a visible (query,
+    key) pair.  ``append``: the fused call, which also reads the chunk's
+    new K and V rows and its (page, slot) ids and writes the rows into the
     pools, and reads the chunk's own keys from the new rows, not the
     pools."""
     st = np.asarray(starts, np.int64)
@@ -550,16 +581,17 @@ def paged_bound(starts, C: int, window, table_pages: int, esz: int,
         np.maximum(st - window + 1, 0)
     keys = int((k_hi - k_lo).sum())
     pages = int((-(-k_hi // T) - k_lo // T).sum())
-    nbytes = (keys * KV * D * esz * 2 + 2 * B * C * H * D * esz
+    row = kv * d * esz                             # one key's K (or V) row
+    nbytes = (keys * row * pools + 2 * B * C * h * d * esz
               + pages * 4 + B * 4)
     if append:
         own = int((k_hi - np.maximum(st, k_lo)).clip(min=0).sum())
-        rows = B * C * KV * D * esz                  # k_new or v_new
-        nbytes += 4 * rows - own * KV * D * esz * 2 + 2 * B * C * 4
+        rows = B * C * row                           # k_new or v_new
+        nbytes += 4 * rows - own * row * 2 + 2 * B * C * 4
     visible = st[:, None] + np.arange(C)[None, :] + 1   # keys per query
     if window is not None:
         visible = np.minimum(visible, window)
-    flops = int(4 * H * D * visible.sum())
+    flops = int(4 * h * d * visible.sum())
     peak = BF16_FLOPS if esz == 2 else TF32X3_FLOPS
     return bound(nbytes, flops, peak)
 
@@ -1103,8 +1135,12 @@ def path_vs_plain(api, params, cfg) -> dict:
                           for k, v in c["group"].items()},
                 "tail": {}}
 
-    lk, ck = api.serve_step(params, tok, clone(caches), n)
-    lr, cr = api.serve_step(params, tok, clone(caches), n, impl="ref")
+    pin = RoutePin() if cfg.n_experts else contextlib.nullcontext()
+    with pin:
+        lk, ck = api.serve_step(params, tok, clone(caches), n)
+        if cfg.n_experts:
+            pin.mode = "pin"
+        lr, cr = api.serve_step(params, tok, clone(caches), n, impl="ref")
     torch.cuda.synchronize()
     assert torch.equal(ck["lengths"], cr["lengths"])
     worst, scale, agree, rows = 0.0, 0.0, 0, 0
@@ -1123,9 +1159,55 @@ def path_vs_plain(api, params, cfg) -> dict:
     res = {"logits_max_abs_err": worst, "logits_max_abs": scale,
            "argmax_agree": f"{agree}/{rows}", "pool_max_abs_err": pool_err,
            "pool_max_abs": pool_scale}
-    if worst > PATH_REL_TOL * scale or pool_err > PATH_REL_TOL * pool_scale:
+    if cfg.n_experts:
+        res.update(moe_calls=len(pin.picks), route_flips=pin.flips,
+                   router_logits_max_abs_err=pin.err,
+                   router_logits_max_abs=pin.scale)
+    if worst > PATH_REL_TOL * scale or pool_err > PATH_REL_TOL * pool_scale \
+            or (cfg.n_experts and pin.err > PATH_REL_TOL * pin.scale):
         raise AssertionError(f"kernel path vs plain path: {res}")
     return res
+
+
+class RoutePin:
+    """The MoE's top-k during ``path_vs_plain``'s two steps: the kernel
+    path's router logits and picks are recorded, call by call (one call a
+    layer), and the plain path runs on those picks (``mode = "pin"``), so
+    the two paths are held to each other on the same routes.  The router's
+    input is held instead: ``err`` is the largest difference between the
+    two paths' router logits, ``scale`` the largest kernel-path logit, and
+    ``flips`` counts the rows whose own picks differ (the two paths' bf16
+    hidden states differ by about 2%, and a row whose K-th and (K+1)-th
+    logits lie closer than that flips: on the H100, 982 of deepseek's
+    27 x 128 routed rows did in one step)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.inner = layers.top_k_experts
+        self.mode = "record"
+        self.picks = []
+        self.calls = self.flips = 0
+        self.err = self.scale = 0.0
+
+    def __enter__(self):
+        self.layers.top_k_experts = self.pick
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.top_k_experts = self.inner
+
+    def pick(self, logits, K):
+        vals, own = self.inner(logits, K)
+        if self.mode == "record":
+            self.picks.append((logits.clone(), own))
+            return vals, own
+        ref_logits, ref = self.picks[self.calls]
+        self.calls += 1
+        self.flips += int((own != ref).any(-1).sum())
+        self.err = max(self.err, float((logits - ref_logits).abs().max()))
+        self.scale = max(self.scale, float(ref_logits.abs().max()))
+        return logits.gather(1, ref), ref
 
 
 # ---------------------------------------------------------------------------
@@ -1503,11 +1585,11 @@ def cluster_client(api, params, device, **kw):
     return client, logs
 
 
-def busiest_mid_decode():
+def busiest_mid_decode(after: int = CLUSTER_KILL_AFTER):
     """The qwen2 kill: the shard engine holding the most requests after
     the first tick, killed at the first tick at which each of its active
-    sessions has CLUSTER_KILL_AFTER output tokens (its queued requests,
-    if any, are requeued)."""
+    sessions has ``after`` output tokens (its queued requests, if any,
+    are requeued)."""
     box = {}
 
     def kill_when(c):
@@ -1515,7 +1597,7 @@ def busiest_mid_decode():
             box["victim"] = max(range(2), key=lambda e: (
                 len(c.engines[e].active) + len(c.engines[e].waiting), -e))
         eng = c.engines[box["victim"]]
-        if eng.active and all(len(r.output) >= CLUSTER_KILL_AFTER
+        if eng.active and all(len(r.output) >= after
                               for r in eng.active.values()):
             return box["victim"]
         return None
@@ -1534,7 +1616,8 @@ def busiest_after(ticks: int):
 
 
 def cluster_run(client, logs, params, prompts, n_new, layers=None,
-                kill_when=None) -> dict:
+                kill_when=None,
+                kernels=("paged_attention_append_chunk",)) -> dict:
     """Submit ``prompts`` (POSIX and STRICT sessions in turns of two) and
     tick the cluster until idle, host clock around each tick (ending in a
     synchronize on a CUDA device); ``kill_when(cluster)``, asked after
@@ -1544,8 +1627,9 @@ def cluster_run(client, logs, params, prompts, n_new, layers=None,
     live STRICT sessions, and to nothing at the end; each live engine's
     pool is whole but for its trie's pins; every engine serves the
     weights ``params`` hold (one copy); with ``layers``, every model step
-    of every engine launches the fused append and attention ``layers``
-    times and no other serving kernel (none at all for ``layers=0``)."""
+    of every engine launches each of ``kernels`` (the fused append and
+    attention; MLA's append and attention) ``layers`` times and no other
+    serving kernel (none at all for ``layers=0``)."""
     from repro_torch.core import Mode, replay_kv_commits
     from repro_torch.kernels import common
     from repro_torch.train.optimizer import leaves
@@ -1626,8 +1710,7 @@ def cluster_run(client, logs, params, prompts, n_new, layers=None,
     steps = sum(e.steps - s for e, s in zip(c.engines, steps0))
     if layers is not None:
         launches = dict(common.LAUNCHES)
-        fused = {"paged_attention_append_chunk": layers * steps}
-        assert launches == {k: fused.get(k, 0) if layers else 0
+        assert launches == {k: layers * steps if k in kernels else 0
                             for k in launches}, (launches, steps)
     st = c.stats()
     out = {"outputs": [r.output for r in reqs], "ticks": c.ticks,
@@ -1804,6 +1887,116 @@ def engine_cluster(qwen_cfg, mamba_cfg, device="cuda") -> dict:
     if cuda:
         release()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE and MLA on the serve path: deepseek-v2-lite-16b at full
+# width and depth, grok-1-314b at full width on 2 of its 64 layers
+# ---------------------------------------------------------------------------
+
+# MLA's serve step: the latent append and the latent attention, unfused,
+# once a layer each (the attention op's kernels: the latent kernel and, with
+# context splits, their merge)
+MLA_STEP = {"kv_append_chunk": 1, "paged_attention_chunk": 1}
+MLA_OPS = {"paged_attention_chunk": ("paged_latent_kernel",
+                                     "paged_attention_merge_kernel"),
+           "kv_append_chunk": ("kv_append_kernel",)}
+GROK_LAYERS = 2                  # of 64: the full model is ~632 GB in bf16
+MLA_KILL_AFTER = 4               # the victim's sessions' tokens at the kill
+
+
+def moe_serving(cfg, device="cuda") -> dict:
+    """One MoE architecture on phase 2's path: bf16 weights cast as they
+    are born (``init_params(..., dtype=cfg.dtype)``: the float32 tree of
+    deepseek would be 64.8 GB), the 8 requests through ``ServeClient``
+    with each step's launches held to the attention's kernels a layer
+    (``MLA_STEP`` for MLA, the fused op for GQA), a profiled prefill and
+    decode window, the peak device memory of the init (one float32 leaf
+    beside the bf16 tree) and of the serving, and one step's kernel path
+    against its plain path on the same MoE routes (``path_vs_plain``)."""
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train.optimizer import leaves
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(api.init_specs(), gen, device=device,
+                         dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "init_s": time.perf_counter() - t0,
+           "params_gb": sum(x.numel() * x.element_size()
+                            for x in leaves(params)) / 1e9,
+           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    step = MLA_STEP if cfg.mla else {"paged_attention_append_chunk": 1}
+    out["serve"] = serve_main_path(api, params, cfg, step)
+    out["profile"] = profile_windows(
+        api, params, cfg, MLA_OPS if cfg.mla else {
+            "paged_attention_append_chunk": PAGED_KERNELS})
+    out["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["path_vs_plain"] = path_vs_plain(api, params, cfg)
+    del params
+    release()
+    return out
+
+
+def mla_cluster_kill(cfg, device="cuda", layers=None) -> dict:
+    """deepseek's MLA pages migrating: ``ServeClient(n_engines=2,
+    n_spares=1)`` in float32 activations and weights (``layers`` layers,
+    None: all), tests/test_cluster.py's geometry and prompts (max_batch 2,
+    pages of 8, six 22-26-token prompts of two families, 12 greedy tokens),
+    with and without the busiest engine killed once each of its sessions
+    has MLA_KILL_AFTER tokens.  At max_batch 2 a step routes at most 16
+    rows, so T * top_k <= 4 E and every expert's capacity is exact: no
+    pick drops, and a request's tokens do not depend on which requests
+    share its steps (at phase 2's 8 x 16 rows capacity drops picks, and a
+    requeued prefill's companions would decide them).  Gates: tokens
+    equal, one steal, one death, a session migrated with its pages, every
+    step of every engine launching MLA_STEP's kernels once a layer, and
+    ``cluster_run``'s own."""
+    from repro_torch.models import build_model, init_params
+    cuda = torch.device(device).type == "cuda"
+    lane = dataclasses.replace(cfg, dtype=torch.float32,
+                               n_layers=layers or cfg.n_layers)
+    api = build_model(lane)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(api.init_specs(), gen, device=device,
+                         dtype=lane.dtype)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(7)
+    heads = [rng.integers(1, lane.vocab, 16).tolist() for _ in range(2)]
+    prompts = [heads[i % 2] + rng.integers(1, lane.vocab, 6 + i % 5).tolist()
+               for i in range(6)]
+    runs = {}
+    for kill in (False, True):
+        client, logs = cluster_client(api, params, device, max_batch=2,
+                                      max_seq=64, page_tokens=8,
+                                      heartbeat_timeout=3.0)
+        runs[kill] = cluster_run(
+            client, logs, params, prompts, 12,
+            lane.n_layers if cuda else None,
+            busiest_mid_decode(MLA_KILL_AFTER) if kill else None,
+            kernels=tuple(MLA_STEP))
+        del client, logs
+        if cuda:
+            release()
+    plain, killed = runs[False], runs[True]
+    res = {"layers": lane.n_layers,
+           "unkilled": {k: v for k, v in plain.items() if k != "outputs"},
+           "killed": {k: v for k, v in killed.items() if k != "outputs"},
+           "tokens_equal": killed["outputs"] == plain["outputs"],
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                           if cuda else None)}
+    assert res["tokens_equal"], "a migrated MLA session diverged"
+    assert killed["steals"] == 1 and killed["deaths"] == 1, killed
+    assert killed["sessions_migrated"] >= 1, killed
+    assert sum(m["pages"] for m in killed["migration_events"]) > 0, killed
+    del params, api
+    if cuda:
+        release()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2358,6 +2551,18 @@ def main() -> int:
                    dtype=torch.float32),
         flash_case(rng, "flash S=1000 softcap=30 float32", 1000,
                    softcap=30.0, dtype=torch.float32),
+        # MLA's latent: one pool of 576-wide rows passed as K and V, 16
+        # heads (deepseek-v2-lite's serving shape), on the ragged / idle
+        # table; the append at that row
+        kv_append_case(rng, 16, "kv_append D=576 C=16", kv=1, d=576),
+        kv_append_case(rng, 1, "kv_append D=576 C=1", kv=1, d=576),
+        *(attention_case(rng, C, f"attention D=576 C={C}{tag} {dt}",
+                         dtype=dtype, h=16, kv=1, d=576, alias=True,
+                         **kw)
+          for dt, dtype in (("bf16", torch.bfloat16),
+                            ("float32", torch.float32))
+          for C in (16, 1)
+          for tag, kw in (("", {}), (" idle slot", {"idle": True}))),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -2455,6 +2660,18 @@ def main() -> int:
                                     get_config("mamba2-1.3b")).items():
         log(f"phase10 {lane}", json.dumps({"card": card, **res}))
     log(f"phase10 seconds {time.perf_counter() - t10:.1f}")
+
+    t12 = time.perf_counter()
+    log(f"phase12 starts at {t12 - t_script:.1f} s")
+    ds_cfg = get_config("deepseek-v2-lite-16b")
+    deepseek = moe_serving(ds_cfg)
+    log("phase12 deepseek", json.dumps({"card": card, **deepseek}))
+    grok = moe_serving(dataclasses.replace(get_config("grok-1-314b"),
+                                           n_layers=GROK_LAYERS))
+    log("phase12 grok", json.dumps({"card": card, **grok}))
+    log("phase12 deepseek kill", json.dumps({"card": card,
+                                             **mla_cluster_kill(ds_cfg)}))
+    log(f"phase12 seconds {time.perf_counter() - t12:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -2573,6 +2790,32 @@ def main() -> int:
                                          "bound_by", "plain_ms",
                                          "library_ms", "max_abs_err",
                                          "ms_call")}})
+    # the latent kernel and the append at MLA's row, on phase 12's path
+    mla_launches = deepseek["serve"]["launches"]
+    for name, case, cases in (
+            ("kv_append_chunk", "kv_append D=576 C=16",
+             ("kv_append D=576 C=16", "kv_append D=576 C=1")),
+            ("paged_attention_chunk", "attention D=576 C=16 bf16",
+             tuple(c["case"] for c in by.values()
+                   if c["case"].startswith("attention D=576")))):
+        c = by[case]
+        kernels.append({
+            "name": f"{name} (D=576, MLA)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "kv_append.cu" if name == "kv_append_chunk"
+                else "paged_attention.cu"),
+            "replaces": ("src/repro/kernels/kv_append/kernel.py:38"
+                         if name == "kv_append_chunk" else
+                         "src/repro/kernels/paged_attention/kernel.py:96"),
+            "launches": mla_launches[name],
+            "path": "phase 12: deepseek-v2-lite-16b serving",
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "call_ms": c["ms_call"], "timing": c["ms_timing"],
+            "cases": [{k: by[n].get(k) for k in (
+                "case", "dtype", "splits", "kernel", "ms", "bound_ms",
+                "bound_by", "plain_ms", "library_ms", "max_abs_err")}
+                for n in cases]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,21 +6,22 @@ brings it."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import mamba2_1_3b, qwen2_1_5b
+from . import (deepseek_v2_lite_16b, grok_1_314b, mamba2_1_3b, minitron_8b,
+               qwen2_1_5b, qwen2_72b, starcoder2_7b)
 
 _MODULES = {
+    "minitron-8b": minitron_8b,
+    "starcoder2-7b": starcoder2_7b,
+    "qwen2-72b": qwen2_72b,
     "qwen2-1.5b": qwen2_1_5b,
+    "grok-1-314b": grok_1_314b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "mamba2-1.3b": mamba2_1_3b,
 }
 
 # arch -> the ROADMAP.md queue-1 item that ports what it still needs
 _PENDING = {
-    "qwen2-72b": "item 2.0 (the remaining dense configs)",
-    "minitron-8b": "item 2.0 (the remaining dense configs)",
-    "starcoder2-7b": "item 2.1 (windowed GQA, layernorm, gelu)",
     "recurrentgemma-9b": "items 2.1 and 2.5 (windowed GQA, the RG-LRU)",
-    "grok-1-314b": "items 2.2 and 2.3 (softcap, MoE)",
-    "deepseek-v2-lite-16b": "items 2.3 and 2.4 (MoE, MLA)",
     "whisper-large-v3": "item 2.6 (encoder-decoder)",
     "internvl2-1b": "item 2.7 (prefix embeddings for VLMs)",
 }

@@ -25,6 +25,7 @@ import torch
 
 from .kernels.common import resolve_device
 from .models.config import ModelConfig
+from .models.spec import stays_float32
 
 
 def _leaf_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -64,16 +65,13 @@ def to_numpy(tree: Any) -> Any:
     return _map(tree, one)
 
 
-# leaves the model reads in float32 (``models/ssm.py``), besides norms
-FLOAT32_KEYS = frozenset({"A_log", "D_skip", "dt_bias"})
-
-
 def cast_params(params: Any, cfg: ModelConfig) -> Any:
-    """Every leaf in ``cfg.dtype`` but the norm subtrees and
-    ``FLOAT32_KEYS``, which are left untouched."""
-    def walk(node: Any, keep: bool) -> Any:
+    """Every leaf in ``cfg.dtype`` but those ``stays_float32`` keeps (the
+    norm subtrees and ``models.spec.FLOAT32_KEYS``), which are left
+    untouched.
+    ``init_params(..., dtype=cfg.dtype)`` draws a tree already so cast."""
+    def walk(node: Any, path) -> Any:
         if isinstance(node, dict):
-            return {k: walk(v, keep or "norm" in k or k in FLOAT32_KEYS)
-                    for k, v in node.items()}
-        return node if keep else node.to(cfg.dtype)
-    return walk(params, False)
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return node if stays_float32(path) else node.to(cfg.dtype)
+    return walk(params, ())

@@ -66,7 +66,33 @@
 //    calls on the same inputs are bitwise equal.
 // float32 (the card tests' and comparisons' dtype) keeps an exact scalar
 // path: one warp per query row, lanes over the head dim, 16-key f32 tiles
-// in shared memory, on the same split plan and merge.  D <= 256.
+// in shared memory (8-key tiles above D = 256), on the same split plan and
+// merge.  D <= 576.
+//
+// The latent head dim (MLA's serve step, deepseek-v2: one KV head whose
+// D = kv_lora_rank + qk_rope_dim = 576 rows serve as both K and V, 16
+// query heads; bf16, D in (256, 576] with D % 8 == 0; paged_latent_kernel
+// below).  The layout above cannot hold it: a 128-row block's float32
+// accumulator alone would be 288 KB, over an SM's 256 KB of registers, and
+// one 64-key tile of K is 72 KB of shared memory.  So:
+//  * a block owns 64 query rows (4 row tiles) and ONE slice of 192 of the
+//    576 output columns; the three slices of a row group are three blocks,
+//    each recomputing the same scores (Q.K^T over all 576 dims, 36 chunks
+//    of 16 through shared memory, the same mma.sync fragments as above),
+//    so each thread keeps 24 accumulator n-tiles (96 floats), not 72;
+//  * when pool_k and pool_v are the same storage (MLA passes one pool
+//    twice), a 64-key tile is copied into shared memory once and serves
+//    both products: V's fragments come from the K tile at the slice's
+//    column offset.  Two stages of full-width K tiles and the 64 Q rows
+//    take 219 KB.  Separate pools take one stage of K and one of the V
+//    slice (no copy overlaps a tile's products then);
+//  * the split plan, the key walk, the masks, the key-group fold and the
+//    merge are those of the bf16 kernel above; the column slice 0 block
+//    writes a split's (m, l), every slice its columns of the accumulator.
+// The bound at the serving shape is still bytes: each latent row (1152 B)
+// is read once per split and row group from device memory, and the three
+// slices' reads of it hit L2.  Recomputing the scores triples the QK
+// products, which stay far below the tensor cores' rate at these shapes.
 //
 // The fused append (repro_paged_attention_append_chunk; both kernels take
 // it as the compile-time flag kFused, so the plain entry point's
@@ -673,11 +699,363 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at the latent head dim: D in (256, 576], D % 8 == 0 (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kLatDP = 576;                  // Q.K^T depth: the head dim, padded
+constexpr int kLatDV = 192;                  // output columns of one block
+constexpr int kLatSlices = kLatDP / kLatDV;  // column slices of a row group
+constexpr int kLatRows = 64;                 // query rows of one block
+constexpr int kLatWarps = 8;
+constexpr int kLatThreads = kLatWarps * 32;
+
+// Dynamic shared memory of one latent block: `stages` full-width K tiles of
+// 64 keys, the V slice's tiles when V is a pool of its own (kAlias: V's
+// fragments come from the K tile), and the block's 64 query rows.  K and Q
+// rows are kLatDP + 8 bf16 long, V slice rows kLatDV + 8: ldmatrix rows
+// fall on distinct banks and every row starts on 16 bytes.
+template <bool kAlias>
+struct LatSmem {
+  static constexpr int stages = kAlias ? 2 : 1;
+  static constexpr int LD = kLatDP + 8;
+  static constexpr int LDV = kAlias ? LD : kLatDV + 8;
+  static constexpr size_t k_tile = (size_t)kBK * LD * 2;
+  static constexpr size_t v_tile = kAlias ? 0 : (size_t)kBK * LDV * 2;
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = stages * k_tile;
+  static constexpr size_t q_off = v_off + stages * v_tile;
+  static constexpr size_t bytes = q_off + (size_t)kLatRows * LD * 2;
+};
+
+template <bool kAlias, int KG>
+__global__ void __launch_bounds__(kLatThreads, 1)
+paged_latent_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ pool_k,
+                    const __nv_bfloat16* __restrict__ pool_v,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                    int C, int H, int KV, int D, int P, int T, int N,
+                    int splits, int window, float scale, float softcap) {
+  using L = LatSmem<kAlias>;
+  constexpr int LD = L::LD;
+  constexpr int LDV = L::LDV;
+  constexpr int S = L::stages;
+  constexpr int KW = kBK / KG;      // keys of a tile per warp
+  constexpr int NT = KW / 8;        // key n-tiles of S
+  constexpr int KC = kLatDP / 16;   // head-dim chunks of QK^T
+  constexpr int OT = kLatDV / 8;    // output-column n-tiles of O
+  // the key groups' states, [warp][OT * 4 + 4][lane] floats, reuse the
+  // whole block's shared memory after the walk
+  constexpr int kStateWords = OT * 4 + 4;
+  static_assert(kLatWarps * kStateWords * 32 * 4 <= L::bytes,
+                "key-group states fit the shared memory");
+  static_assert(KW % 16 == 0, "16 keys a warp at least");
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int sp = blockIdx.x;
+  const int cs = blockIdx.y % kLatSlices;       // column slice
+  const int kv = (blockIdx.y / kLatSlices) % KV;
+  const int row0 = blockIdx.y / (kLatSlices * KV) * kLatRows;
+  const int c0 = cs * kLatDV;                   // its first column
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int R = C * G;
+  const int m_tiles = (min(kLatRows, R - row0) + 15) / 16;
+  const int start = lengths[b];
+
+  int k_lo, k_hi, t_lo, t_hi;
+  const int n_tiles = key_tiles(start, C, T, N, window, &k_lo, &k_hi);
+  split_range(n_tiles, splits, sp, &t_lo, &t_hi);
+  // splits [0, live) hold tiles; split 0 alone runs when none does
+  const int live = live_splits(n_tiles, splits);
+  if (sp >= max(live, 1)) return;
+  const bool direct = live <= 1;    // one block a slice: it writes the output
+
+  // element offset of query row r (of the C*G rows of this KV head)
+  auto row_id = [&](int r) -> long long {
+    const int c = r / G;
+    return ((long long)b * C + c) * H + kv * G + (r - c * G);
+  };
+  PageWalk pw;
+  pw.row = page_table + (long long)b * N;
+  pw.T = T;
+  pw.P = P;
+  pw.tok_stride = (long long)KV * D;
+  pw.kv_off = (long long)kv * D;
+
+  // tile t into stage (t - t_lo) % S, 16 bytes a thread: every key's full
+  // row of K, and the slice's columns of V when V is a pool of its own;
+  // keys >= k_hi and columns >= D are zero-filled.  One copy group a call,
+  // empty past t_hi.
+  auto issue = [&](int t) {
+    if (t < t_hi) {
+      const int k0 = k_lo + t * kBK;
+      const int st = (t - t_lo) % S;
+      __nv_bfloat16* kd = Ks + (size_t)st * kBK * LD;
+      constexpr int vpr = kLatDP / 8;
+      for (int idx = threadIdx.x; idx < kBK * vpr; idx += kLatThreads) {
+        const int row = idx / vpr;
+        const int c = (idx - row * vpr) * 8;
+        const bool ok = k0 + row < k_hi && c < D;
+        cp_async16(kd + row * LD + c, ok ? pool_k + pw.off(k0 + row) + c
+                                         : pool_k, ok);
+      }
+      if constexpr (!kAlias) {
+        __nv_bfloat16* vd = Vs + (size_t)st * kBK * LDV;
+        constexpr int vv = kLatDV / 8;
+        for (int idx = threadIdx.x; idx < kBK * vv; idx += kLatThreads) {
+          const int row = idx / vv;
+          const int c = (idx - row * vv) * 8;
+          const bool ok = k0 + row < k_hi && c0 + c < D;
+          cp_async16(vd + row * LDV + c,
+                     ok ? pool_v + pw.off(k0 + row) + c0 + c : pool_v, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Q in a copy group of its own, then (two stages) the first tile
+  load_rows<kLatDP, LD, kLatThreads>(
+      Qs, q, m_tiles * 16, D, 1,
+      [&](int j) -> const __nv_bfloat16* {
+        return row0 + j < R ? q + row_id(row0 + j) * D : nullptr;
+      });
+  cp_async_commit();
+  if constexpr (S == 2) issue(t_lo);
+
+  // warp = (16-row tile mt, key group kg)
+  const int mt = warp / KG;
+  const int kg = warp % KG;
+  const bool active = mt < m_tiles;
+  const int mi = lane >> 3;         // the ldmatrix sub-matrix of this lane
+  const __nv_bfloat16* qrow =
+      Qs + (mt * 16 + (lane & 7) + (mi & 1) * 8) * LD + (mi >> 1) * 8;
+  const int r0 = row0 + mt * 16 + g;     // this thread's two query rows
+  const int r1 = r0 + 8;
+  const int qp0 = start + r0 / G;
+  const int qp1 = start + r1 / G;
+  float o[OT][4];
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot)
+    o[ot][0] = o[ot][1] = o[ot][2] = o[ot][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    if constexpr (S == 1) {
+      __syncthreads();              // the one stage is free again ...
+      issue(t);                     // ... for tile t
+    }
+    cp_async_wait<0>();             // tile t has landed ...
+    __syncthreads();                // ... for every thread; with two stages,
+    if constexpr (S == 2) issue(t + 1);   // tile t - 1's is free for t + 1
+    const int st = (t - t_lo) % S;
+    if (active) {
+      const __nv_bfloat16* Kt = Ks + ((size_t)st * kBK + kg * KW) * LD;
+      const __nv_bfloat16* Vt =
+          kAlias ? Kt + c0 : Vs + ((size_t)st * kBK + kg * KW) * LDV;
+      const int k0 = k_lo + t * kBK + kg * KW;   // this warp's slice
+
+      // S = Q K^T over all kLatDP dims: 16 rows x KW keys
+      const __nv_bfloat16* krow =
+          Kt + ((lane & 7) + (mi >> 1) * 8) * LD + (mi & 1) * 8;
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 4
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qrow + kc * 16);
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, krow + nt * 8 * LD + kc * 16);
+          mma16816(s[nt], a, kb[0], kb[1]);
+          mma16816(s[nt + 1], a, kb[2], kb[3]);
+        }
+      }
+
+      // scale, softcap, mask (only where the tile crosses a mask edge)
+      const bool full = k0 + KW <= k_hi && k0 + KW - 1 <= start &&
+                        (window < 0 || k0 > start + C - 1 - window);
+      unsigned valid = 0xffffffffu;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          if (!full) {
+            const int kpos = k0 + nt * 8 + tq * 2 + (e & 1);
+            const int qpos = e < 2 ? qp0 : qp1;
+            const bool ok = kpos < k_hi && kpos <= qpos &&
+                            (window < 0 || kpos > qpos - window);
+            if (!ok) {
+              x = kNegInf;
+              valid &= ~(1u << (nt * 4 + e));
+            }
+          }
+          s[nt][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f((m0 - mn0) * kLog2e);
+      const float alpha1 = exp2f((m1 - mn1) * kLog2e);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              ((valid >> (nt * 4 + e)) & 1u)
+                  ? exp2f((s[nt][e] - (e < 2 ? mn0 : mn1)) * kLog2e)
+                  : 0.f;
+          s[nt][e] = p;
+          if (e < 2) ps0 += p; else ps1 += p;
+        }
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int ot = 0; ot < OT; ++ot) {
+        o[ot][0] *= alpha0;
+        o[ot][1] *= alpha0;
+        o[ot][2] *= alpha1;
+        o[ot][3] *= alpha1;
+      }
+
+      // O += P V over the slice's columns, 16 keys at a time
+      const __nv_bfloat16* vrow =
+          Vt + ((lane & 7) + (mi & 1) * 8) * LDV + (mi >> 1) * 8;
+#pragma unroll
+      for (int kc = 0; kc < KW / 16; ++kc) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+        for (int ot = 0; ot < OT; ot += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vrow + kc * 16 * LDV + ot * 8);
+          mma16816(o[ot], a, bv[0], bv[1]);
+          mma16816(o[ot + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();               // an empty walk left copies pending
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // key group 0 of each row tile folds in groups 1 .. KG-1, in order
+  float* cw = reinterpret_cast<float*>(smem);
+  __syncthreads();                  // the walk is over in every warp
+  if (active && kg > 0) {
+    float* w = cw + (size_t)warp * kStateWords * 32 + lane;
+#pragma unroll
+    for (int ot = 0; ot < OT; ++ot)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[(ot * 4 + e) * 32] = o[ot][e];
+    w[(OT * 4) * 32] = m0;
+    w[(OT * 4 + 1) * 32] = m1;
+    w[(OT * 4 + 2) * 32] = l0;
+    w[(OT * 4 + 3) * 32] = l1;
+  }
+  __syncthreads();
+  const bool writer = active && kg == 0;
+  if (writer) {
+#pragma unroll
+    for (int k = 1; k < KG; ++k) {
+      const float* w = cw + (size_t)(warp + k) * kStateWords * 32 + lane;
+      const float mk0 = w[(OT * 4) * 32], mk1 = w[(OT * 4 + 1) * 32];
+      const float mn0 = fmaxf(m0, mk0), mn1 = fmaxf(m1, mk1);
+      const float a0 = exp2f((m0 - mn0) * kLog2e);
+      const float a1 = exp2f((m1 - mn1) * kLog2e);
+      const float b0 = exp2f((mk0 - mn0) * kLog2e);
+      const float b1 = exp2f((mk1 - mn1) * kLog2e);
+      l0 = l0 * a0 + w[(OT * 4 + 2) * 32] * b0;
+      l1 = l1 * a1 + w[(OT * 4 + 3) * 32] * b1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int ot = 0; ot < OT; ++ot) {
+        o[ot][0] = o[ot][0] * a0 + w[(ot * 4) * 32] * b0;
+        o[ot][1] = o[ot][1] * a0 + w[(ot * 4 + 1) * 32] * b0;
+        o[ot][2] = o[ot][2] * a1 + w[(ot * 4 + 2) * 32] * b1;
+        o[ot][3] = o[ot][3] * a1 + w[(ot * 4 + 3) * 32] * b1;
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (!writer || r >= R) continue;
+    const long long rid = row_id(r);
+    const float l = half ? l1 : l0;
+    if (direct) {
+      const float inv = 1.f / fmaxf(l, 1e-20f);
+      __nv_bfloat16* orow = out + rid * D;
+#pragma unroll
+      for (int ot = 0; ot < OT; ++ot) {
+        const int c = c0 + ot * 8 + tq * 2;   // D is even: pairs fit
+        if (c < D)
+          *reinterpret_cast<uint32_t*>(orow + c) =
+              pack_bf16(o[ot][2 * half] * inv, o[ot][2 * half + 1] * inv);
+      }
+    } else {
+      // this split's state: m, l (slice 0) and its columns of the
+      // unnormalised accumulator
+      const long long slot = rid * splits + sp;
+      float* arow = ws_acc + slot * D;
+#pragma unroll
+      for (int ot = 0; ot < OT; ++ot) {
+        const int c = c0 + ot * 8 + tq * 2;
+        if (c < D)
+          *reinterpret_cast<float2*>(arow + c) =
+              make_float2(o[ot][2 * half], o[ot][2 * half + 1]);
+      }
+      if (cs == 0 && tq == 0) {
+        ws_ml[slot * 2] = half ? m1 : m0;
+        ws_ml[slot * 2 + 1] = l;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: exact scalar path
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Warps = 8;            // query rows per block, one warp each
-constexpr int kKT = 16;                 // keys per shared-memory tile
+
+// keys per shared-memory tile: 16, or 8 above D = 256 (two tiles of 16 keys
+// of 576 floats would take 72 KB, over the 48 KB of static shared memory)
+template <int NI>
+struct F32Tile {
+  static constexpr int keys = NI <= 8 ? 16 : 8;
+};
 
 template <int NI, bool kFused>
 __global__ void __launch_bounds__(kThreads)
@@ -691,6 +1069,7 @@ paged_attention_f32_kernel(const float* __restrict__ q,
                            float* __restrict__ ws_ml, int C, int H, int KV,
                            int D, int P, int T, int N, int splits, int window,
                            float scale, float softcap, int vec, Append ap) {
+  constexpr int kKT = F32Tile<NI>::keys;
   __shared__ float ks[kKT * NI * 32];
   __shared__ float vs[kKT * NI * 32];
 
@@ -983,6 +1362,53 @@ int dispatch_kg(REPRO_PARAMS) {
   }
 }
 
+template <bool kAlias, int KG>
+int launch_latent(const void* q, const void* pool_k, const void* pool_v,
+                  const void* page_table, const void* lengths, void* out,
+                  void* ws_acc, void* ws_ml, int B, int C, int H, int KV,
+                  int D, int P, int T, int N, int splits, int window,
+                  float scale, float softcap, cudaStream_t stream) {
+  const size_t smem = LatSmem<kAlias>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_latent_kernel<kAlias, KG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int row_groups = (C * (H / KV) + kLatRows - 1) / kLatRows;
+  dim3 grid(splits, row_groups * KV * kLatSlices, B);
+  paged_latent_kernel<kAlias, KG><<<grid, kLatThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(pool_k),
+      static_cast<const __nv_bfloat16*>(pool_v),
+      static_cast<const int*>(page_table), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_acc),
+      static_cast<float*>(ws_ml), C, H, KV, D, P, T, N, splits, window,
+      scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return merge<__nv_bfloat16>(ws_acc, ws_ml, lengths, out, B, C, H, D, T, N,
+                              splits, window, stream);
+}
+
+// The latent kernel: one pool or two, and key groups per 16-row tile as
+// the 8 warps allow (4 for one or two row tiles, 2 for three or four)
+int dispatch_latent(const void* q, const void* pool_k, const void* pool_v,
+                    const void* page_table, const void* lengths, void* out,
+                    void* ws_acc, void* ws_ml, int B, int C, int H, int KV,
+                    int D, int P, int T, int N, int splits, int window,
+                    float scale, float softcap, cudaStream_t s) {
+  const int m_tiles = (min(kLatRows, C * (H / KV)) + 15) / 16;
+  const bool alias = pool_k == pool_v;
+#define REPRO_LAT_ARGS q, pool_k, pool_v, page_table, lengths, out, ws_acc, \
+                       ws_ml, B, C, H, KV, D, P, T, N, splits, window,      \
+                       scale, softcap, s
+  if (m_tiles <= 2)
+    return alias ? launch_latent<true, 4>(REPRO_LAT_ARGS)
+                 : launch_latent<false, 4>(REPRO_LAT_ARGS);
+  return alias ? launch_latent<true, 2>(REPRO_LAT_ARGS)
+               : launch_latent<false, 2>(REPRO_LAT_ARGS);
+#undef REPRO_LAT_ARGS
+}
+
 template <int NI, bool kFused>
 int launch_f32(REPRO_PARAMS) {
   const int rows = C * (H / KV);
@@ -1002,19 +1428,32 @@ int launch_f32(REPRO_PARAMS) {
 
 template <bool kFused>
 int run(REPRO_PARAMS, int is_bf16) {
-  if (B <= 0 || C <= 0 || D <= 0 || D > 256 || KV <= 0 || H % KV != 0 ||
+  // D <= 256 everywhere; up to 576 for the plain entry point (the latent
+  // kernel in bf16, where D % 8 == 0 and 16-byte operands are needed too)
+  const int max_d = kFused ? 256 : kLatDP;
+  if (B <= 0 || C <= 0 || D <= 0 || D > max_d || KV <= 0 || H % KV != 0 ||
       splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     if (D <= 64) return dispatch_kg<64, kFused>(REPRO_ARGS);
     if (D <= 128) return dispatch_kg<128, kFused>(REPRO_ARGS);
-    return dispatch_kg<256, kFused>(REPRO_ARGS);
+    if (D <= 256) return dispatch_kg<256, kFused>(REPRO_ARGS);
+    if constexpr (!kFused) {
+      if (!vec_copies(D, 2, q, pool_k, pool_v, ap))
+        return (int)cudaErrorInvalidValue;
+      return dispatch_latent(q, pool_k, pool_v, page_table, lengths, out,
+                             ws_acc, ws_ml, B, C, H, KV, D, P, T, N, splits,
+                             window, scale, softcap, s);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   if (D <= 32) return launch_f32<1, kFused>(REPRO_ARGS);
   if (D <= 64) return launch_f32<2, kFused>(REPRO_ARGS);
   if (D <= 128) return launch_f32<4, kFused>(REPRO_ARGS);
-  return launch_f32<8, kFused>(REPRO_ARGS);
+  if (D <= 256) return launch_f32<8, kFused>(REPRO_ARGS);
+  if constexpr (!kFused) return launch_f32<18, kFused>(REPRO_ARGS);
+  return (int)cudaErrorInvalidValue;
 }
 #undef REPRO_ARGS
 #undef REPRO_PARAMS
@@ -1026,8 +1465,10 @@ int run(REPRO_PARAMS, int is_bf16) {
 // splits per sequence (ops.py plan_splits); with splits > 1, ws_acc holds
 // B*C*H*splits*D and ws_ml B*C*H*splits*2 floats of scratch.  window < 0
 // means none, softcap <= 0 means none; is_bf16 selects bfloat16 (else
-// float32) for q, pools and out.  D <= 256 and H % KV == 0 are checked by
-// the caller.  Returns the cudaError_t of the launches (0 = cudaSuccess).
+// float32) for q, pools and out.  D <= 576 (bf16 above 256: D % 8 == 0,
+// 16-byte operands; pool_k == pool_v reads each latent tile once) and
+// H % KV == 0 are checked by the caller.  Returns the cudaError_t of the
+// launches (0 = cudaSuccess).
 extern "C" int repro_paged_attention_chunk(
     const void* q, const void* pool_k, const void* pool_v,
     const void* page_table, const void* lengths, void* out, void* ws_acc,
@@ -1047,7 +1488,7 @@ extern "C" int repro_paged_attention_chunk(
 // slot_ids[b, c]] (page_ids, slot_ids: [B, C] int32), in place, and the
 // chunk's keys are read from them.  The output and every pool byte off
 // the null page 0 are those of repro_kv_append_chunk on K and on V, then
-// repro_paged_attention_chunk.
+// repro_paged_attention_chunk.  D <= 256.
 extern "C" int repro_paged_attention_append_chunk(
     const void* q, const void* k_new, const void* v_new, void* pool_k,
     void* pool_v, const void* page_table, const void* lengths,

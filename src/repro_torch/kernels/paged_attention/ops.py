@@ -8,6 +8,12 @@ form (``lengths`` = total valid keys, so the chunk sees ``lengths - 1``).
 ``paged_attention_append_chunk`` is the serve step's call: the chunk's
 K/V append (``kv_append_chunk`` on each pool) and ``paged_attention_chunk``
 in one launch, counted under its own name.
+
+Head dims: up to 256 for both; ``paged_attention_chunk`` also takes up to
+576, MLA's latent (one KV head whose rows are both K and V: pass the same
+pool twice and each latent tile is read once), on a kernel of its own in
+bf16 (D % 8 == 0) and on the scalar path in float32.  Anything else
+raises on a CUDA tensor; ``impl="ref"`` takes any D.
 """
 
 from __future__ import annotations
@@ -20,27 +26,34 @@ from .. import common
 from ..kv_append.ref import kv_append_chunk_ref
 from .ref import paged_attention_chunk_ref
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 576   # the latent kernel's (MLA: kv_lora_rank + qk_rope_dim)
+MAX_FUSED_HEAD_DIM = 256
 TILE_KEYS = 64       # keys per tile, the unit a context split owns (kBK)
 BLOCK_ROWS = 128     # query rows one bf16 block owns (kRows): 8 row tiles
                      # of 16 over 16 warps (8 at D = 256; PaWarps)
+LATENT_ROWS = 64     # above D = 256 (bf16): query rows of a latent block
+LATENT_SLICES = 3    # and the blocks of 192 output columns a row group
 MAX_SPLITS = 16      # context splits the kernel takes (kMaxSplits)
 
 
 def plan_splits(B: int, C: int, H: int, KV: int, N: int, T: int,
-                sms: int) -> int:
+                sms: int, D: int = 128) -> int:
     """Context splits of one call.
 
     The kernel runs one block per (split, KV head, row group of up to 128
-    query rows, sequence); split s takes an equal share of its sequence's
-    LIVE key tiles, and a second kernel merges the splits that held tiles
-    (split 0 writes the rows of a sequence with at most one such split).
-    Splits fill the card's ``sms`` SMs with one block each, so they fall as
-    the blocks of one split (B * KV * row groups) grow; they never exceed
-    the table's tiles or pages, nor ``MAX_SPLITS``.  (On the H100, 8 splits
-    of the serving shape's 16 blocks beat 2-6 and tied 12-16 at both C=16
-    and C=1 in a sweep of the split count.)"""
-    groups = -(-C * (H // KV) // BLOCK_ROWS)
+    query rows, sequence) — above D = 256, per (split, KV head, row group
+    of up to 64 rows, column slice of 192, sequence); split s takes an
+    equal share of its sequence's LIVE key tiles, and a second kernel
+    merges the splits that held tiles (split 0 writes the rows of a
+    sequence with at most one such split).  Splits fill the card's ``sms``
+    SMs with one block each, so they fall as the blocks of one split grow;
+    they never exceed the table's tiles or pages, nor ``MAX_SPLITS``.  (On
+    the H100, 8 splits of the serving shape's 16 blocks beat 2-6 and tied
+    12-16 at both C=16 and C=1 in a sweep of the split count.)"""
+    if D > MAX_FUSED_HEAD_DIM:
+        groups = -(-C * (H // KV) // LATENT_ROWS) * LATENT_SLICES
+    else:
+        groups = -(-C * (H // KV) // BLOCK_ROWS)
     tiles = -(-N * T // TILE_KEYS)
     fill = sms // (B * KV * groups)
     return max(1, min(fill, tiles, N, MAX_SPLITS))
@@ -71,9 +84,15 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                          f"{tuple(pool_k.shape)}/{tuple(pool_v.shape)}, "
                          f"page_table {tuple(page_table.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {D} > {MAX_HEAD_DIM} is not "
+    max_d = MAX_HEAD_DIM if append is None else MAX_FUSED_HEAD_DIM
+    if D > max_d:
+        raise ValueError(f"{name}: head dim {D} > {max_d} is not "
                          "supported by the CUDA kernel")
+    if D > MAX_FUSED_HEAD_DIM and q.dtype == torch.bfloat16 and (
+            D % 8 or any(t.data_ptr() % 16 for t in (q, pool_k, pool_v))):
+        raise ValueError(f"{name}: bf16 head dim {D} > "
+                         f"{MAX_FUSED_HEAD_DIM} needs D % 8 == 0 and "
+                         "16-byte aligned q and pools (the latent kernel)")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"{name}: softcap must be positive, got {softcap}")
     if window is not None and window < 0:
@@ -98,7 +117,7 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                              ("q", "pool_k", "pool_v", "k_new", "v_new"),
                              q.device)
     N = page_table.shape[1]
-    splits = plan_splits(B, C, H, KV, N, T, common.sm_count(q.device))
+    splits = plan_splits(B, C, H, KV, N, T, common.sm_count(q.device), D)
     out = torch.empty_like(q)
     ws_acc = ws_ml = None                    # per-split softmax state
     if splits > 1:

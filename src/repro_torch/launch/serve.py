@@ -134,9 +134,12 @@ def main() -> None:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     api = build_model(cfg)
+    # serving weights cast as they are born (the engine's cast at load is
+    # then a no-op): deepseek's float32 tree alone would be 64.8 GB
     params = init_params(
         api.init_specs(),
-        torch.Generator(device=device).manual_seed(args.seed), device=device)
+        torch.Generator(device=device).manual_seed(args.seed), device=device,
+        dtype=cfg.dtype)
     modes = [Mode[m.strip().upper()] for m in args.modes.split(",")]
     cluster_mode = args.engines > 1 or args.spares > 0
     oplog = make_oplog = None

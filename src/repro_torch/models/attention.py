@@ -1,12 +1,16 @@
-"""GQA attention (port of ``repro/models/attention.py``).
+"""GQA and MLA attention (port of ``repro/models/attention.py``).
 
 ``gqa_train`` is the full-sequence forward of training and bulk logits,
 through ``kernels.attention`` (the flash kernel).  ``gqa_serve`` is the
 chunked serve step over the paged KV pool: up to C tokens per sequence
 appended and attended (``kernels.paged_attention_append_chunk``: the
 append and the attention in one launch) in one fixed-shape call; decode is
-the C=1 slice.  The pools are updated IN PLACE (the JAX version returns new
-pools).  MLA and ``gqa_cross`` wait for their slices (ROADMAP queue 1).
+the C=1 slice.  ``mla_serve`` is deepseek-v2's serve step over ONE latent
+pool ``[P, T, 1, R + dr]`` that is both K and V: ``kernels.kv_append_chunk``
+and then ``kernels.paged_attention_chunk`` at head dim R + dr (576 at full
+width), unfused as in the reference.  Pools are updated IN PLACE (the JAX
+version returns new pools).  ``mla_train`` and ``gqa_cross`` wait for
+their slices (ROADMAP queue 1, items 3.2 and 2.6).
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import attention as attention_op
-from ..kernels import paged_attention_append_chunk
+from ..kernels import (kv_append_chunk, paged_attention_append_chunk,
+                       paged_attention_chunk)
 from .config import ModelConfig
 from .spec import ParamSpec
 
@@ -54,10 +59,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
-def gqa_init(cfg: ModelConfig) -> Dict:
+def _no_mla(cfg: ModelConfig) -> None:
     if cfg.mla:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1, "
-                                  "item 2.4)")
+        raise NotImplementedError(
+            "MLA training (mla_train) is not ported yet (ROADMAP queue 1, "
+            "item 3.2); MLA serves through mla_serve")
+
+
+def gqa_init(cfg: ModelConfig) -> Dict:
     D, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -98,6 +107,7 @@ def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               return_kv: bool = False, impl: Optional[str] = None):
     """Full-sequence attention.  ``kv_override`` supplies external K/V
     (cross-attention).  Returns (out, (k, v) if return_kv)."""
+    _no_mla(cfg)
     q, k, v = _qkv(p, cfg, x, positions if use_rope else None, use_rope)
     if kv_override is not None:
         k, v = kv_override
@@ -150,3 +160,80 @@ def gqa_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         softcap=cfg.attn_logit_softcap, impl=impl)
     out = out.reshape(B, C, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cfg.dtype)
     return out, pool_k, pool_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): latent-compressed KV cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(cfg: ModelConfig) -> Dict:
+    D = cfg.d_model
+    H = cfg.n_heads
+    R = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    pd = cfg.param_dtype
+    return {
+        "wq": ParamSpec((D, H * (dn + dr)), ("embed", "heads"), pd),
+        "w_dkv": ParamSpec((D, R + dr), ("embed", "mla_rank"), pd),
+        "w_uk": ParamSpec((R, H * dn), ("mla_rank", "heads"), pd),
+        "w_uv": ParamSpec((R, H * dv), ("mla_rank", "heads"), pd),
+        "wo": ParamSpec((H * dv, D), ("heads", "embed"), pd),
+    }
+
+
+def _mla_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """Returns q_nope, q_rope, c_kv (latent), k_rope (shared across
+    heads)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    R = cfg.kv_lora_rank
+    dt = cfg.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p["w_dkv"].to(dt)                     # [B, S, R + dr]
+    c_kv, k_rope = ckv_full[..., :R], ckv_full[..., R:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              pool_ckv: torch.Tensor, page_table: torch.Tensor,
+              lengths: torch.Tensor, *, impl: Optional[str] = None):
+    """Latent-space chunked paged serve: the pool stores c_kv ++ k_rope
+    ([P, T, 1, R + dr]), appended IN PLACE, and serves as both K and V of
+    ``paged_attention_chunk`` (the same tensor passed twice).  Attention
+    runs in latent space with w_uk absorbed into q: score = <q_nope
+    W_uk^T, c_kv> + <q_rope, k_rope>.  x: [B, C, D] (C=1 decode).  Returns
+    (out [B, C, D], pool_ckv)."""
+    B, C = x.shape[:2]
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    R = cfg.kv_lora_rank
+    dt = cfg.dtype
+    T = pool_ckv.shape[1]
+    positions, page_ids, slot_ids = paged_chunk_ids(page_table, lengths, C, T)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    new_lat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # [B,C,1,R+dr]
+    kv_append_chunk(pool_ckv, new_lat.contiguous(), page_ids, slot_ids,
+                    impl=impl)
+
+    # absorb: q_lat[h] = q_nope[h] @ w_uk[:, h]^T  -> [B, C, H, R]
+    w_uk = p["w_uk"].to(dt).reshape(R, H, dn)
+    q_lat = torch.einsum("bchd,rhd->bchr", q_nope, w_uk)
+    q_full = torch.cat([q_lat, q_rope], dim=-1)          # [B, C, H, R+dr]
+    # the kernel scales by (R+dr)^-0.5; MLA's scale is (dn+dr)^-0.5
+    q_full = q_full * ((R + dr) ** 0.5 / (dn + dr) ** 0.5)
+    # keys are the latents themselves (+ the shared rope part); values are
+    # the latents
+    lat = paged_attention_chunk(q_full.contiguous(), pool_ckv, pool_ckv,
+                                page_table, lengths, impl=impl)
+    lat = lat[..., :R]                                   # [B, C, H, R]
+    w_uv = p["w_uv"].to(dt).reshape(R, H, dv)
+    out = torch.einsum("bchr,rhd->bchd", lat, w_uv)
+    out = out.reshape(B, C, H * dv) @ p["wo"].to(dt)
+    return out, pool_ckv

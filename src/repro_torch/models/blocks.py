@@ -1,15 +1,16 @@
 """Decoder blocks (port of ``repro/models/blocks.py``).
 
-The port has the ``"attn"`` kind with GQA and a dense MLP, and the
-``"ssm"`` kind (Mamba2 SSD), both pre-norm residual: ``block_train`` for
-the full-sequence forward and ``block_serve`` for the chunked serve step.
-Cache protocol per kind:
+The port has the ``"attn"`` kind (GQA or MLA attention, then a dense MLP
+or the MoE) and the ``"ssm"`` kind (Mamba2 SSD), both pre-norm residual:
+``block_train`` for the full-sequence forward and ``block_serve`` for the
+chunked serve step.  Cache protocol per kind:
 
   attn  (pool_k, pool_v)   paged pools, [P, T, KV, D] per layer
+        (pool_ckv,)        MLA: one latent pool, [P, T, 1, R + dr]
   ssm   {"conv", "ssd"}    Mamba2 state, [B, ...] per layer
 
-MLA, MoE and the RG-LRU (``"rec"``) raise ``NotImplementedError`` until
-their slices land (ROADMAP queue 1, item 2).
+The RG-LRU (``"rec"``) and MLA training raise ``NotImplementedError``
+until their slices land (ROADMAP queue 1, items 2.5 and 3.2).
 """
 
 from __future__ import annotations
@@ -18,38 +19,42 @@ from typing import Dict, Optional
 
 import torch
 
-from .attention import gqa_init, gqa_serve, gqa_train
+from .attention import (gqa_init, gqa_serve, gqa_train, mla_init,
+                        mla_serve)
 from .config import ModelConfig
-from .layers import mlp_apply, mlp_init, norm_apply, norm_init
+from .layers import (mlp_apply, mlp_init, moe_apply, moe_init, norm_apply,
+                     norm_init)
 from .ssm import mamba2_init, mamba2_init_state, mamba2_serve, mamba2_train
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind == "ssm":
-        return
-    if kind != "attn":
+def _check_kind(kind: str) -> None:
+    if kind not in ("attn", "ssm"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet "
                                   "(ROADMAP queue 1, item 2.5)")
-    if cfg.mla:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1, "
-                                  "item 2.4)")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, "
-                                  "item 2.3)")
+
+
+def _channel_mix(p: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return moe_apply(p["moe"], cfg, h) if cfg.n_experts \
+        else mlp_apply(p["mlp"], cfg, h)
 
 
 def block_init(cfg: ModelConfig, kind: str) -> Dict:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     if kind == "ssm":
         return {"norm1": norm_init(cfg), "ssm": mamba2_init(cfg)}
-    return {"norm1": norm_init(cfg), "norm2": norm_init(cfg),
-            "attn": gqa_init(cfg), "mlp": mlp_init(cfg)}
+    p = {"norm1": norm_init(cfg), "norm2": norm_init(cfg),
+         "attn": mla_init(cfg) if cfg.mla else gqa_init(cfg)}
+    if cfg.n_experts:
+        p["moe"] = moe_init(cfg)
+    else:
+        p["mlp"] = mlp_init(cfg)
+    return p
 
 
 def block_train(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, *,
                 impl: Optional[str] = None) -> torch.Tensor:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     h = norm_apply(p["norm1"], cfg, x)
     if kind == "ssm":
         return x + mamba2_train(p["ssm"], cfg, h, impl=impl)
@@ -57,7 +62,7 @@ def block_train(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   use_rope=cfg.rope_theta is not None, impl=impl)
     x = x + h
     h = norm_apply(p["norm2"], cfg, x)
-    return x + mlp_apply(p["mlp"], cfg, h)
+    return x + _channel_mix(p, cfg, h)
 
 
 def block_serve(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -69,31 +74,44 @@ def block_serve(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     the SSM state comes back as new tensors, advanced only through the
     first n_new tokens.  Attention pools need no validity mask: pad
     tokens' K/V land in unpublished staging slots or the null page, which
-    nothing reads."""
-    _check_kind(cfg, kind)
+    nothing reads.  (The MoE routes pad rows too, as the reference does:
+    they take expert capacity as real tokens do.)"""
+    _check_kind(kind)
     h = norm_apply(p["norm1"], cfg, x)
     if kind == "ssm":
         h, state = mamba2_serve(p["ssm"], cfg, h, cache, n_new)
         return x + h, state
-    pool_k, pool_v = cache
-    h, pool_k, pool_v = gqa_serve(p["attn"], cfg, h, pool_k, pool_v,
-                                  page_table, lengths,
-                                  window=cfg.attn_window,
-                                  use_rope=cfg.rope_theta is not None,
-                                  impl=impl)
+    if cfg.mla:
+        (pool_ckv,) = cache
+        h, pool_ckv = mla_serve(p["attn"], cfg, h, pool_ckv, page_table,
+                                lengths, impl=impl)
+        cache = (pool_ckv,)
+    else:
+        pool_k, pool_v = cache
+        h, pool_k, pool_v = gqa_serve(p["attn"], cfg, h, pool_k, pool_v,
+                                      page_table, lengths,
+                                      window=cfg.attn_window,
+                                      use_rope=cfg.rope_theta is not None,
+                                      impl=impl)
+        cache = (pool_k, pool_v)
     x = x + h
     h = norm_apply(p["norm2"], cfg, x)
-    return x + mlp_apply(p["mlp"], cfg, h), (pool_k, pool_v)
+    return x + _channel_mix(p, cfg, h), cache
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
                      num_pages: int, page_tokens: int, *,
                      device: torch.device, layers: int):
     """Zeroed decode cache for ``layers`` stacked blocks: paged pools
-    ([L, P, T, KV, D] each) for attention, state for SSM."""
-    _check_kind(cfg, kind)
+    ([L, P, T, KV, D] each; MLA's one latent pool [L, P, T, 1, R + dr])
+    for attention, state for SSM."""
+    _check_kind(kind)
     if kind == "ssm":
         return mamba2_init_state(cfg, batch, device=device, layers=layers)
+    if cfg.mla:
+        lat = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return (torch.zeros((layers, num_pages, page_tokens, 1, lat),
+                            dtype=cfg.dtype, device=device),)
     shape = (layers, num_pages, page_tokens, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))

@@ -1,5 +1,6 @@
-"""The model API (port of ``repro/models/registry.py``) for the dense
-decoder and the Mamba2 (``ssm``) families: the training surface
+"""The model API (port of ``repro/models/registry.py``) for the
+decoder-only families — dense, MoE (``moe``: grok's GQA and deepseek's
+MLA) and Mamba2 (``ssm``): the training surface
 
     loss(params, batch, impl=None)   -> scalar
     logits(params, batch, impl=None) -> [B, S, V]
@@ -13,7 +14,8 @@ processes up to C new tokens per sequence per call; decode is the C=1
 slice.  The API owns the KV pool geometry (``kv_geometry``), so the
 engine's controller and the device pools derive from one formula (an SSM
 model keeps the controller's page metadata, as the reference does, but
-no pools).  Other families raise until their slices land.
+no pools).  The encoder-decoder and VLM families raise until their
+slices land (ROADMAP queue 1, items 2.6 and 2.7).
 """
 
 from __future__ import annotations
@@ -47,11 +49,16 @@ def _kv_geometry(cfg: ModelConfig, max_batch: int, max_seq: int,
                       pages_per_seq=pages_per_seq)
 
 
+# family -> the ROADMAP.md queue-1 item that ports it
+_PENDING_FAMILIES = {"hybrid": "2.5", "encdec": "2.6", "vlm": "2.7"}
+
+
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 2); the dense decoder and Mamba2 run in repro_torch")
+            f"item {_PENDING_FAMILIES.get(cfg.family, '2')}); the "
+            "decoder-only families (dense, moe, ssm) run in repro_torch")
     return ModelAPI(
         cfg=cfg,
         init_specs=lambda: lm.lm_init(cfg),

@@ -47,23 +47,47 @@ def tree_map_specs(f: Callable[[ParamSpec], Any], tree: Any) -> Any:
     raise TypeError(f"unexpected node in a ParamSpec tree: {type(tree)}")
 
 
+# leaves the model reads in float32 (``models/ssm.py``), besides norms
+FLOAT32_KEYS = frozenset({"A_log", "D_skip", "dt_bias"})
+
+
+def stays_float32(path: Tuple[str, ...]) -> bool:
+    """Whether the leaf at key ``path`` keeps its stored float32 when the
+    serving weights are cast: a norm subtree's leaves and ``FLOAT32_KEYS``
+    (the rule of ``convert.cast_params``)."""
+    return any("norm" in k or k in FLOAT32_KEYS for k in path)
+
+
 def init_params(tree: Any, generator: torch.Generator, *,
-                device="cuda") -> Any:
+                device="cuda", dtype=None) -> Any:
     """Concrete tensors for a ParamSpec tree, drawn in sorted-key order
-    from ``generator`` (which must live on ``device``)."""
+    from ``generator`` (which must live on ``device``).
+
+    ``dtype`` (e.g. ``cfg.dtype``) casts each leaf as it is born, but the
+    leaves ``stays_float32`` keeps: bitwise ``cast_params(init_params(
+    tree, generator), cfg)``, without the whole float32 tree (each draw is
+    scaled in place, so the transient is one float32 leaf)."""
     dev = resolve_device(device)
 
-    def one(s: ParamSpec) -> torch.Tensor:
+    def one(s: ParamSpec, path: Tuple[str, ...]) -> torch.Tensor:
+        out = s.dtype if dtype is None or stays_float32(path) else dtype
         if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            return torch.zeros(s.shape, dtype=out, device=dev)
         if s.init == "ones":
-            return torch.ones(s.shape, dtype=s.dtype, device=dev)
+            return torch.ones(s.shape, dtype=out, device=dev)
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
         std = s.scale if s.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
         if s.init == "embed":
             std = s.scale if s.scale is not None else 1.0
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (x * std).to(s.dtype)
+        return x.mul_(std).to(s.dtype).to(out)
 
-    return tree_map_specs(one, tree)
+    def walk(node: Any, path: Tuple[str, ...]) -> Any:
+        if is_spec(node):
+            return one(node, path)
+        if isinstance(node, dict):
+            return {k: walk(node[k], path + (k,)) for k in sorted(node)}
+        raise TypeError(f"unexpected node in a ParamSpec tree: {type(node)}")
+
+    return walk(tree, ())

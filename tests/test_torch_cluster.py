@@ -12,7 +12,8 @@ captured, bit for bit on each package and within ``KV_TOL`` across them.
 Port-only: a snapshot restored after its source reused the freed pages
 still restores the captured bytes, every engine of a cluster shares one
 copy of the weights, and token ids outside the vocabulary are refused at
-submit."""
+submit.  Engine step times come from a deterministic clock
+(``step_clock``) on both packages."""
 
 import dataclasses
 import sys
@@ -21,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_engine_pair import (KV_TOL, bits, client, cluster, counters,
-                               engine, entries, leaf_bits, libs, oplog,
-                               page_values)
+from torch_engine_pair import (KV_TOL, StepClock, bits, client, cluster,
+                               counters, engine, entries, leaf_bits, libs,
+                               oplog, page_values)
 
+import repro.serve.cluster as jax_cluster
+import repro_torch.serve.cluster as port_cluster
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, init_params
 from repro_torch.serve import EngineCluster
@@ -39,6 +42,24 @@ def pair():
 @pytest.fixture(scope="module")
 def mamba_pair():
     return libs("mamba2-1.3b")
+
+
+@pytest.fixture(autouse=True)
+def step_clock(monkeypatch):
+    """Every cluster here, on both packages, times its engines' steps with
+    ``StepClock`` (1 ms a step; an injected slow factor multiplies it).
+    With wall-clock times the straggler check (8x the median of the alive
+    engines' last step times, 3 polls in a row) sees, e.g., a port's
+    mamba2 engine whose prefill steps (a per-token recurrence over the
+    chunk) take several times its peer's decode steps, while the idle
+    spare re-beats the fastest time and a killed engine its last one
+    until it is declared dead: host noise can hold that ratio past 8 for
+    three ticks, and a flag or a second steal on one package only breaks
+    the records' equality (test_kill_one_engine_token_identity[mamba2-1.3b]
+    failed so under pytest with six xdist workers).  No scenario here
+    depends on real step times."""
+    for mod in (jax_cluster, port_cluster):
+        monkeypatch.setattr(mod, "time", StepClock())
 
 
 def both(pair, scenario):

@@ -2,7 +2,9 @@
 over the code paths chip_smoke.py does not reach at the serving shapes:
 float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
-MQA, window and softcap; the serve step's fused append and attention,
+MQA, window and softcap, and head dims above 256 (MLA's latent D=576 with
+one pool as K and V, the latent kernel and the float32 scalar path); the
+serve step's fused append and attention,
 bitwise against the unfused kernel path over the same loaders, splits and
 pages and over idle slots, pads on the null page and straddling chunks;
 the flash kernel over causal, windowed,
@@ -103,6 +105,47 @@ ATTN_CASES = [
     (2, 16, 6, 6, 64, 40, 16, 10, None, None, "float32", "spread"),
 ]
 
+LATENT_CASES = [
+    # B, C, H, KV, D, P, T, N, window, softcap, dtype, contexts, alias: the
+    # latent head dim (MLA: one KV head, 16 query heads, one pool as K and V)
+    (8, 16, 16, 1, 576, 600, 16, 64, None, None, "bfloat16", "spread", True),
+    (8, 1, 16, 1, 576, 600, 16, 64, None, None, "bfloat16", "spread", True),
+    (8, 16, 16, 1, 576, 600, 16, 64, None, None, "bfloat16", "short", True),
+    (3, 3, 16, 1, 576, 40, 16, 12, None, None, "bfloat16", "spread", True),
+    (2, 16, 16, 1, 576, 40, 16, 12, None, None, "bfloat16", "spread", False),
+    (2, 16, 16, 1, 576, 40, 16, 12, 40, None, "bfloat16", "spread", True),
+    (2, 16, 16, 1, 576, 40, 16, 12, None, 30.0, "bfloat16", "spread", True),
+    (3, 5, 8, 2, 320, 40, 16, 10, None, None, "bfloat16", "spread", False),
+    (4, 16, 16, 1, 576, 64, 16, 12, None, None, "float32", "spread", True),
+    (4, 1, 16, 1, 576, 64, 16, 12, None, None, "float32", "spread", True),
+]
+
+
+@pytest.mark.parametrize(
+    "B,C,H,KV,D,P,T,N,window,softcap,dtype,contexts,alias", LATENT_CASES)
+def test_paged_attention_latent_head_dim_matches_plain(
+        cuda, B, C, H, KV, D, P, T, N, window, softcap, dtype, contexts,
+        alias):
+    """Head dims above 256: the bf16 latent kernel (three column-slice
+    blocks a row group, one pool read once for K and V when passed twice)
+    and the float32 scalar path, against the plain version; repeatable."""
+    rng = np.random.default_rng(B * 1000 + C * 10 + D)
+    q, pk, pv, pt, lens = attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype,
+                                      contexts, cuda)
+    if alias:
+        pv = pk
+    kw = dict(window=window, softcap=softcap)
+    common.reset_launch_counts()
+    out = paged_attention_chunk(q, pk, pv, pt, lens, **kw)
+    ref = paged_attention_chunk(q, pk, pv, pt, lens, impl="ref", **kw)
+    again = paged_attention_chunk(q, pk, pv, pt, lens, **kw)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["paged_attention_chunk"] == 2
+    assert out.dtype == q.dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.equal(out, again)
+
 
 def attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype, contexts, dev):
     """``contexts``: "spread" draws pre-chunk lengths over [0, N*T - C]
@@ -176,12 +219,20 @@ def test_kv_append_kernel_matches_plain_off_page0(cuda, KV, D, dtype):
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
-    q = torch.zeros(1, 1, 2, 320, device=cuda, dtype=torch.bfloat16)
-    pool = torch.zeros(4, 4, 1, 320, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 2, 640, device=cuda, dtype=torch.bfloat16)
+    pool = torch.zeros(4, 4, 1, 640, device=cuda, dtype=torch.bfloat16)
     pt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     lens = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):                  # D > 256
+    with pytest.raises(ValueError):                  # D > 576
         paged_attention_chunk(q, pool, pool, pt, lens)
+    with pytest.raises(ValueError):                  # bf16 D > 256, D % 8
+        paged_attention_chunk(q[..., :300].contiguous(),
+                              pool[..., :300].contiguous(),
+                              pool[..., :300].contiguous(), pt, lens)
+    with pytest.raises(ValueError):                  # fused: D > 256
+        q5, p5 = q[..., :576].contiguous(), pool[..., :576].contiguous()
+        paged_attention_append_chunk(q5, p5[:1, :1], p5[:1, :1], p5, p5, pt,
+                                     lens, pt[:, :1], pt[:, :1])
     with pytest.raises(TypeError):                   # fp16 is not taken
         paged_attention_chunk(q[..., :64].half().contiguous(),
                               pool[..., :64].half().contiguous(),

@@ -82,7 +82,7 @@ def test_unported_archs_raise_with_roadmap_item():
         get_config("whisper-large-v3")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
-                                        family="moe"))
+                                        family="encdec"))
 
 
 def test_params_from_numpy_key_for_key(jax_params):

@@ -91,6 +91,20 @@ def libs(arch: str = "qwen2-1.5b", params_fn=None):
                  {"device": "cpu"}))
 
 
+class StepClock:
+    """A stand-in for a cluster module's ``time``: each ``perf_counter``
+    read advances 1 ms, so every engine step the cluster times (two reads
+    around ``eng.step()``) beats 1 ms to the fault plane, whatever the
+    host's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        self.now += 1e-3
+        return self.now
+
+
 def engine(lib, **kw):
     return lib.Engine(lib.api, lib.params, **kw, **lib.kw)
 
