@@ -12,7 +12,7 @@ sm_90a) and then, failing with a non-zero exit on any error:
      B=8, C=16 and C=1, plus a window, a softcap, a page-straddling chunk,
      a full table (every sequence at 1008 keys, so every context split
      holds work), an idle slot (length 0, an all-zero table row) and
-     float32 at C=16 (the scalar path); the serve step's fused append and
+     float32 at C=16 (3xTF32); the serve step's fused append and
      attention at C=16 and C=1, with an idle slot, a straddling chunk, a
      window and in float32, each bitwise against the unfused kernel path
      (the two appends, then the attention kernel) and timed against its
@@ -33,8 +33,10 @@ sm_90a) and then, failing with a non-zero exit on any error:
      op's forward + backward through autograd against autograd of the
      plain forward; and MLA's latent shape (16 heads over one KV head of
      576, one pool passed as K and V) at C=16 and C=1, with and without an
-     idle slot, in bf16 (the latent kernel) and float32 (the scalar path),
-     and ``kv_append_chunk`` at that row.  It times kernel, plain version
+     idle slot, in bf16 (the latent kernel) and float32 (3xTF32), the
+     latent kernel at pages of 8, on a full table and where every chunk
+     sees at most two pages, and float32 there with a window, and
+     ``kv_append_chunk`` at that row.  It times kernel, plain version
      and one PyTorch library call where there is one (a yardstick the
      port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
@@ -441,13 +443,14 @@ def bound(nbytes: int, flops: int, peak: float) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def page_table(rng: np.random.Generator, idle=()) -> torch.Tensor:
-    """Distinct random pages per slot (never the null page 0); idle slots
-    get an all-zero row, as the engine leaves them."""
-    # P - 1 usable pages for B * PAGES_PER_SEQ entries: the last entry of
-    # the last row (position >= 1008, past every context here) stays 0
-    perm = np.concatenate([rng.permutation(np.arange(1, P)), [0]])
-    pt = perm.reshape(B, PAGES_PER_SEQ).astype(np.int32)
+def page_table(rng: np.random.Generator, idle=(), t: int = T) -> torch.Tensor:
+    """Distinct random pages of ``t`` tokens per slot (never the null page
+    0); idle slots get an all-zero row, as the engine leaves them."""
+    # B * MAX_SEQ // t - 1 usable pages for as many entries: the last entry
+    # of the last row (past every context here) stays 0
+    pages = MAX_SEQ // t
+    perm = np.concatenate([rng.permutation(np.arange(1, B * pages)), [0]])
+    pt = perm.reshape(B, pages).astype(np.int32)
     for b in idle:
         pt[b] = 0
     return torch.from_numpy(pt).cuda()
@@ -493,33 +496,42 @@ def kv_append_case(rng, C: int, name: str, *, kv=KV, d=D) -> dict:
 
 
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
-                   straddle=False, table_pages=PAGES_PER_SEQ, full=False,
-                   idle=False, dtype=torch.bfloat16, h=H, kv=KV, d=D,
-                   alias=False) -> dict:
-    """``table_pages`` < PAGES_PER_SEQ narrows the page table (a table of
-    at most 64 keys runs the kernel's single-split path); ``full`` puts
-    every sequence at 1008 keys (the table's last entry stays the null
-    page); ``idle`` gives the last slot length 0 and an all-zero row;
-    ``h``, ``kv``, ``d`` the heads and head dim, and ``alias`` one pool
-    passed as K and V (MLA's latent: 16 heads over one KV head of 576)."""
+                   straddle=False, table_pages=None, full=False,
+                   short=False, idle=False, dtype=torch.bfloat16, h=H,
+                   kv=KV, d=D, alias=False, page_tokens=T) -> dict:
+    """``page_tokens``: tokens a page (the table spans MAX_SEQ);
+    ``table_pages``
+    below the table's width narrows it (a table of at most 64 keys runs
+    the kernel's single-split path); ``full`` puts every sequence at 1008
+    keys (the table's last entry stays the null page); ``short`` keeps
+    every chunk in the table's first two pages, as a prompt's first
+    chunks (phase 2's and 12's profiled prefill window); ``idle`` gives the
+    last slot length 0 and an all-zero row; ``h``, ``kv``, ``d`` the heads
+    and head dim, and ``alias`` one pool passed as K and V (MLA's latent:
+    16 heads over one KV head of 576)."""
     import torch.nn.functional as F
     from repro_torch.kernels import common, paged_attention_chunk
 
-    pt = page_table(rng, idle=(B - 1,) if idle else ())
+    ptok = page_tokens              # tokens a page
+    table_pages = MAX_SEQ // ptok if table_pages is None else table_pages
+    pt = page_table(rng, idle=(B - 1,) if idle else (), t=ptok)
     pt = pt[:, :table_pages].contiguous()
-    longest = min(LONGEST, table_pages * T)
+    longest = min(LONGEST, table_pages * ptok)
     if straddle:   # every chunk starts mid-page and crosses a boundary
-        starts = rng.integers(1, (longest - C) // T, B) * T - T // 2
+        starts = rng.integers(1, (longest - C) // ptok, B) * ptok - ptok // 2
     elif full:
         starts = np.full(B, 1008 - C)
+    elif short:
+        starts = rng.integers(0, 2 * ptok, B)
     else:
         starts = rng.integers(0, longest - C + 1, B)
     if idle:
         starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
     q = randn(rng, B, C, h, d, dtype=dtype)
-    pk = randn(rng, P, T, kv, d, dtype=dtype)
-    pv = pk if alias else randn(rng, P, T, kv, d, dtype=dtype)
+    pk = randn(rng, B * MAX_SEQ // ptok, ptok, kv, d, dtype=dtype)
+    pv = pk if alias else randn(rng, B * MAX_SEQ // ptok, ptok, kv, d,
+                                   dtype=dtype)
     kw = dict(window=window, softcap=softcap)
     out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
     splits = common.LAST_SPLITS["paged_attention_chunk"]   # as launched
@@ -538,7 +550,7 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     if softcap is None:
         # yardstick: SDPA over the pages gathered beforehand (gather and
         # mask construction are outside the timed call)
-        S = table_pages * T
+        S = table_pages * ptok
         k = pk[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
         v = pv[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
         kpos = torch.arange(S, device="cuda")[None, None, :]
@@ -556,16 +568,18 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
               else PAGED_KERNELS[0] if dtype == torch.bfloat16
               else PAGED_KERNELS[1])
     return {"case": name, "C": C, "dtype": str(dtype), "H": h, "KV": kv,
-            "D": d, "aliased_pools": alias, "splits": splits,
+            "D": d, "T": ptok, "aliased_pools": alias, "splits": splits,
             "max_abs_err": err, "tolerance": {"atol": tol, "rtol": tol}, **t,
             "kernel": kernel if d <= 256 else check_ran(
                 name, fns["ms"], (kernel,)),
             **paged_bound(starts, C, window, table_pages, q.element_size(),
-                          h=h, kv=kv, d=d, pools=1 if alias else 2)}
+                          h=h, kv=kv, d=d, pools=1 if alias else 2,
+                          page_tokens=ptok)}
 
 
 def paged_bound(starts, C: int, window, table_pages: int, esz: int,
-                append: bool = False, h=H, kv=KV, d=D, pools=2) -> dict:
+                append: bool = False, h=H, kv=KV, d=D, pools=2,
+                page_tokens=T) -> dict:
     """The bound of one paged attention call on this run's data: the keys
     each sequence's chunk can see, [max(0, start - window + 1),
     min(start + C, N*T)), read once from each of ``pools`` pools (1: one
@@ -576,11 +590,11 @@ def paged_bound(starts, C: int, window, table_pages: int, esz: int,
     pools, and reads the chunk's own keys from the new rows, not the
     pools."""
     st = np.asarray(starts, np.int64)
-    k_hi = np.minimum(st + C, table_pages * T)
+    k_hi = np.minimum(st + C, table_pages * page_tokens)
     k_lo = np.zeros_like(k_hi) if window is None else \
         np.maximum(st - window + 1, 0)
     keys = int((k_hi - k_lo).sum())
-    pages = int((-(-k_hi // T) - k_lo // T).sum())
+    pages = int((-(-k_hi // page_tokens) - k_lo // page_tokens).sum())
     row = kv * d * esz                             # one key's K (or V) row
     nbytes = (keys * row * pools + 2 * B * C * h * d * esz
               + pages * 4 + B * 4)
@@ -1231,6 +1245,30 @@ def mech_client(api, params, device, **kw):
                        page_tokens=T, device=device, **kw)
 
 
+# the counts of every gated serving run (set to 0 just before the run, read
+# just after it), summed: main sets it to 0 before a phase and reads the
+# float32 kernel's launches in that phase's float32 lanes from it after
+RUN_LAUNCHES: Counter = Counter()
+
+
+def gated_launches(eng, kernels, n: int) -> dict:
+    """Read the launch counts of a run of ``eng`` (or of its cluster) that
+    set them to 0 first, add them to RUN_LAUNCHES and check them: ``n``
+    launches of each of ``kernels`` (in float32 activations, every one of
+    them the float32 instantiation's, where the wrapper counts it) and
+    none of any other wrapper."""
+    from repro_torch.kernels import common
+    launches = dict(common.LAUNCHES)
+    want = {k: n for k in kernels}
+    if eng.api.cfg.dtype == torch.float32:
+        want.update({f"{k}:float32": n for k in kernels
+                     if f"{k}:float32" in launches})
+    assert launches == {k: want.get(k, 0) for k in launches}, \
+        (launches, want)
+    RUN_LAUNCHES.update(launches)
+    return launches
+
+
 def drive(eng, reqs, layers=None, after_step=None) -> dict:
     """Step ``eng`` until it is idle, host clock around each step (ending
     in a synchronize on a CUDA engine).  Every request of ``reqs`` must
@@ -1262,10 +1300,8 @@ def drive(eng, reqs, layers=None, after_step=None) -> dict:
     wall = time.perf_counter() - t0
     steps = eng.steps - steps0
     if layers is not None:
-        launches = dict(common.LAUNCHES)
-        want = {"paged_attention_append_chunk": layers * steps}
-        assert launches == {k: want.get(k, 0) for k in launches}, \
-            (launches, steps)
+        gated_launches(eng, ("paged_attention_append_chunk",),
+                       layers * steps)
     for r in reqs:
         assert r.done and not r.truncated and len(r.output) == MECH_NEW, r
     return {"steps": steps, "prefill_steps": len(prefill),
@@ -1709,9 +1745,7 @@ def cluster_run(client, logs, params, prompts, n_new, layers=None,
         assert [x.data_ptr() for x in leaves(eng.params)] == want
     steps = sum(e.steps - s for e, s in zip(c.engines, steps0))
     if layers is not None:
-        launches = dict(common.LAUNCHES)
-        assert launches == {k: layers * steps if k in kernels else 0
-                            for k in launches}, (launches, steps)
+        gated_launches(c.engines[0], kernels, layers * steps)
     st = c.stats()
     out = {"outputs": [r.output for r in reqs], "ticks": c.ticks,
            "engine_steps": steps, "wall_s": wall,
@@ -2541,7 +2575,7 @@ def main() -> int:
         fused_case(rng, 16, "fused C=16 straddling", straddle=True),
         fused_case(rng, 16, "fused C=16 window=256", window=256),
         fused_case(rng, 16, "fused C=16 float32", dtype=torch.float32),
-        # the float32 scalar path of paged_attention_chunk on its own
+        # the float32 kernel of paged_attention_chunk on its own
         attention_case(rng, 16, "attention C=16 float32",
                        dtype=torch.float32),
         # the float32 forward's tensor-core kernel at its mask edges
@@ -2563,6 +2597,19 @@ def main() -> int:
                             ("float32", torch.float32))
           for C in (16, 1)
           for tag, kw in (("", {}), (" idle slot", {"idle": True}))),
+        # the latent kernel at the MLA cluster's pages of 8 and on a full
+        # table (every split live), float32 at D=576 windowed, and the
+        # latent kernel where every chunk sees at most two pages
+        *(attention_case(rng, C, f"attention D=576 C={C}{tag} bf16",
+                         h=16, kv=1, d=576, alias=True, **kw)
+          for tag, kw in ((" T=8", {"page_tokens": 8}),
+                          (" full table", {"full": True}))
+          for C in (16, 1)),
+        attention_case(rng, 16, "attention D=576 C=16 window=256 float32",
+                       dtype=torch.float32, h=16, kv=1, d=576, alias=True,
+                       window=256),
+        attention_case(rng, 16, "attention D=576 C=16 short contexts bf16",
+                       h=16, kv=1, d=576, alias=True, short=True),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -2652,14 +2699,28 @@ def main() -> int:
     del params
     release()
 
+    # the float32 paged kernel's launches in each phase's float32 lanes,
+    # summed over their gated runs
+    f32_launches = {}
+
+    def f32_phase(phase):
+        f32_launches[phase] = {
+            k: RUN_LAUNCHES[f"{k}:float32"]
+            for k in ("paged_attention_chunk",
+                      "paged_attention_append_chunk")}
+        RUN_LAUNCHES.clear()
+
+    RUN_LAUNCHES.clear()
     for lane, res in engine_mechanisms(get_config("qwen2-1.5b")).items():
         log(f"phase9 {lane}", json.dumps(res))
+    f32_phase("phase9")
 
     t10 = time.perf_counter()
     for lane, res in engine_cluster(get_config("qwen2-1.5b"),
                                     get_config("mamba2-1.3b")).items():
         log(f"phase10 {lane}", json.dumps({"card": card, **res}))
     log(f"phase10 seconds {time.perf_counter() - t10:.1f}")
+    f32_phase("phase10")
 
     t12 = time.perf_counter()
     log(f"phase12 starts at {t12 - t_script:.1f} s")
@@ -2669,9 +2730,17 @@ def main() -> int:
     grok = moe_serving(dataclasses.replace(get_config("grok-1-314b"),
                                            n_layers=GROK_LAYERS))
     log("phase12 grok", json.dumps({"card": card, **grok}))
+    RUN_LAUNCHES.clear()
     log("phase12 deepseek kill", json.dumps({"card": card,
                                              **mla_cluster_kill(ds_cfg)}))
+    f32_phase("phase12")
     log(f"phase12 seconds {time.perf_counter() - t12:.1f}")
+    log("float32 paged launches", json.dumps(f32_launches))
+    # the float32 lanes ran the float32 kernel: the fused op in phases 9
+    # and 10 (qwen2), the latent width's in phase 12's kill (deepseek)
+    assert f32_launches["phase9"]["paged_attention_append_chunk"] > 0
+    assert f32_launches["phase10"]["paged_attention_append_chunk"] > 0
+    assert f32_launches["phase12"]["paged_attention_chunk"] > 0
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -2745,6 +2814,8 @@ def main() -> int:
                 for n in ("attention C=16", "attention C=1 (decode)",
                           "attention C=16 float32")]
         if name == "paged_attention_append_chunk":   # every fused case
+            kernels[-1]["float32_launches"] = {
+                p: f32_launches[p][name] for p in ("phase9", "phase10")}
             kernels[-1]["cases"] = [
                 {k: c[k] for k in ("case", "dtype", "splits", "ms",
                                    "unfused_ms", "ms_over_unfused",
@@ -2809,6 +2880,9 @@ def main() -> int:
                          "src/repro/kernels/paged_attention/kernel.py:96"),
             "launches": mla_launches[name],
             "path": "phase 12: deepseek-v2-lite-16b serving",
+            **({"float32_launches": {
+                "phase12": f32_launches["phase12"][name]}}
+               if name == "paged_attention_chunk" else {}),
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "call_ms": c["ms_call"], "timing": c["ms_timing"],

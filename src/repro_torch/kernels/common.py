@@ -36,9 +36,13 @@ import torch
 
 IMPLS = ("ref", "cuda")
 
-# launches per kernel wrapper; bumped only where a kernel is launched
+# launches per kernel wrapper; bumped only where a kernel is launched.  The
+# paged wrappers also count their float32 instantiation under
+# "<name>:float32", a share of "<name>"
 LAUNCHES: Dict[str, int] = {"kv_append_chunk": 0, "paged_attention_chunk": 0,
                              "paged_attention_append_chunk": 0,
+                             "paged_attention_chunk:float32": 0,
+                             "paged_attention_append_chunk:float32": 0,
                              "flash_attention": 0, "flash_attention_bwd": 0,
                              "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 # context splits the last launch of a split kernel ran with

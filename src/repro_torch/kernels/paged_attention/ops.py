@@ -12,8 +12,9 @@ in one launch, counted under its own name.
 Head dims: up to 256 for both; ``paged_attention_chunk`` also takes up to
 576, MLA's latent (one KV head whose rows are both K and V: pass the same
 pool twice and each latent tile is read once), on a kernel of its own in
-bf16 (D % 8 == 0) and on the scalar path in float32.  Anything else
-raises on a CUDA tensor; ``impl="ref"`` takes any D.
+bf16 (D % 8 == 0) and on the float32 kernel's column-sliced blocks in
+float32.  Anything else raises on a CUDA tensor; ``impl="ref"`` takes any
+D.
 """
 
 from __future__ import annotations
@@ -29,31 +30,34 @@ from .ref import paged_attention_chunk_ref
 MAX_HEAD_DIM = 576   # the latent kernel's (MLA: kv_lora_rank + qk_rope_dim)
 MAX_FUSED_HEAD_DIM = 256
 TILE_KEYS = 64       # keys per tile, the unit a context split owns (kBK)
-BLOCK_ROWS = 128     # query rows one bf16 block owns (kRows): 8 row tiles
-                     # of 16 over 16 warps (8 at D = 256; PaWarps)
-LATENT_ROWS = 64     # above D = 256 (bf16): query rows of a latent block
-LATENT_SLICES = 3    # and the blocks of 192 output columns a row group
+BLOCK_ROWS = 128     # query rows one block owns up to D = 256 (kRows, and
+                     # the float32 kernel's 8 row tiles of 16)
+LATENT_ROWS = 64     # above D = 256, bf16: rows of a latent block (kLatRows)
+F32_LATENT_ROWS = 32  # above D = 256, float32: 2 row tiles x 4 column slices
 MAX_SPLITS = 16      # context splits the kernel takes (kMaxSplits)
 
 
+def block_rows(D: int, f32: bool = False) -> int:
+    """Query rows one block of the kernel owns at head dim ``D``."""
+    if D <= MAX_FUSED_HEAD_DIM:
+        return BLOCK_ROWS
+    return F32_LATENT_ROWS if f32 else LATENT_ROWS
+
+
 def plan_splits(B: int, C: int, H: int, KV: int, N: int, T: int,
-                sms: int, D: int = 128) -> int:
+                sms: int, D: int = 128, f32: bool = False) -> int:
     """Context splits of one call.
 
-    The kernel runs one block per (split, KV head, row group of up to 128
-    query rows, sequence) — above D = 256, per (split, KV head, row group
-    of up to 64 rows, column slice of 192, sequence); split s takes an
-    equal share of its sequence's LIVE key tiles, and a second kernel
-    merges the splits that held tiles (split 0 writes the rows of a
-    sequence with at most one such split).  Splits fill the card's ``sms``
-    SMs with one block each, so they fall as the blocks of one split grow;
-    they never exceed the table's tiles or pages, nor ``MAX_SPLITS``.  (On
-    the H100, 8 splits of the serving shape's 16 blocks beat 2-6 and tied
-    12-16 at both C=16 and C=1 in a sweep of the split count.)"""
-    if D > MAX_FUSED_HEAD_DIM:
-        groups = -(-C * (H // KV) // LATENT_ROWS) * LATENT_SLICES
-    else:
-        groups = -(-C * (H // KV) // BLOCK_ROWS)
+    The kernel runs one block per (split, row group of ``block_rows``
+    query rows, KV head, sequence); split s takes an equal share of its
+    sequence's LIVE key tiles, and a second kernel merges the splits that
+    held tiles (split 0 writes the rows of a sequence with at most one such
+    split).  Splits fill the card's ``sms`` SMs with one block each, so they
+    fall as the blocks of one split grow; they never exceed the table's
+    tiles or pages, nor ``MAX_SPLITS``.  (On the H100, 8 splits of the
+    serving shape's 16 blocks beat 2-6 and tied 12-16 at both C=16 and C=1
+    in a sweep of the split count.)"""
+    groups = -(-C * (H // KV) // block_rows(D, f32))
     tiles = -(-N * T // TILE_KEYS)
     fill = sms // (B * KV * groups)
     return max(1, min(fill, tiles, N, MAX_SPLITS))
@@ -117,7 +121,8 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                              ("q", "pool_k", "pool_v", "k_new", "v_new"),
                              q.device)
     N = page_table.shape[1]
-    splits = plan_splits(B, C, H, KV, N, T, common.sm_count(q.device), D)
+    splits = plan_splits(B, C, H, KV, N, T, common.sm_count(q.device), D,
+                         q.dtype == torch.float32)
     out = torch.empty_like(q)
     ws_acc = ws_ml = None                    # per-split softmax state
     if splits > 1:
@@ -145,6 +150,8 @@ def _launch(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
                 common.ptr(page_ids), common.ptr(slot_ids), *tail)
     common.check_status(name, status)
     common.LAUNCHES[name] += 1
+    if q.dtype == torch.float32:
+        common.LAUNCHES[name + ":float32"] += 1
     common.LAST_SPLITS[name] = splits
     return out
 

@@ -3,7 +3,7 @@ over the code paths chip_smoke.py does not reach at the serving shapes:
 float32, small and odd head dims (the scalar tile loads, the 8/4/2-byte
 append copies), pages of 8 and 32 tokens, one and many context splits,
 MQA, window and softcap, and head dims above 256 (MLA's latent D=576 with
-one pool as K and V, the latent kernel and the float32 scalar path); the
+one pool as K and V, the latent kernel and the float32 kernel); the
 serve step's fused append and attention,
 bitwise against the unfused kernel path over the same loaders, splits and
 pages and over idle slots, pads on the null page and straddling chunks;
@@ -118,6 +118,25 @@ LATENT_CASES = [
     (3, 5, 8, 2, 320, 40, 16, 10, None, None, "bfloat16", "spread", False),
     (4, 16, 16, 1, 576, 64, 16, 12, None, None, "float32", "spread", True),
     (4, 1, 16, 1, 576, 64, 16, 12, None, None, "float32", "spread", True),
+    # pages of 8 (the MLA cluster's geometry), a prefill and a decode step
+    (8, 16, 16, 1, 576, 1200, 8, 128, None, None, "bfloat16", "spread", True),
+    (8, 1, 16, 1, 576, 1200, 8, 128, None, None, "bfloat16", "spread", True),
+    # a full table, every split live; C=16: 256 rows, four row groups
+    (8, 16, 16, 1, 576, 600, 16, 64, None, None, "bfloat16", "full", True),
+    (8, 1, 16, 1, 576, 600, 16, 64, None, None, "bfloat16", "full", True),
+    # a latent width other than 576, one pool twice
+    (3, 16, 16, 1, 320, 40, 16, 12, None, None, "bfloat16", "spread", True),
+    # window and softcap together, one pool twice
+    (2, 16, 16, 1, 576, 40, 16, 12, 40, 30.0, "bfloat16", "spread", True),
+    # float32 at D=576 over several splits, windowed and softcapped
+    (4, 16, 16, 1, 576, 64, 16, 12, 100, 30.0, "float32", "spread", True),
+    (4, 1, 16, 1, 576, 64, 16, 12, 100, 30.0, "float32", "spread", True),
+    # float32 at a head dim that is not a multiple of 8 (zero-padded)
+    (3, 16, 12, 2, 100, 48, 16, 12, None, None, "float32", "spread", False),
+    # float32 at D=576 over separate pools (one stage of K and one of V)
+    (2, 16, 16, 1, 576, 40, 16, 12, None, None, "float32", "spread", False),
+    # float32 rows of 33 floats: element-by-element copies, not cp.async
+    (3, 5, 4, 2, 33, 24, 8, 6, 9, None, "float32", "spread", False),
 ]
 
 
@@ -126,9 +145,11 @@ LATENT_CASES = [
 def test_paged_attention_latent_head_dim_matches_plain(
         cuda, B, C, H, KV, D, P, T, N, window, softcap, dtype, contexts,
         alias):
-    """Head dims above 256: the bf16 latent kernel (three column-slice
-    blocks a row group, one pool read once for K and V when passed twice)
-    and the float32 scalar path, against the plain version; repeatable."""
+    """Head dims above 256: the bf16 latent kernel (one block a row group
+    of 64 owns every column, one pool read once for K and V when passed
+    twice) and the float32 kernel's column-sliced blocks, and the float32
+    kernel at a head dim it zero-pads, against the plain version;
+    repeatable."""
     rng = np.random.default_rng(B * 1000 + C * 10 + D)
     q, pk, pv, pt, lens = attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype,
                                       contexts, cuda)
@@ -149,13 +170,16 @@ def test_paged_attention_latent_head_dim_matches_plain(
 
 def attn_inputs(rng, B, C, H, KV, D, P, T, N, dtype, contexts, dev):
     """``contexts``: "spread" draws pre-chunk lengths over [0, N*T - C]
-    with both ends present; "short" keeps them under two pages."""
+    with both ends present; "short" keeps them under two pages; "full"
+    puts every chunk at the table's end."""
     q = randn(rng, (B, C, H, D), dtype, dev)
     pk = randn(rng, (P, T, KV, D), dtype, dev)
     pv = randn(rng, (P, T, KV, D), dtype, dev)
     pt = torch.from_numpy(rng.integers(0, P, (B, N)).astype(np.int32)).to(dev)
     if contexts == "short":
         lens = rng.integers(0, 2 * T, B)
+    elif contexts == "full":
+        lens = np.full(B, N * T - C)
     else:
         lens = rng.integers(0, N * T - C + 1, B)
         lens[0], lens[-1] = 0, N * T - C
@@ -260,6 +284,8 @@ FUSED_CASES = [
     (2, 3, 4, 2, 256, 24, 32, 6, "spread", None, None, "bfloat16"),  # T=32
     (2, 16, 16, 1, 64, 40, 16, 12, "idle", None, None, "bfloat16"),  # G=16
     (3, 16, 2, 2, 64, 48, 16, 12, "straddle", 20, None, "bfloat16"),  # G=1
+    (3, 16, 12, 2, 100, 48, 16, 12, "straddle", None, None, "float32"),  # D=100
+    (3, 5, 4, 2, 33, 40, 8, 8, "straddle", None, None, "float32"),  # D=33
 ]
 
 

@@ -19,7 +19,7 @@ from repro.kernels import paged_attention_ref as jax_paged_ref
 from repro_torch import kernels as tk
 from repro_torch.kernels import common
 from repro_torch.kernels.paged_attention.ops import (MAX_SPLITS, TILE_KEYS,
-                                                     plan_splits,
+                                                     block_rows, plan_splits,
                                                      workspace_floats)
 from repro_torch.kernels.flash_attention.ops import TMA_ALIGN, tma_operands
 
@@ -235,6 +235,8 @@ def test_kernel_on_cpu_tensor_raises_and_ref_counts_no_launch():
     assert common.LAUNCHES == {"kv_append_chunk": 0,
                                "paged_attention_chunk": 0,
                                "paged_attention_append_chunk": 0,
+                               "paged_attention_chunk:float32": 0,
+                               "paged_attention_append_chunk:float32": 0,
                                "flash_attention": 0,
                                "flash_attention_bwd": 0, "ssd_chunk": 0,
                                "ssd_chunk_bwd": 0}
@@ -268,6 +270,16 @@ def test_kernel_sources_carry_their_notes():
     assert "shared by flash_attention.cu" in header.lower()
     for name in ("flash_attention.cu", "paged_attention.cu"):
         assert '#include "mma_bf16.cuh"' in (common.CSRC / name).read_text()
+    # the float32 path's 3xTF32 products and the latent kernel's wgmma
+    paged = (common.CSRC / "paged_attention.cu").read_text()
+    for header in ("mma_tf32.cuh", "wgmma_bf16.cuh"):
+        assert f'#include "{header}"' in paged
+    for kernel in ("paged_attention_f32_kernel", "paged_latent_kernel"):
+        assert kernel in paged
+    # one note each for the bf16 GQA, float32 and latent bodies
+    for phrase in ("What bounds it on this card",
+                   "What the design does about it"):
+        assert paged.count(phrase) >= 3
     assert len(common.source_hash()) == 16
 
 
@@ -279,14 +291,41 @@ def test_kernel_sources_carry_their_notes():
     (2, 16, 16, 1, 128, 8, 16, 132),    # 256 query rows: two row groups
     (1, 1, 8, 1, 64, 2048, 16, 132),    # a long table: capped splits
     (3, 5, 4, 2, 12, 3, 8, 1),          # one SM
+    # deepseek-v2-lite's latent (MLA): 16 heads over one KV head of 576,
+    # pages of 16 (phase 2's table) and of 8 (the MLA cluster's)
+    (8, 16, 16, 1, 576, 64, 16, 132),
+    (8, 1, 16, 1, 576, 64, 16, 132),
+    (8, 16, 16, 1, 576, 128, 8, 132),
+    (8, 1, 16, 1, 576, 128, 8, 132),
 ])
 def test_paged_attention_split_plan(B, C, H, KV, D, N, T, sms):
     """At least one split, no more than the table's pages or 64-key tiles
-    (or the kernel's cap), one wave of blocks, and a workspace of each
-    split's (acc, m, l) per output row, none for one split."""
-    splits = plan_splits(B, C, H, KV, N, T, sms)
+    (or the kernel's cap), one wave of the kernel's blocks (one per split,
+    row group of ``block_rows`` and KV head of a sequence), and a
+    workspace of each split's (acc, m, l) per output row, none for one
+    split."""
+    check_split_plan(B, C, H, KV, D, N, T, sms, f32=False)
+
+
+@pytest.mark.parametrize("B,C,H,KV,D,N,T,sms", [
+    (8, 16, 12, 2, 128, 64, 16, 132),   # qwen2's float32 lanes
+    (8, 1, 12, 2, 128, 64, 16, 132),
+    (8, 16, 16, 1, 576, 64, 16, 132),   # deepseek's float32 latent
+    (8, 1, 16, 1, 576, 64, 16, 132),
+    (2, 16, 16, 1, 576, 128, 8, 132),   # the MLA cluster: 2 slots, T=8
+    (2, 1, 16, 1, 576, 128, 8, 132),
+])
+def test_paged_attention_f32_split_plan(B, C, H, KV, D, N, T, sms):
+    """The float32 kernel's plan: its blocks own 32 rows above D = 256
+    (four column slices of a row tile), 128 up to it; the same rules."""
+    check_split_plan(B, C, H, KV, D, N, T, sms, f32=True)
+
+
+def check_split_plan(B, C, H, KV, D, N, T, sms, f32):
+    splits = plan_splits(B, C, H, KV, N, T, sms, D, f32)
     assert 1 <= splits <= min(N, -(-N * T // TILE_KEYS), MAX_SPLITS)
-    groups = -(-C * (H // KV) // 128)
+    assert block_rows(D, f32) == (128 if D <= 256 else 32 if f32 else 64)
+    groups = -(-C * (H // KV) // block_rows(D, f32))
     assert splits == 1 or B * KV * groups * splits <= sms
     assert workspace_floats(B, C, H, D, 1) == 0
     assert workspace_floats(B, C, H, D, splits) == (
@@ -318,13 +357,13 @@ def test_flash_tma_operands_pad_and_realign(D):
 
 
 def test_hopper_helpers_are_the_flash_kernels_alone():
-    """wgmma, TMA and mbarrier helpers live in wgmma_bf16.cuh, which only
-    the flash kernel includes, so a change there cannot move the paged
+    """wgmma, TMA and mbarrier helpers live in wgmma_bf16.cuh, which the
+    flash kernels and the paged file's latent kernel include, and no other
     kernel; the old mma.sync flash path is gone."""
     flash = (common.CSRC / "flash_attention.cu").read_text()
     assert '#include "wgmma_bf16.cuh"' in flash
     assert "flash_tc_kernel" not in flash and "flash_wgmma_kernel" in flash
-    assert '#include "wgmma_bf16.cuh"' in (
-        common.CSRC / "flash_attention_bwd.cu").read_text()
-    for name in ("paged_attention.cu", "kv_append.cu", "ssd_chunk.cu"):
+    for name in ("flash_attention_bwd.cu", "paged_attention.cu"):
+        assert '#include "wgmma_bf16.cuh"' in (common.CSRC / name).read_text()
+    for name in ("kv_append.cu", "ssd_chunk.cu"):
         assert "wgmma_bf16" not in (common.CSRC / name).read_text()
