@@ -36,18 +36,25 @@ sm_90a) and then, failing with a non-zero exit on any error:
      idle slot, in bf16 (the latent kernel) and float32 (3xTF32), the
      latent kernel at pages of 8, on a full table and where every chunk
      sees at most two pages, and float32 there with a window, and
-     ``kv_append_chunk`` at that row.  It times kernel, plain version
-     and one PyTorch library call where there is one (a yardstick the
-     port never calls);
+     ``kv_append_chunk`` at that row; the attention and the fused op at
+     recurrentgemma-9b's row (16 heads over one KV head of 256, bf16) on a
+     129-page table under its 2048 window, at C=16, C=8 (phase 13's
+     prefill chunk) and C=1, with chunks past the window (the window
+     floor drops key tiles) and below it, and
+     at internvl2-1b's (14 heads over 2 of 64), each fused case bitwise
+     against the unfused path and timed beside SDPA.  It times kernel,
+     plain version and one PyTorch library call where there is one (a
+     yardstick the port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` (prefix cache on, as
      by default; the prompts share no page) with one POSIX and one STRICT
      session, and checks that every serve step launched the fused append
      and attention once on every layer and neither standalone serving
-     kernel;
+     kernel, and that the STRICT crash replay equals the committed pages
+     after every step (phases 8, 12 and 13 serve through the same gates);
   3. runs one mixed prefill+decode ``serve_step`` of the full model twice
      from cloned caches, with the kernels and with the plain versions,
-     and compares logits and pools;
+     and compares the logits, every pool and every recurrent state leaf;
   4. trains qwen2-1.5b at full width with ``run_training``: 4 AdamW steps
      of 4 microbatches of one 4096-token sequence, remat "full", and
      checks finite losses, 2 x 28 x 4 flash launches per step (each
@@ -109,8 +116,8 @@ sm_90a) and then, failing with a non-zero exit on any error:
      but for its trie's pins, every engine serves one copy of the weights,
      and every qwen2 step of every engine, restored pages included,
      launches the fused append and attention once a layer;
- 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width and
-     depth, phase 4's shape, ``run_training`` with a
+ 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width on 14
+     of its 28 layers, phase 4's shape, ``run_training`` with a
      ``CheckpointManager(keep=1)``: on a SYNC ``USplit``, 4 steps with a
      save every 2 and a crash after step 3; ``Volume.mount`` of the same
      device and a fresh manager over a STRICT ``USplit``, whose run
@@ -142,8 +149,31 @@ sm_90a) and then, failing with a non-zero exit on any error:
      engine dies mid-decode: its MLA pages migrate to the spare and every
      request's 12 tokens equal the unkilled run's.
 
+ 13. serves the RG-LRU hybrid and the VLM backbone (run before phase 11):
+     (a) recurrentgemma-9b at full width and all 38 layers (12 groups of
+     rec, rec, attn and a tail of two rec layers) in bf16, weights cast as
+     they are born, through ``ServeClient(max_batch=8, max_seq=2304,
+     page_tokens=16, chunk_tokens=8)``: phase 2's 8 requests in a POSIX
+     and a STRICT session and one more whose 2032-token prompt and 24
+     greedy tokens pass the 2048 window (the engine caps a slot at window
+     + page - chunk tokens, so chunks of 8); after every step the STRICT
+     crash replay equals the committed pages and the step launched the
+     fused append and attention 12 times (once an attention layer) and no
+     other serving kernel; the engine refuses the prefix cache; it prints
+     tokens/s, the step medians, the steps at each chunk width, a prefill
+     and a decode window profiled at the same table and chunks (phase 2's
+     prompts, not the long request) and the init and serving peak memory;
+     (b) phase 3's comparison at C=8, from random pools and state, slots
+     past, across and below the window: logits, pools and every ``h`` and
+     ``conv`` leaf to phase 3's bound; (c)
+     internvl2-1b at full width and all 24 layers in bf16: phase 2's 8
+     requests gated the same way (24 fused launches a step) and phase 3's
+     comparison.
+
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
-layers: its bf16 weights are ~632 GB).
+layers: its bf16 weights are ~632 GB) and phase 11 (a)'s qwen2-1.5b (14
+of its 28 layers, at full width: three saves and three restores of the
+full-depth state took 462-598 s of the script's 1200 s).
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -240,6 +270,27 @@ SSD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 1.6e-2)}
 # and the plain backward agree to float32 rounding, summed in other orders;
 # bf16 grads are held to SSD_TOL[bf16], one more rounding
 SSD_GRAD_TOL = (1e-5, 1e-4)
+# recurrentgemma-9b's serving attention (16 heads over one KV head of 256,
+# window 2048, a table of window + 16 tokens: 129 pages of 16) and
+# internvl2-1b's (14 heads over 2 of 64)
+# the serve step's only serving kernel at a GQA attention layer: the fused
+# append and attention, once a layer
+FUSED_STEP = {"paged_attention_append_chunk": 1}
+LONG_NEW = 24                    # greedy tokens of the request past a window
+RG_HEADS = dict(h=16, kv=1, d=256)
+RG_WINDOW = 2048
+RG_SEQ = RG_WINDOW + T
+RG_MAX_SEQ = 2304                # its table: 129 pages of 16 (window + 16)
+# the engine caps a slot at window + page_tokens - chunk tokens (the
+# reference's ``_cap``), so with chunks of a page no request ever passes
+# the window; chunks of 8 let one reach window + 8 = 2056 tokens, and
+# phase 13's prefill steps run at C=8
+RG_CHUNK = 8
+VLM_HEADS = dict(h=14, kv=2, d=64)
+# phase 11 (a): qwen2-1.5b at full width on half its 28 layers (three saves
+# and three restores of the full 18.52 GB state took 462-598 s of the
+# script's 1200 s)
+PHASE11_LAYERS = 14
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_tc_kernel"}
@@ -443,12 +494,14 @@ def bound(nbytes: int, flops: int, peak: float) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def page_table(rng: np.random.Generator, idle=(), t: int = T) -> torch.Tensor:
-    """Distinct random pages of ``t`` tokens per slot (never the null page
-    0); idle slots get an all-zero row, as the engine leaves them."""
-    # B * MAX_SEQ // t - 1 usable pages for as many entries: the last entry
+def page_table(rng: np.random.Generator, idle=(), t: int = T,
+               seq: int = MAX_SEQ) -> torch.Tensor:
+    """Distinct random pages of ``t`` tokens per slot, ``seq // t`` a slot
+    (never the null page 0); idle slots get an all-zero row, as the engine
+    leaves them."""
+    # B * seq // t - 1 usable pages for as many entries: the last entry
     # of the last row (past every context here) stays 0
-    pages = MAX_SEQ // t
+    pages = seq // t
     perm = np.concatenate([rng.permutation(np.arange(1, B * pages)), [0]])
     pt = perm.reshape(B, pages).astype(np.int32)
     for b in idle:
@@ -498,9 +551,11 @@ def kv_append_case(rng, C: int, name: str, *, kv=KV, d=D) -> dict:
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
                    straddle=False, table_pages=None, full=False,
                    short=False, idle=False, dtype=torch.bfloat16, h=H,
-                   kv=KV, d=D, alias=False, page_tokens=T) -> dict:
-    """``page_tokens``: tokens a page (the table spans MAX_SEQ);
-    ``table_pages``
+                   kv=KV, d=D, alias=False, page_tokens=T, seq=MAX_SEQ,
+                   starts=None) -> dict:
+    """``page_tokens``: tokens a page (the table spans ``seq``, MAX_SEQ
+    unless given); ``starts``: the chunks' start positions, drawn by
+    ``starts(rng)`` (else as the flags below say); ``table_pages``
     below the table's width narrows it (a table of at most 64 keys runs
     the kernel's single-split path); ``full`` puts every sequence at 1008
     keys (the table's last entry stays the null page); ``short`` keeps
@@ -509,15 +564,16 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
     last slot length 0 and an all-zero row; ``h``, ``kv``, ``d`` the heads
     and head dim, and ``alias`` one pool passed as K and V (MLA's latent:
     16 heads over one KV head of 576)."""
-    import torch.nn.functional as F
     from repro_torch.kernels import common, paged_attention_chunk
 
     ptok = page_tokens              # tokens a page
-    table_pages = MAX_SEQ // ptok if table_pages is None else table_pages
-    pt = page_table(rng, idle=(B - 1,) if idle else (), t=ptok)
+    table_pages = seq // ptok if table_pages is None else table_pages
+    pt = page_table(rng, idle=(B - 1,) if idle else (), t=ptok, seq=seq)
     pt = pt[:, :table_pages].contiguous()
     longest = min(LONGEST, table_pages * ptok)
-    if straddle:   # every chunk starts mid-page and crosses a boundary
+    if starts is not None:
+        starts = np.asarray(starts(rng))
+    elif straddle:   # every chunk starts mid-page and crosses a boundary
         starts = rng.integers(1, (longest - C) // ptok, B) * ptok - ptok // 2
     elif full:
         starts = np.full(B, 1008 - C)
@@ -529,8 +585,8 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
     q = randn(rng, B, C, h, d, dtype=dtype)
-    pk = randn(rng, B * MAX_SEQ // ptok, ptok, kv, d, dtype=dtype)
-    pv = pk if alias else randn(rng, B * MAX_SEQ // ptok, ptok, kv, d,
+    pk = randn(rng, B * seq // ptok, ptok, kv, d, dtype=dtype)
+    pv = pk if alias else randn(rng, B * seq // ptok, ptok, kv, d,
                                    dtype=dtype)
     kw = dict(window=window, softcap=softcap)
     out_k = paged_attention_chunk(q, pk, pv, pt, lengths, **kw)
@@ -548,21 +604,7 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
         plain_ms=lambda: paged_attention_chunk(q, pk, pv, pt, lengths,
                                                impl="ref", **kw))
     if softcap is None:
-        # yardstick: SDPA over the pages gathered beforehand (gather and
-        # mask construction are outside the timed call)
-        S = table_pages * ptok
-        k = pk[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
-        v = pv[pt.long()].reshape(B, S, kv, d).repeat_interleave(h // kv, 2)
-        kpos = torch.arange(S, device="cuda")[None, None, :]
-        qpos = lengths.long()[:, None, None] + \
-            torch.arange(C, device="cuda")[None, :, None]
-        mask = kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        m4 = mask[:, None]
-        fns["library_ms"] = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=m4)
+        fns["library_ms"] = sdpa_yardstick(q, pk, pv, pt, lengths, window)
     t = {"library_ms": None, **timings(**fns)}
     kernel = (PAGED_KERNELS[3] if d > 256 and dtype == torch.bfloat16
               else PAGED_KERNELS[0] if dtype == torch.bfloat16
@@ -575,6 +617,27 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
             **paged_bound(starts, C, window, table_pages, q.element_size(),
                           h=h, kv=kv, d=d, pools=1 if alias else 2,
                           page_tokens=ptok)}
+
+
+def sdpa_yardstick(q, pk, pv, pt, lengths, window):
+    """One SDPA call computing the chunk's attention over the pages
+    gathered beforehand (gather and mask construction are outside the
+    timed call): the library yardstick of the paged ops."""
+    import torch.nn.functional as F
+    Bq, C, h, d = q.shape
+    ptok, kv = pk.shape[1], pk.shape[2]
+    S = pt.shape[1] * ptok
+    k = pk[pt.long()].reshape(Bq, S, kv, d).repeat_interleave(h // kv, 2)
+    v = pv[pt.long()].reshape(Bq, S, kv, d).repeat_interleave(h // kv, 2)
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    qpos = lengths.long()[:, None, None] + \
+        torch.arange(C, device=q.device)[None, :, None]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    m4 = mask[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
 
 
 def paged_bound(starts, C: int, window, table_pages: int, esz: int,
@@ -611,21 +674,27 @@ def paged_bound(starts, C: int, window, table_pages: int, esz: int,
 
 
 def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
-               idle=False, dtype=torch.bfloat16) -> dict:
+               idle=False, dtype=torch.bfloat16, h=H, kv=KV, d=D,
+               seq=MAX_SEQ, starts=None, library=False) -> dict:
     """The serve step's fused append and attention
     (``paged_attention_append_chunk``) against the unfused kernel path on
     the same inputs, ``kv_append_chunk`` on each pool and then
     ``paged_attention_chunk``: the outputs bitwise equal and the pools
     byte-equal off the null page 0; against the plain path (the two plain
     appends and the plain attention) to PAGED_TOL; timed beside the
-    unfused path's sum and the plain path."""
+    unfused path's sum and the plain path.  ``h``, ``kv``, ``d``: the
+    heads and head dim; ``seq``: the table's tokens a slot; ``starts``:
+    the chunks' start positions, drawn by ``starts(rng)``; ``library``:
+    time SDPA's attention alone on the updated pools beside it."""
     from repro_torch.kernels import (common, kv_append_chunk,
                                      paged_attention_append_chunk,
                                      paged_attention_chunk)
     from repro_torch.models.attention import paged_chunk_ids
 
-    pt = page_table(rng, idle=(B - 1,) if idle else ())
-    if straddle:   # every chunk starts mid-page and crosses a boundary
+    pt = page_table(rng, idle=(B - 1,) if idle else (), seq=seq)
+    if starts is not None:
+        starts = np.asarray(starts(rng))
+    elif straddle:   # every chunk starts mid-page and crosses a boundary
         starts = rng.integers(1, (LONGEST - C) // T, B) * T - T // 2
     else:
         starts = rng.integers(0, LONGEST - C + 1, B)
@@ -633,9 +702,10 @@ def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
         starts[B - 1] = 0
     lengths = torch.from_numpy(starts.astype(np.int32)).cuda()
     _, pids, sids = paged_chunk_ids(pt, lengths, C, T)
-    q = randn(rng, B, C, H, D, dtype=dtype)
-    kn, vn = (randn(rng, B, C, KV, D, dtype=dtype) for _ in range(2))
-    pk, pv = (randn(rng, P, T, KV, D, dtype=dtype) for _ in range(2))
+    q = randn(rng, B, C, h, d, dtype=dtype)
+    kn, vn = (randn(rng, B, C, kv, d, dtype=dtype) for _ in range(2))
+    pk, pv = (randn(rng, B * seq // T, T, kv, d, dtype=dtype)
+              for _ in range(2))
     kw = dict(window=window)
 
     def unfused(pool_k, pool_v):
@@ -668,20 +738,22 @@ def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
                              f"pools off page 0 {pools_equal}, vs plain "
                              f"max |err| {err}")
     work = pools["fused"]
-    t = timings(ms=lambda: fused(*work),
-                unfused_ms=lambda: unfused(*work),
-                plain_ms=lambda: fused(*work, impl="ref"))
-    return {"case": name, "C": C, "dtype": str(dtype), "splits": splits,
+    fns = dict(ms=lambda: fused(*work), unfused_ms=lambda: unfused(*work),
+               plain_ms=lambda: fused(*work, impl="ref"))
+    if library:
+        fns["library_ms"] = sdpa_yardstick(q, *work, pt, lengths, window)
+    t = {"library_ms": None, **timings(**fns)}
+    return {"case": name, "C": C, "dtype": str(dtype), "H": h, "KV": kv,
+            "D": d, "table_pages": seq // T, "splits": splits,
             "bitwise_vs_unfused": bitwise, "pools_equal_off_page0":
             pools_equal, "max_abs_err": err,
             "tolerance": {"atol": tol, "rtol": tol},
             "kernel": check_ran(name, lambda: fused(*work), PAGED_KERNELS[:1]
                                 if dtype == torch.bfloat16
                                 else PAGED_KERNELS[1:2]),
-            "library_ms": None, **t,
-            "ms_over_unfused": t["ms"] / t["unfused_ms"],
-            **paged_bound(starts, C, window, PAGES_PER_SEQ,
-                          q.element_size(), append=True)}
+            **t, "ms_over_unfused": t["ms"] / t["unfused_ms"],
+            **paged_bound(starts, C, window, seq // T, q.element_size(),
+                          append=True, h=h, kv=kv, d=d)}
 
 
 def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -969,62 +1041,107 @@ def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_main_path(api, params, cfg, per_layer_step: dict) -> dict:
-    """``per_layer_step``: each kernel's launches per layer and serve step
-    (every other kernel must not launch)."""
-    from repro_torch.core import OP_KV_COMMIT, Mode, OpLog, PMDevice
+def attn_layers(cfg) -> int:
+    return sum(k == "attn" for k in cfg.pattern_for_layers())
+
+
+def serve_main_path(api, params, cfg, per_layer_step: dict, *,
+                    max_seq=MAX_SEQ, chunk_tokens=None,
+                    long_prompt=None) -> dict:
+    """8 requests (prompts of 64-480 tokens, 32 greedy tokens each) in a
+    POSIX and a STRICT session through ``ServeClient(max_batch=8,
+    page_tokens=16)``, and with ``long_prompt`` one more POSIX request of
+    that many tokens and LONG_NEW greedy ones, submitted first.  Gates,
+    after every step: each live STRICT sequence's crash replay equals its
+    committed pages, and the step launched each kernel of
+    ``per_layer_step`` that many times an attention layer and no other
+    kernel.  Every request finishes with its tokens, none truncated, and
+    the STRICT log holds one commit a full page; a recurrent model's
+    engine refused the prefix cache.  A step is a prefill step when its
+    ``serve_step`` ran wider than one token."""
+    from repro_torch.core import (OP_KV_COMMIT, Mode, OpLog, PMDevice,
+                                  replay_kv_commits)
     from repro_torch.kernels import common
     from repro_torch.serve import ServeClient
 
+    widths = []                 # each step's chunk width C
+
+    def serve_step(params, tokens, *a, **kw):
+        widths.append(tokens.shape[1])
+        return api.serve_step(params, tokens, *a, **kw)
+
     oplog = OpLog(PMDevice(size=16 * 1024 * 1024), base_block=1,
                   num_blocks=64)
-    client = ServeClient(api, params, max_batch=8, max_seq=MAX_SEQ,
-                         page_tokens=T, oplog=oplog, device="cuda")
+    client = ServeClient(dataclasses.replace(api, serve_step=serve_step),
+                         params, max_batch=8, max_seq=max_seq,
+                         page_tokens=T, chunk_tokens=chunk_tokens,
+                         oplog=oplog, device="cuda")
     posix = client.open_session(mode=Mode.POSIX)
     strict = client.open_session(mode=Mode.STRICT)
+    every = []
+    if long_prompt is not None:
+        every.append((posix.submit(np.random.default_rng(5).integers(
+            1, cfg.vocab, long_prompt).tolist(), LONG_NEW), LONG_NEW))
     rng = np.random.default_rng(0)
-    reqs = []
     for i, n in enumerate(rng.integers(64, 481, 8)):
         prompt = rng.integers(1, cfg.vocab, int(n)).tolist()
-        reqs.append(((strict if i % 2 else posix).submit(prompt, 32),
-                     i % 2 == 1))
+        every.append(((strict if i % 2 else posix).submit(prompt, 32), 32))
+    reqs = [r for r, _ in every]
     eng = client.engine
+    want = {k: v * attn_layers(cfg) for k, v in per_layer_step.items() if v}
     torch.cuda.synchronize()
     common.reset_launch_counts()
-    prefill, decode = [], []
+    prefill, decode, replay_checks = [], [], 0
     t_start = time.perf_counter()
     while eng.waiting or eng.active:
-        wide = bool(eng.waiting) or any(r.in_prefill
-                                        for r in eng.active.values())
+        before = Counter(common.LAUNCHES)
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
-        (prefill if wide else decode).append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        (prefill if widths[-1] > 1 else decode).append(ms)
+        step = dict(Counter(common.LAUNCHES) - before)
+        assert step == want, (eng.steps, step, want)
+        state = replay_kv_commits(oplog.scan())
+        for r in reqs:
+            if r.mode is Mode.STRICT and not r.done and r.seq_id is not None:
+                assert state.get(r.seq_id, {}) == \
+                    eng.controller.committed_extents(r.seq_id), r
+                replay_checks += 1
     wall = time.perf_counter() - t_start
-    launches = dict(common.LAUNCHES)
-    steps = eng.steps
-    L = cfg.n_layers
-    for r, _ in reqs:
-        assert r.done and not r.truncated and len(r.output) == 32, r
+    for r, n_new in every:
+        assert r.done and not r.truncated and len(r.output) == n_new, r
         assert all(0 <= t < cfg.vocab for t in r.output)
-    for name, n in launches.items():
-        assert n == per_layer_step.get(name, 0) * L * steps, (launches, steps)
-    strict_pages = sum((len(r.prompt) + 32 - 1) // T for r, s in reqs if s)
+    strict_pages = sum((len(r.prompt) + len(r.output) - 1) // T
+                       for r in reqs if r.mode is Mode.STRICT)
     commits = [e for e in oplog.scan() if e.op == OP_KV_COMMIT]
     assert len(commits) == strict_pages, (len(commits), strict_pages)
     assert all(e.mode == int(Mode.STRICT) for e in commits)
-    out_tokens = sum(len(r.output) for r, _ in reqs)
-    return {"steps": steps, "prefill_steps": len(prefill),
-            "decode_steps": len(decode),
-            "prefill_step_ms_median": statistics.median(prefill),
-            "decode_step_ms_median": statistics.median(decode),
-            "wall_s": wall, "output_tokens": out_tokens,
-            "output_tokens_per_s": out_tokens / wall,
-            "tokens_processed": eng.tokens_processed,
-            "strict_commits": len(commits), "launches": launches,
-            "prompt_lens": [len(r.prompt) for r, _ in reqs],
-            "prefix_cache": eng.prefix_cache is not None,
-            "pages_adopted": eng.controller.pages_adopted}
+    assert replay_checks > 0
+    if eng._recurrent:
+        assert eng.prefix_cache is None
+    out_tokens = sum(len(r.output) for r in reqs)
+    assert len(widths) == eng.steps, (len(widths), eng.steps)
+    res = {"steps": eng.steps, "chunk_tokens": eng.chunk,
+           "steps_by_chunk": {f"C={c}": n
+                              for c, n in sorted(Counter(widths).items())},
+           "prefill_steps": len(prefill), "decode_steps": len(decode),
+           "prefill_step_ms_median": statistics.median(prefill),
+           "decode_step_ms_median": statistics.median(decode),
+           "wall_s": wall, "output_tokens": out_tokens,
+           "output_tokens_per_s": out_tokens / wall,
+           "tokens_processed": eng.tokens_processed,
+           "strict_commits": len(commits), "replay_checks": replay_checks,
+           "launches": dict(common.LAUNCHES),
+           "launches_per_step": want,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "prefix_cache": eng.prefix_cache is not None,
+           "pages_adopted": eng.controller.pages_adopted}
+    if long_prompt is not None:
+        res["long_request"] = {"prompt": long_prompt,
+                               "tokens": long_prompt + len(reqs[0].output),
+                               "window": cfg.attn_window}
+    return res
 
 
 def logits_d2h_ms(cfg) -> dict:
@@ -1095,13 +1212,16 @@ def profiled_window(step, n_steps: int, ops) -> dict:
             "top_ms_per_step": [(k, v / n_steps / 1e3) for k, v in top]}
 
 
-def profile_windows(api, params, cfg, ops=None) -> dict:
+def profile_windows(api, params, cfg, ops=None, *, max_seq=MAX_SEQ,
+                    chunk_tokens=None) -> dict:
     """Where a serve step's time goes: a CUPTI trace over two all-prefill
-    steps and over four decode-only steps of 8 fresh requests."""
+    steps and over four decode-only steps of 8 fresh requests, served as
+    ``serve_main_path`` serves them (``max_seq``, ``chunk_tokens``)."""
     from repro_torch.serve import ServeClient
 
-    client = ServeClient(api, params, max_batch=8, max_seq=MAX_SEQ,
-                         page_tokens=T, device="cuda")
+    client = ServeClient(api, params, max_batch=8, max_seq=max_seq,
+                         page_tokens=T, chunk_tokens=chunk_tokens,
+                         device="cuda")
     sess = client.open_session()
     rng = np.random.default_rng(2)
     for n in rng.integers(64, 481, 8):
@@ -1126,35 +1246,49 @@ def profile_windows(api, params, cfg, ops=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def path_vs_plain(api, params, cfg) -> dict:
+def path_vs_plain(api, params, cfg, *, max_seq=MAX_SEQ, C=T,
+                  lengths=None) -> dict:
+    """One mixed prefill + decode ``serve_step`` of the whole model at
+    chunk width ``C`` (slots of C, 1 and 5 new tokens and an idle one),
+    run twice from clones of the same caches: with the kernels and with
+    ``impl="ref"`` (a MoE's routes pinned by ``RoutePin``).  The context
+    before it: three kernel steps of 16 tokens or, given ``lengths``,
+    random pools and recurrent state (N(0, 1) in each leaf's dtype) under
+    those lengths; the table holds ``cfg.kv_pages_per_seq(max_seq)``
+    pages a slot.  The logits, every pool off the null page and every
+    recurrent state leaf are held to PATH_REL_TOL of their largest
+    value."""
     rng = np.random.default_rng(1)
-    caches = api.init_caches(B, MAX_SEQ, T, device="cuda")
-    caches["page_table"].copy_(page_table(rng, idle=(B - 1,)))
-    C = T
-    for _ in range(3):      # fill some context with the kernels
-        n = torch.tensor([16, 16, 16, 9, 16, 16, 16, 0], dtype=torch.int32,
-                         device="cuda")
-        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, C))
-                               .astype(np.int32)).cuda()
-        _, caches = api.serve_step(params, tok, caches, n)
-    n_new = [16, 1, 16, 1, 5, 16, 1, 0]           # mixed prefill + decode
+    caches = api.init_caches(B, max_seq, T, device="cuda")
+    seq = cfg.kv_pages_per_seq(max_seq, T) * T
+    caches["page_table"].copy_(page_table(rng, idle=(B - 1,), seq=seq))
+    if lengths is None:
+        for _ in range(3):      # fill some context with the kernels
+            n = torch.tensor([16, 16, 16, 9, 16, 16, 16, 0],
+                             dtype=torch.int32, device="cuda")
+            tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, T))
+                                   .astype(np.int32)).cuda()
+            _, caches = api.serve_step(params, tok, caches, n)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for part in ("group", "tail"):
+            for v in caches[part].values():
+                for t in (v.values() if isinstance(v, dict) else v):
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda"))
+        caches["lengths"].copy_(torch.tensor(lengths, dtype=torch.int32))
+    n_new = [C, 1, C, 1, min(5, C), C, 1, 0]
     tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, C))
                            .astype(np.int32)).cuda()
     n = torch.tensor(n_new, dtype=torch.int32, device="cuda")
 
-    def clone(c):
-        return {"page_table": c["page_table"].clone(),
-                "lengths": c["lengths"].clone(),
-                "group": {k: tuple(t.clone() for t in v)
-                          for k, v in c["group"].items()},
-                "tail": {}}
-
     pin = RoutePin() if cfg.n_experts else contextlib.nullcontext()
     with pin:
-        lk, ck = api.serve_step(params, tok, clone(caches), n)
+        lk, ck = api.serve_step(params, tok, clone_tree(caches), n)
         if cfg.n_experts:
             pin.mode = "pin"
-        lr, cr = api.serve_step(params, tok, clone(caches), n, impl="ref")
+        lr, cr = api.serve_step(params, tok, clone_tree(caches), n,
+                                impl="ref")
     torch.cuda.synchronize()
     assert torch.equal(ck["lengths"], cr["lengths"])
     worst, scale, agree, rows = 0.0, 0.0, 0, 0
@@ -1165,21 +1299,35 @@ def path_vs_plain(api, params, cfg) -> dict:
         scale = max(scale, float(r.abs().max())) if k else scale
         agree += int((a.argmax(-1) == r.argmax(-1)).sum())
         rows += k
-    pool_err, pool_scale = 0.0, 0.0
-    for pk, pr in zip(ck["group"]["b0_attn"], cr["group"]["b0_attn"]):
-        d = (pk[:, 1:].float() - pr[:, 1:].float()).abs().max()
-        pool_err = max(pool_err, float(d))
-        pool_scale = max(pool_scale, float(pr[:, 1:].float().abs().max()))
-    res = {"logits_max_abs_err": worst, "logits_max_abs": scale,
-           "argmax_agree": f"{agree}/{rows}", "pool_max_abs_err": pool_err,
-           "pool_max_abs": pool_scale}
+    res = {"C": C, "lengths": caches["lengths"].tolist(), "n_new": n_new,
+           "logits_max_abs_err": worst, "logits_max_abs": scale,
+           "argmax_agree": f"{agree}/{rows}", "leaves": {}}
+    bad = [] if worst <= PATH_REL_TOL * scale else ["logits"]
+    for part in ("group", "tail"):
+        for key, v in ck[part].items():
+            ref = cr[part][key]
+            if isinstance(v, dict):             # recurrent state
+                pairs = [(leaf, v[leaf], ref[leaf]) for leaf in v]
+            else:                               # pools, off the null page
+                off = (slice(None), slice(1, None)) if part == "group" \
+                    else slice(1, None)
+                pairs = [(f"pool{i}", x[off], y[off])
+                         for i, (x, y) in enumerate(zip(v, ref))]
+            for leaf, x, y in pairs:
+                err = float((x.float() - y.float()).abs().max())
+                top = float(y.float().abs().max())
+                res["leaves"][f"{part}/{key}/{leaf}"] = {"max_abs_err": err,
+                                                         "max_abs": top}
+                if err > PATH_REL_TOL * top:
+                    bad.append(f"{part}/{key}/{leaf}")
     if cfg.n_experts:
         res.update(moe_calls=len(pin.picks), route_flips=pin.flips,
                    router_logits_max_abs_err=pin.err,
                    router_logits_max_abs=pin.scale)
-    if worst > PATH_REL_TOL * scale or pool_err > PATH_REL_TOL * pool_scale \
-            or (cfg.n_experts and pin.err > PATH_REL_TOL * pin.scale):
-        raise AssertionError(f"kernel path vs plain path: {res}")
+        if pin.err > PATH_REL_TOL * pin.scale:
+            bad.append("router logits")
+    if bad:
+        raise AssertionError(f"kernel path vs plain path: {bad}: {res}")
     return res
 
 
@@ -1939,32 +2087,41 @@ GROK_LAYERS = 2                  # of 64: the full model is ~632 GB in bf16
 MLA_KILL_AFTER = 4               # the victim's sessions' tokens at the kill
 
 
-def moe_serving(cfg, device="cuda") -> dict:
-    """One MoE architecture on phase 2's path: bf16 weights cast as they
-    are born (``init_params(..., dtype=cfg.dtype)``: the float32 tree of
-    deepseek would be 64.8 GB), the 8 requests through ``ServeClient``
-    with each step's launches held to the attention's kernels a layer
-    (``MLA_STEP`` for MLA, the fused op for GQA), a profiled prefill and
-    decode window, the peak device memory of the init (one float32 leaf
-    beside the bf16 tree) and of the serving, and one step's kernel path
-    against its plain path on the same MoE routes (``path_vs_plain``)."""
+def serving_weights(cfg):
+    """Weights cast to ``cfg.dtype`` as they are born, with the init's
+    seconds, bytes and peak device memory (one float32 leaf beside the
+    bf16 tree)."""
     from repro_torch.models import build_model, init_params
     from repro_torch.train.optimizer import leaves
     api = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(api.init_specs(), gen, device=device,
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(api.init_specs(), gen, device="cuda",
                          dtype=cfg.dtype)
     torch.cuda.synchronize()
-    out = {"arch": cfg.name, "layers": cfg.n_layers,
-           "init_s": time.perf_counter() - t0,
-           "params_gb": sum(x.numel() * x.element_size()
-                            for x in leaves(params)) / 1e9,
-           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    info = {"arch": cfg.name, "layers": cfg.n_layers,
+            "attention_layers": attn_layers(cfg),
+            "init_s": time.perf_counter() - t0,
+            "params": sum(x.numel() for x in leaves(params)),
+            "params_gb": sum(x.numel() * x.element_size()
+                             for x in leaves(params)) / 1e9,
+            "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return api, params, info
+
+
+def moe_serving(cfg) -> dict:
+    """One MoE architecture on phase 2's path: bf16 weights cast as they
+    are born (``serving_weights``: the float32 tree of deepseek would be
+    64.8 GB), the 8 requests through ``ServeClient`` with each step's
+    launches held to the attention's kernels a layer (``MLA_STEP`` for
+    MLA, the fused op for GQA), a profiled prefill and decode window, the
+    peak device memory of the serving, and one step's kernel path against
+    its plain path on the same MoE routes (``path_vs_plain``)."""
+    api, params, out = serving_weights(cfg)
     torch.cuda.reset_peak_memory_stats()
-    step = MLA_STEP if cfg.mla else {"paged_attention_append_chunk": 1}
-    out["serve"] = serve_main_path(api, params, cfg, step)
+    out["serve"] = serve_main_path(api, params, cfg,
+                                   MLA_STEP if cfg.mla else FUSED_STEP)
     out["profile"] = profile_windows(
         api, params, cfg, MLA_OPS if cfg.mla else {
             "paged_attention_append_chunk": PAGED_KERNELS})
@@ -2034,6 +2191,48 @@ def mla_cluster_kill(cfg, device="cuda", layers=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the RG-LRU hybrid (recurrentgemma-9b) and the VLM backbone
+# (internvl2-1b) on the serve path
+# ---------------------------------------------------------------------------
+
+def hybrid_serving(cfg) -> dict:
+    """Phase 13 (a) and (b): recurrentgemma-9b at full width and all 38
+    layers in bf16, served in chunks of RG_CHUNK with one request past the
+    window, profiled at the same table and chunk, and one mixed step at
+    that chunk whose slots sit past, across and below the window."""
+    api, params, out = serving_weights(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"] = serve_main_path(api, params, cfg, FUSED_STEP,
+                                   max_seq=RG_MAX_SEQ, chunk_tokens=RG_CHUNK,
+                                   long_prompt=cfg.attn_window - 16)
+    assert out["serve"]["long_request"]["tokens"] > cfg.attn_window
+    out["profile"] = profile_windows(
+        api, params, cfg, {"paged_attention_append_chunk": PAGED_KERNELS},
+        max_seq=RG_MAX_SEQ, chunk_tokens=RG_CHUNK)
+    out["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    seq = cfg.kv_pages_per_seq(RG_MAX_SEQ, T) * T
+    w, C = cfg.attn_window, RG_CHUNK
+    out["path_vs_plain"] = path_vs_plain(
+        api, params, cfg, max_seq=RG_MAX_SEQ, C=C,
+        lengths=[seq - C, seq - 4, w - C // 2, w // 2, 700, 0, 300, 0])
+    del params
+    release()
+    return out
+
+
+def vlm_serving(cfg) -> dict:
+    """Phase 13 (c): internvl2-1b at full width and all 24 layers in bf16:
+    phase 2's 8 requests, gated as phase 2's, and one step's kernel
+    path against its plain path (phase 3's ``path_vs_plain``)."""
+    api, params, out = serving_weights(cfg)
+    out["serve"] = serve_main_path(api, params, cfg, FUSED_STEP)
+    out["path_vs_plain"] = path_vs_plain(api, params, cfg)
+    del params
+    release()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the checkpointed trainer (the SplitFS store, the checkpoint
 # manager, crash and resume, and the launch.train entry point)
 # ---------------------------------------------------------------------------
@@ -2056,9 +2255,11 @@ def state_equal(a, b) -> bool:
 
 
 def clone_tree(tree):
-    """A copy of every leaf of a nested dict, on its device."""
+    """A copy of every leaf of nested dicts and tuples, on its device."""
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(clone_tree(v) for v in tree)
     return tree.detach().clone()
 
 
@@ -2610,6 +2811,26 @@ def main() -> int:
                        window=256),
         attention_case(rng, 16, "attention D=576 C=16 short contexts bf16",
                        h=16, kv=1, d=576, alias=True, short=True),
+        # recurrentgemma-9b's attention (phase 13): 16 heads over one KV
+        # head of 256 on a 129-page table under its 2048 window, at the
+        # served prefill chunk (C=8: one row group), C=16 and decode, with
+        # chunks past the window (the window floor drops key tiles) and
+        # below it; internvl2-1b's (14 heads over 2 of 64)
+        *(case(rng, C, f"{what} D=256 MQA C={C} window=2048 {tag}",
+               window=RG_WINDOW, seq=RG_SEQ, starts=starts(C), **RG_HEADS,
+               **extra)
+          for what, case, extra in (("attention", attention_case, {}),
+                                    ("fused", fused_case, {"library": True}))
+          for C in (16, RG_CHUNK, 1)
+          for tag, starts in (
+              ("past the window", lambda C: lambda r: r.integers(
+                  RG_WINDOW - 8, RG_SEQ - C + 1, B)),
+              ("below the window", lambda C: lambda r: r.integers(
+                  0, RG_WINDOW - C + 1, B)))),
+        *(case(rng, C, f"{what} D=64 H=14 KV=2 C={C}", **VLM_HEADS, **extra)
+          for what, case, extra in (("attention", attention_case, {}),
+                                    ("fused", fused_case, {"library": True}))
+          for C in (16, 1)),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -2622,9 +2843,7 @@ def main() -> int:
     torch.cuda.synchronize()
     # one fused append and attention per layer and step; the standalone
     # append and attention kernels never launch on the serving path
-    main_path = serve_main_path(api, params, cfg, {
-        "paged_attention_append_chunk": 1, "kv_append_chunk": 0,
-        "paged_attention_chunk": 0})
+    main_path = serve_main_path(api, params, cfg, FUSED_STEP)
     log("phase2", json.dumps(main_path))
     # the client's prefix cache is on, as in the reference; the prompts are
     # distinct, so no chain is adopted
@@ -2742,6 +2961,18 @@ def main() -> int:
     assert f32_launches["phase10"]["paged_attention_append_chunk"] > 0
     assert f32_launches["phase12"]["paged_attention_chunk"] > 0
 
+    t13 = time.perf_counter()
+    log(f"phase13 starts at {t13 - t_script:.1f} s")
+    rg = hybrid_serving(get_config("recurrentgemma-9b"))
+    log("phase13 (a) recurrentgemma", json.dumps(
+        {"card": card, **{k: v for k, v in rg.items()
+                          if k != "path_vs_plain"}}))
+    log("phase13 (b) recurrentgemma kernel vs plain", json.dumps(
+        {"card": card, **rg["path_vs_plain"]}))
+    vlm = vlm_serving(get_config("internvl2-1b"))
+    log("phase13 (c) internvl2", json.dumps({"card": card, **vlm}))
+    log(f"phase13 seconds {time.perf_counter() - t13:.1f}")
+
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
     # (b)'s two processes run beside (a), whose first minute formats its
@@ -2749,7 +2980,7 @@ def main() -> int:
     started = [entry_point_start(args) for args, _ in ENTRY_RUNS]
     try:
         log("phase11 (a)", json.dumps({"card": card, **checkpointed_trainer(
-            get_config("qwen2-1.5b"))}))
+            get_config("qwen2-1.5b"), layers=PHASE11_LAYERS)}))
         release()
         for (args, kernels), run in zip(ENTRY_RUNS, started):
             log("phase11 (b)", json.dumps({"card": card, **entry_point_run(
@@ -2890,6 +3121,35 @@ def main() -> int:
                 "case", "dtype", "splits", "kernel", "ms", "bound_ms",
                 "bound_by", "plain_ms", "library_ms", "max_abs_err")}
                 for n in cases]})
+    # the fused op at recurrentgemma-9b's and internvl2-1b's rows, on phase
+    # 13's paths (the standalone attention at those rows: phase 1 only),
+    # each at the chunk its prefill steps run (recurrentgemma's: RG_CHUNK,
+    # past the window)
+    for tag, case, prefix, res in (
+            ("D=256 MQA, window 2048", f"fused D=256 MQA C={RG_CHUNK} "
+             "window=2048 past the window", "D=256 MQA", rg),
+            ("D=64, 14 heads over 2", "fused D=64 H=14 KV=2 C=16",
+             "D=64 H=14", vlm)):
+        c = by[case]
+        kernels.append({
+            "name": f"paged_attention_append_chunk ({tag})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/kv_append/kernel.py:38 + "
+                        "src/repro/kernels/paged_attention/kernel.py:96",
+            "launches": res["serve"]["launches"][
+                "paged_attention_append_chunk"],
+            "launches_by_chunk": {
+                c: n * res["attention_layers"]
+                for c, n in res["serve"]["steps_by_chunk"].items()},
+            "path": f"phase 13: {res['arch']} serving",
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "call_ms": c["ms_call"], "timing": c["ms_timing"],
+            "cases": [{k: x.get(k) for k in (
+                "case", "C", "splits", "ms", "unfused_ms", "bound_ms",
+                "bound_by", "plain_ms", "library_ms", "max_abs_err",
+                "bitwise_vs_unfused")}
+                for x in by.values() if prefix in x["case"]]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

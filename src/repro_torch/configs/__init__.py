@@ -6,8 +6,9 @@ brings it."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import (deepseek_v2_lite_16b, grok_1_314b, mamba2_1_3b, minitron_8b,
-               qwen2_1_5b, qwen2_72b, starcoder2_7b)
+from . import (deepseek_v2_lite_16b, grok_1_314b, internvl2_1b, mamba2_1_3b,
+               minitron_8b, qwen2_1_5b, qwen2_72b, recurrentgemma_9b,
+               starcoder2_7b)
 
 _MODULES = {
     "minitron-8b": minitron_8b,
@@ -17,13 +18,13 @@ _MODULES = {
     "grok-1-314b": grok_1_314b,
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "mamba2-1.3b": mamba2_1_3b,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "internvl2-1b": internvl2_1b,
 }
 
 # arch -> the ROADMAP.md queue-1 item that ports what it still needs
 _PENDING = {
-    "recurrentgemma-9b": "items 2.1 and 2.5 (windowed GQA, the RG-LRU)",
     "whisper-large-v3": "item 2.6 (encoder-decoder)",
-    "internvl2-1b": "item 2.7 (prefix embeddings for VLMs)",
 }
 
 ARCH_IDS = list(_MODULES)

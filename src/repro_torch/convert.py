@@ -10,10 +10,11 @@ tensors, key for key; ``caches_from_numpy`` does the same for cache trees
 
 ``cast_params`` casts every matrix, embedding and bias to ``cfg.dtype``
 once, leaving in their stored float32 the leaves the model reads in
-float32: the norm weights and Mamba2's ``A_log``, ``D_skip`` and
-``dt_bias``.  The model casts every other parameter to ``cfg.dtype`` at
-use (``x @ w.to(dt)``) exactly as the reference does, so a pre-cast
-parameter gives the same bits and the per-step cast becomes a no-op.
+float32: the norm weights, Mamba2's ``A_log``, ``D_skip`` and
+``dt_bias``, and the RG-LRU's ``a_param``.  The model casts every other
+parameter to ``cfg.dtype`` at use (``x @ w.to(dt)``) exactly as the
+reference does, so a pre-cast parameter gives the same bits and the
+per-step cast becomes a no-op.
 """
 
 from __future__ import annotations

@@ -4,14 +4,19 @@ forward and loss of training, and the chunked serve step.
 Parameters and caches keep the reference's pytree layout: the period
 group's parameters and caches are stacked over layers (``params["group"]
 ["b0_attn"]`` leaves carry a leading layer dim; pools are
-``[L, P, T, KV, D]``, SSM state ``{"conv", "ssd"}`` is ``[L, B, ...]``),
-page 0 of every pool is the null page.  Where JAX scans over the stacked
-layer index, the port runs a Python loop: the serve step hands each layer
-``cache[l]`` views, which it updates in place; the training forward takes
-every stacked leaf apart once with ``unbind(0)``, whose backward stacks
-the layers' grads in one allocation
-(indexing per layer would make each index's backward a zero-filled grad
-of the whole stacked leaf).
+``[L, P, T, KV, D]``, SSM state ``{"conv", "ssd"}`` and RG-LRU state
+``{"conv", "h"}`` are ``[L, B, ...]``), page 0 of every pool is the null
+page.  A hybrid pattern whose period does not divide the depth
+(recurrentgemma's 38 layers in groups of three) runs its non-periodic
+tail after the groups, one layer at a time, with parameters and caches
+under ``"tail"`` that carry no layer dim.  A VLM's patch embeddings
+(``prefix_embeds``) go before the token embeddings in the forward.
+Where JAX scans over the stacked layer index, the port runs a Python
+loop: the serve step hands each layer ``cache[l]`` views, which it
+updates in place; the training forward takes every stacked leaf apart
+once with ``unbind(0)``, whose backward stacks the layers' grads in one
+allocation (indexing per layer would make each index's backward a
+zero-filled grad of the whole stacked leaf).
 
 Remat follows ``cfg.remat``: ``"full"`` checkpoints each layer group
 (non-reentrant ``torch.utils.checkpoint``: only its input is kept and the
@@ -38,16 +43,16 @@ from .layers import norm_apply, norm_init
 from .spec import ParamSpec, tree_map_specs
 
 
-def _pattern_groups(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(period_pattern, n_full_groups).  The reference runs a non-periodic
-    tail of layers unrolled; only hybrid patterns have one, and they are
-    not ported yet."""
+def _pattern_groups(cfg: ModelConfig
+                    ) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(period_pattern, n_full_groups, tail_pattern): the full groups run
+    with stacked parameters and caches, the non-periodic tail (hybrid
+    patterns whose period does not divide the depth) unrolled, unstacked
+    under ``"tail"`` as ``t{i}_{kind}``."""
     pattern = cfg.block_pattern or ("attn",)
     n_full = cfg.n_layers // len(pattern)
-    if cfg.pattern_for_layers()[n_full * len(pattern):]:
-        raise NotImplementedError("layer patterns with a tail are not ported "
-                                  "yet (ROADMAP queue 1, item 2.5)")
-    return tuple(pattern), n_full
+    tail = tuple(cfg.pattern_for_layers()[n_full * len(pattern):])
+    return tuple(pattern), n_full, tail
 
 
 def _stack_specs(tree: Any, n: int) -> Any:
@@ -57,7 +62,7 @@ def _stack_specs(tree: Any, n: int) -> Any:
 
 
 def lm_init(cfg: ModelConfig) -> Dict:
-    pattern, n_full = _pattern_groups(cfg)
+    pattern, n_full, tail = _pattern_groups(cfg)
     group = {f"b{i}_{kind}": block_init(cfg, kind)
              for i, kind in enumerate(pattern)}
     params: Dict[str, Any] = {
@@ -66,6 +71,9 @@ def lm_init(cfg: ModelConfig) -> Dict:
         "group": _stack_specs(group, n_full),
         "final_norm": norm_init(cfg),
     }
+    if tail:
+        params["tail"] = {f"t{i}_{kind}": block_init(cfg, kind)
+                          for i, kind in enumerate(tail)}
     if not cfg.tie_embeddings:
         params["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
                                       ("embed", "vocab"), cfg.param_dtype,
@@ -73,11 +81,16 @@ def lm_init(cfg: ModelConfig) -> Dict:
     return params
 
 
-def embed_tokens(params: Dict, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings [B, S, D]; a VLM's ``prefix_embeds`` [B, Np, D]
+    (its patch embeddings) go before them, cast to ``cfg.dtype``."""
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     if cfg.family == "hybrid":               # gemma-style embedding scale
         x = x * math.sqrt(cfg.d_model)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     return x
 
 
@@ -119,11 +132,10 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               prefix_embeds: Optional[torch.Tensor] = None, *,
               impl: Optional[str] = None) -> torch.Tensor:
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings (VLMs) are not ported "
-                                  "yet (ROADMAP queue 1, item 2.7)")
-    pattern, n_full = _pattern_groups(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    """The final-normed hidden states [B, Np + S, D] of the full groups,
+    then the tail; ``prefix_embeds`` as ``embed_tokens``."""
+    pattern, n_full, tail = _pattern_groups(cfg)
+    x = embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -138,6 +150,9 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  for i, kind in enumerate(pattern)]
     for layer in range(n_full):
         x = group_fn(x, *(p[layer] for p in per_layer))
+    for i, kind in enumerate(tail):
+        x = block_train(params["tail"][f"t{i}_{kind}"], cfg, kind, x,
+                        positions, impl=impl)
     return norm_apply(params["final_norm"], cfg, x)
 
 
@@ -152,11 +167,24 @@ def lm_loss(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             targets: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Mean next-token cross entropy (float32 logits for stability).  The
-    gold logit is a gather, where the reference uses a masked reduce: the
-    same value, without a second [B, S, V] tensor."""
-    logits = lm_logits(params, cfg, tokens, prefix_embeds,
-                       impl=impl).float()
+    """Mean next-token cross entropy of every position (``cross_entropy``):
+    with ``prefix_embeds`` the targets must cover the prefix too (a VLM's
+    loss over its text positions is ``registry``'s)."""
+    return cross_entropy(lm_logits(params, cfg, tokens, prefix_embeds,
+                                   impl=impl), targets)
+
+
+def cross_entropy(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` [B, S, V] against ``targets``
+    [B, S], in float32 for stability.  The gold logit is a gather, where
+    the reference uses a masked reduce: the same value, without a second
+    [B, S, V] tensor.  Targets that do not cover every position raise, as
+    the reference's broadcast does."""
+    if logits.shape[:-1] != targets.shape:
+        raise ValueError(f"targets {tuple(targets.shape)} do not cover the "
+                         f"logits' {tuple(logits.shape[:-1])} positions")
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (logz - gold).mean()
@@ -166,9 +194,10 @@ def lm_init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                    page_tokens: int = 128, *, device="cuda") -> Dict:
     """Zeroed decode caches on ``device``.  Pool sizing comes from
     ``cfg.kv_pages_per_seq`` — the same formula the engine's
-    ``api.kv_geometry`` uses."""
+    ``api.kv_geometry`` uses.  The tail's caches carry no layer dim, as
+    the reference's."""
     dev = resolve_device(device)
-    pattern, n_full = _pattern_groups(cfg)
+    pattern, n_full, tail = _pattern_groups(cfg)
     pages_per_seq = cfg.kv_pages_per_seq(max_seq, page_tokens)
     num_pages = max(batch * pages_per_seq, 1)
     return {
@@ -180,7 +209,10 @@ def lm_init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                       cfg, kind, batch, num_pages, page_tokens, device=dev,
                       layers=n_full)
                   for i, kind in enumerate(pattern)} if n_full else {},
-        "tail": {},
+        "tail": {f"t{i}_{kind}": block_cache_init(
+                     cfg, kind, batch, num_pages, page_tokens, device=dev,
+                     layers=None)
+                 for i, kind in enumerate(tail)},
     }
 
 
@@ -195,12 +227,12 @@ def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     Unlike the pure JAX step, which donates the caches and returns new
     ones, this step MUTATES the stacked caches in place, layer by layer:
     the kernels write the ``[L, P, T, KV, D]`` pools through ``pool[l]``
-    views, and each SSM layer's new state is copied into its
-    ``state[l]`` views; the returned dict holds the same cache tensors
-    and a new ``lengths``.
+    views, and each recurrent or SSM layer's new state is copied into its
+    ``state[l]`` views (the tail's into its unstacked state); the
+    returned dict holds the same cache tensors and a new ``lengths``.
     ``impl`` picks the kernels' implementation (``None``: by device;
     ``"ref"``: the plain PyTorch versions)."""
-    pattern, n_full = _pattern_groups(cfg)
+    pattern, n_full, tail = _pattern_groups(cfg)
     page_table = caches["page_table"]
     lengths = caches["lengths"]
     x = embed_tokens(params, cfg, tokens)
@@ -210,15 +242,30 @@ def lm_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             key = f"b{i}_{kind}"
             gp = {k: _index(v, layer) for k, v in params["group"][key].items()}
             cache = _index(caches["group"][key], layer)
-            x, out = block_serve(gp, cfg, kind, x, cache, page_table,
-                                 lengths, n_new, impl=impl)
-            if isinstance(cache, dict):         # recurrent state
-                for k, t in out.items():
-                    cache[k].copy_(t)
+            x = _serve_layer(gp, cfg, kind, x, cache, page_table, lengths,
+                             n_new, impl)
+    for i, kind in enumerate(tail):
+        key = f"t{i}_{kind}"
+        x = _serve_layer(params["tail"][key], cfg, kind, x,
+                         caches["tail"][key], page_table, lengths, n_new,
+                         impl)
     x = norm_apply(params["final_norm"], cfg, x)
     new_caches = dict(caches)
     new_caches["lengths"] = lengths + n_new
     return unembed(params, cfg, x), new_caches
+
+
+def _serve_layer(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 cache, page_table: torch.Tensor, lengths: torch.Tensor,
+                 n_new: torch.Tensor, impl: Optional[str]) -> torch.Tensor:
+    """One layer of the serve step; pools are written in place by the
+    kernels, a recurrent layer's new state is copied into ``cache``."""
+    x, out = block_serve(p, cfg, kind, x, cache, page_table, lengths, n_new,
+                         impl=impl)
+    if isinstance(cache, dict):                 # recurrent state
+        for k, t in out.items():
+            cache[k].copy_(t)
+    return x
 
 
 def _index(tree: Any, layer: int) -> Any:

@@ -47,8 +47,9 @@ def tree_map_specs(f: Callable[[ParamSpec], Any], tree: Any) -> Any:
     raise TypeError(f"unexpected node in a ParamSpec tree: {type(tree)}")
 
 
-# leaves the model reads in float32 (``models/ssm.py``), besides norms
-FLOAT32_KEYS = frozenset({"A_log", "D_skip", "dt_bias"})
+# leaves the model reads in float32 (``models/ssm.py``: Mamba2's and the
+# RG-LRU's), besides norms
+FLOAT32_KEYS = frozenset({"A_log", "D_skip", "dt_bias", "a_param"})
 
 
 def stays_float32(path: Tuple[str, ...]) -> bool:

@@ -1,4 +1,5 @@
-"""Mamba2 SSD layers (port of the Mamba2 half of ``repro/models/ssm.py``).
+"""State-space layers (port of ``repro/models/ssm.py``): Mamba2 SSD and
+the RG-LRU (griffin / recurrentgemma recurrent block).
 
 Training (``mamba2_train``) uses the chunked block decomposition of the
 reference: the intra-chunk term is the ``ssd_chunk`` op (the hand-written
@@ -11,7 +12,15 @@ tokens of a chunk, committing the state only for tokens ``c < n_new``.
 The depthwise causal convolution stays a shifted sum, as in the
 reference: ``F.conv1d`` would go through cuDNN, which runs float32
 convolutions in TF32 unless ``torch.backends.cudnn.allow_tf32`` is off.
-The RG-LRU (recurrentgemma) is not ported yet (ROADMAP queue 1, item 2.5).
+
+The RG-LRU keeps the reference's cast points: its products run in
+``cfg.dtype``, its sigmoid, softplus and exp in float32, and it reads
+``a_param`` in float32 (``spec.FLOAT32_KEYS``).  Training
+(``rglru_train``) runs the linear recurrence ``h_t = a_t h_{t-1} + b_t``
+as a doubling scan over S where the reference runs
+``jax.lax.associative_scan``; serving (``rglru_serve``) is the masked
+per-token recurrence, as Mamba2's.  Neither has a kernel: the reference
+has no Pallas kernel for them either.
 """
 
 from __future__ import annotations
@@ -160,15 +169,22 @@ def mamba2_train(p: Dict, cfg: ModelConfig, u: torch.Tensor, *,
     return y @ p["out_proj"].to(dt_)
 
 
+def _stacked(layers: Optional[int], *shape: int) -> Tuple[int, ...]:
+    return shape if layers is None else (layers,) + shape
+
+
 def mamba2_init_state(cfg: ModelConfig, batch: int, *, device: torch.device,
-                      layers: int) -> Dict[str, torch.Tensor]:
-    """Zeroed state of ``layers`` stacked blocks: conv [L, B, W-1, conv_dim]
-    in ``cfg.dtype`` and ssd [L, B, nh, state, hd] in float32."""
+                      layers: Optional[int]) -> Dict[str, torch.Tensor]:
+    """Zeroed state of ``layers`` stacked blocks (None: one block, no layer
+    dim): conv [L, B, W-1, conv_dim] in ``cfg.dtype`` and ssd
+    [L, B, nh, state, hd] in float32."""
     d = mamba2_dims(cfg)
     return {
-        "conv": torch.zeros((layers, batch, cfg.ssm_conv - 1, d["conv_dim"]),
+        "conv": torch.zeros(_stacked(layers, batch, cfg.ssm_conv - 1,
+                                     d["conv_dim"]),
                             dtype=cfg.dtype, device=device),
-        "ssd": torch.zeros((layers, batch, d["nheads"], d["state"], d["hd"]),
+        "ssd": torch.zeros(_stacked(layers, batch, d["nheads"], d["state"],
+                                    d["hd"]),
                            dtype=torch.float32, device=device),
     }
 
@@ -226,3 +242,111 @@ def mamba2_decode(p: Dict, cfg: ModelConfig, u: torch.Tensor,
     y = rmsnorm_gated(y, z, p["norm_w"], dt_)
     out = (y @ p["out_proj"].to(dt_))[:, None, :]
     return out, {"conv": conv_state, "ssd": h}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (griffin / recurrentgemma recurrent block)
+# ---------------------------------------------------------------------------
+
+_RG_C = 8.0
+
+
+def rglru_init(cfg: ModelConfig) -> Dict:
+    D = cfg.d_model
+    L = cfg.lru_width or cfg.d_model
+    pd = cfg.param_dtype
+    return {
+        "proj_x": ParamSpec((D, L), ("embed", "ffn"), pd),
+        "proj_gate": ParamSpec((D, L), ("embed", "ffn"), pd),
+        "conv_w": ParamSpec((L, 4), ("ffn", None), pd, scale=0.5),
+        "conv_b": ParamSpec((L,), ("ffn",), pd, init="zeros"),
+        "w_i": ParamSpec((L, L), ("ffn", "ffn2"), pd),
+        "b_i": ParamSpec((L,), ("ffn",), pd, init="zeros"),
+        "w_r": ParamSpec((L, L), ("ffn", "ffn2"), pd),
+        "b_r": ParamSpec((L,), ("ffn",), pd, init="zeros"),
+        "a_param": ParamSpec((L,), ("ffn",), pd, init="ones", scale=1.0),
+        "out_proj": ParamSpec((L, D), ("ffn", "embed"), pd),
+    }
+
+
+def _rglru_coeffs(p: Dict, cfg: ModelConfig, xc: torch.Tensor):
+    """xc: [..., L] post-conv activations -> (a, gated_x) float32."""
+    dt = cfg.dtype
+    r = torch.sigmoid((xc @ p["w_r"].to(dt) + p["b_r"].to(dt)).float())
+    i = torch.sigmoid((xc @ p["w_i"].to(dt) + p["b_i"].to(dt)).float())
+    log_a = -_RG_C * F.softplus(p["a_param"].float()) * r
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    gated = xc.float() * i * mult
+    return a, gated
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over dim 1 from h_{-1} = 0, as a doubling
+    (Hillis-Steele) scan: log2 S rounds, each composing every position
+    with the one ``offset`` before it by the reference's ``combine``,
+    (a1, b1) then (a2, b2) -> (a2 a1, a2 b1 + b2).  Products only, no
+    division: ``a_t`` can be ~1e-3, so its running product underflows
+    within a few dozen steps, and a form that divides by it (h = A
+    cumsum(b / A)) overflows.  Out of place, so autograd differentiates
+    it.  In float32 it agrees with ``jax.lax.associative_scan`` (another
+    tree over the same products) to 1e-5."""
+    S = a.shape[1]
+    offset = 1
+    while offset < S:
+        a_prev = F.pad(a[:, :-offset], (0, 0, offset, 0), value=1.0)
+        b_prev = F.pad(b[:, :-offset], (0, 0, offset, 0))
+        b = a * b_prev + b
+        a = a * a_prev
+        offset *= 2
+    return b
+
+
+def rglru_train(p: Dict, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
+    """u: [B, S, D] -> [B, S, D] via h_t = a_t * h_{t-1} + m_t * x_t
+    (``linear_scan`` over S)."""
+    dt = cfg.dtype
+    gate = F.gelu((u @ p["proj_gate"].to(dt)).float(), approximate="tanh")
+    x = u @ p["proj_x"].to(dt)
+    xc = causal_conv1d(x, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    a, gated = _rglru_coeffs(p, cfg, xc)
+    h = linear_scan(a, gated)
+    y = (gate * h).to(dt)
+    return y @ p["out_proj"].to(dt)
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, *, device: torch.device,
+                     layers: Optional[int]) -> Dict[str, torch.Tensor]:
+    """Zeroed state of ``layers`` stacked blocks (None: one block, no layer
+    dim): conv [L, B, 3, lru] in ``cfg.dtype`` and h [L, B, lru] in
+    float32."""
+    L = cfg.lru_width or cfg.d_model
+    return {
+        "conv": torch.zeros(_stacked(layers, batch, 3, L), dtype=cfg.dtype,
+                            device=device),
+        "h": torch.zeros(_stacked(layers, batch, L), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def rglru_serve(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+                state: Dict[str, torch.Tensor], n_new: torch.Tensor):
+    """Chunked serve step: C masked single-token updates.  u: [B, C, D]."""
+    return _masked_state_scan(
+        lambda u_c, st: rglru_decode(p, cfg, u_c, st), u, state, n_new)
+
+
+def rglru_decode(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+                 state: Dict[str, torch.Tensor]):
+    """Single-token recurrent step. u: [B, 1, D]."""
+    dt = cfg.dtype
+    gate = F.gelu((u[:, 0] @ p["proj_gate"].to(dt)).float(),
+                  approximate="tanh")
+    x = u[:, 0] @ p["proj_x"].to(dt)
+    xc, conv_state = conv_step(x, state["conv"], p["conv_w"].to(dt),
+                               p["conv_b"].to(dt))
+    a, gated = _rglru_coeffs(p, cfg, xc)
+    h = a * state["h"] + gated
+    y = (gate * h).to(dt)
+    out = (y @ p["out_proj"].to(dt))[:, None, :]
+    return out, {"conv": conv_state, "h": h}

@@ -1,7 +1,8 @@
 """The port's engine cluster against the JAX package's, at fp32 on the
 SMOKE configs with the JAX package's weights: every scenario of
 tests/test_cluster.py (router, staged-then-flip snapshot, the fault
-ladder, kill-one-engine for qwen2 and mamba2, STRICT republish, straggler
+ladder, kill-one-engine for qwen2, mamba2 and the recurrentgemma
+hybrid (its sessions carry pages and state), STRICT republish, straggler
 steal, remesh, parked restores, routing affinity, the shared-oplog
 refusal, the text front) runs on both packages with the same inputs; each
 asserts the reference test's expectations and that the two records are
@@ -42,6 +43,11 @@ def pair():
 @pytest.fixture(scope="module")
 def mamba_pair():
     return libs("mamba2-1.3b")
+
+
+@pytest.fixture(scope="module")
+def hybrid_pair():
+    return libs("recurrentgemma-9b")
 
 
 @pytest.fixture(autouse=True)
@@ -392,13 +398,16 @@ def test_steal_falls_back_to_remesh_on_confirmed_death(pair):
 # -------------------------------------------------- cluster integration
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
 def test_kill_one_engine_token_identity(arch, request, monkeypatch):
     """Kill a busy engine mid-decode: its live sessions resume on the
     spare from their snapshots (KV pages for qwen2, recurrent state leaves
-    for mamba2) and every output equals the unkilled run's."""
-    pair = request.getfixturevalue(
-        "pair" if arch == "qwen2-1.5b" else "mamba_pair")
+    for mamba2, both for the recurrentgemma hybrid) and every output
+    equals the unkilled run's."""
+    pair = request.getfixturevalue({"qwen2-1.5b": "pair",
+                                    "mamba2-1.3b": "mamba_pair",
+                                    "recurrentgemma-9b": "hybrid_pair"}[arch])
 
     def scenario(lib):
         prompts = family_prompts(lib.api.cfg.vocab, 6)
@@ -427,9 +436,9 @@ def test_kill_one_engine_token_identity(arch, request, monkeypatch):
         return outputs_by_prompt(done), record(ref_c), record(c)
 
     _, restores = both_restoring(pair, monkeypatch, scenario)
-    if arch == "mamba2-1.3b":
+    if arch != "qwen2-1.5b":
         assert restores.states, "no recurrent state was migrated"
-    else:
+    if arch != "mamba2-1.3b":
         assert restores.pages, "no page was migrated"
 
 

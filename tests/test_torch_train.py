@@ -25,6 +25,7 @@ from repro.kernels.flash_attention.blockwise import (
 from repro.models import build_model as jax_build_model
 from repro.models import init_params as jax_init_params
 from repro.models.attention import gqa_train as jax_gqa_train
+from repro.models.lm import lm_logits as jax_lm_logits
 from repro.train import AdamWConfig as JaxAdamWConfig
 from repro.train.optimizer import adamw_init as jax_adamw_init
 from repro.train.optimizer import adamw_update as jax_adamw_update
@@ -37,7 +38,7 @@ from repro_torch.kernels import (attention, attention_ref, blockwise_fwd,
                                  common)
 from repro_torch.models import build_model
 from repro_torch.models.attention import gqa_train
-from repro_torch.models.lm import lm_loss
+from repro_torch.models.lm import lm_logits, lm_loss
 from repro_torch.train import (AdamWConfig, LoopConfig, adamw_init,
                                adamw_update, make_loss_and_grad,
                                make_train_step, run_training, schedule)
@@ -269,12 +270,29 @@ def test_remat_policies_give_the_grads_of_no_remat(jax_params, remat):
 
 
 def test_lm_loss_rejects_prefix_embeds(jax_params):
-    _, tcfg = cfg_pair()
+    """Prefix embeddings are ported (ROADMAP item 2.7): the logits with a
+    prefix equal the reference's (fp32), and ``lm_loss`` rejects a prefix
+    its targets do not cover (the reference's masked reduce fails to
+    broadcast there), as it rejects a prefix of the wrong width."""
+    jcfg, tcfg = cfg_pair()
     params = convert.params_from_numpy(jax_params[1], device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, tcfg.vocab, (1, 4)).astype(np.int32)
+    pre = rng.standard_normal((1, 2, tcfg.d_model)).astype(np.float32)
+    want = jax_lm_logits(jax_params[0], jcfg, jnp.asarray(tok),
+                         prefix_embeds=jnp.asarray(pre))
+    with torch.no_grad():
+        got = lm_logits(params, tcfg, torch.from_numpy(tok),
+                        prefix_embeds=torch.from_numpy(pre))
+    np.testing.assert_allclose(f32(got), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    tok = torch.from_numpy(tok)
+    with pytest.raises(ValueError):
         lm_loss(params, tcfg, tok, tok,
-                prefix_embeds=torch.zeros(1, 2, tcfg.d_model))
+                prefix_embeds=torch.from_numpy(pre))
+    with pytest.raises(RuntimeError):
+        lm_loss(params, tcfg, tok, tok,
+                prefix_embeds=torch.zeros(1, 2, tcfg.d_model + 1))
 
 
 # ---------------------------------------------------------------- optimizer
