@@ -42,7 +42,11 @@ sm_90a) and then, failing with a non-zero exit on any error:
      prefill chunk) and C=1, with chunks past the window (the window
      floor drops key tiles) and below it, and
      at internvl2-1b's (14 heads over 2 of 64), each fused case bitwise
-     against the unfused path and timed beside SDPA.  It times kernel,
+     against the unfused path and timed beside SDPA; and whisper-large-v3's
+     shapes: the flash kernel non-causal at its cross attention (B=8,
+     C=16 and C=1 queries against 1500 encoder frames) and its encoder
+     (S=1500), 20 heads over 20 of 64, and the attention and the fused op
+     at 20 heads over 20 of 64 on its 28-page table.  It times kernel,
      plain version and one PyTorch library call where there is one (a
      yardstick the port never calls);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
@@ -169,6 +173,17 @@ sm_90a) and then, failing with a non-zero exit on any error:
      internvl2-1b at full width and all 24 layers in bf16: phase 2's 8
      requests gated the same way (24 fused launches a step) and phase 3's
      comparison.
+ 14. serves the encoder-decoder (run before phase 11): whisper-large-v3
+     at full width and depth (32 encoder and 32 decoder layers, d_model
+     1280, 20 heads of 64, vocab 51866, 1500 frames) in bf16: (a) 8 slots'
+     random frames encoded and their cross K/V computed (timed), written
+     into the client's caches (the engine never encodes, as the
+     reference's), and phase 2's 8 requests served at ``max_seq=448``
+     (whisper's decoder context) with prompts of 64-384 tokens, gated as
+     phase 2's with 32 fused ops and 32 flash cross attentions a step;
+     (b) phase 3's comparison from those cross K/V (logits and pools; the
+     cross K/V come back unchanged); (c) a prefill and a decode window
+     profiled from them.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB) and phase 11 (a)'s qwen2-1.5b (14
@@ -217,6 +232,7 @@ MAX_SEQ = 1024
 PAGES_PER_SEQ = MAX_SEQ // T
 P = B * PAGES_PER_SEQ
 LONGEST = 480 + 32               # the smoke run's longest context
+PROMPTS = (64, 481)              # prompt lengths of the served requests
 TRACE_DIR = ROOT / "build" / "repro_torch_kernels" / "traces"
 ATTN_TOL = 2e-2                  # bf16 out: about one ulp of values O(1)
 # paged attention out, kernel vs plain: bf16 as ATTN_TOL; float32 sums the
@@ -287,6 +303,15 @@ RG_MAX_SEQ = 2304                # its table: 129 pages of 16 (window + 16)
 # phase 13's prefill steps run at C=8
 RG_CHUNK = 8
 VLM_HEADS = dict(h=14, kv=2, d=64)
+# whisper-large-v3 (phase 14): 20 heads over 20 of 64, the decoder's
+# context of 448 tokens (max_target_positions of the published config: 28
+# pages of 16) and 1500 encoder frames; a serve step launches the fused
+# self attention and the flash cross attention once a decoder layer
+WHISPER_HEADS = dict(h=20, kv=20, d=64)
+WHISPER_MAX_SEQ = 448
+WHISPER_PROMPTS = (64, 385)      # prompts of 64-384 tokens, + 32 new
+WHISPER_FRAMES = 1500
+CROSS_STEP = {"paged_attention_append_chunk": 1, "flash_attention": 1}
 # phase 11 (a): qwen2-1.5b at full width on half its 28 layers (three saves
 # and three restores of the full 18.52 GB state took 462-598 s of the
 # script's 1200 s)
@@ -764,11 +789,11 @@ def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_inputs(rng, S, dtype, D=128, Sk=None):
+def flash_inputs(rng, S, dtype, D=128, Sk=None, B=1, h=H, kv=KV):
     Sk = S if Sk is None else Sk
-    return (randn(rng, 1, S, H, D, dtype=dtype),
-            randn(rng, 1, Sk, KV, D, dtype=dtype),
-            randn(rng, 1, Sk, KV, D, dtype=dtype))
+    return (randn(rng, B, S, h, D, dtype=dtype),
+            randn(rng, B, Sk, kv, D, dtype=dtype),
+            randn(rng, B, Sk, kv, D, dtype=dtype))
 
 
 def sdpa_args(q, k, v, causal, window):
@@ -788,11 +813,15 @@ def sdpa_args(q, k, v, causal, window):
 
 
 def flash_case(rng, name: str, S: int, *, causal=True, window=None,
-               softcap=None, dtype=torch.bfloat16, D=128) -> dict:
+               softcap=None, dtype=torch.bfloat16, D=128, Sk=None, B=1,
+               h=H, kv=KV) -> dict:
+    """``S`` query rows against ``Sk`` keys (S unless given), ``B``
+    sequences of ``h`` heads over ``kv``."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_fwd
 
-    q, k, v = flash_inputs(rng, S, dtype, D)
+    q, k, v = flash_inputs(rng, S, dtype, D, Sk, B, h, kv)
+    Sk = k.shape[1]
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = attention_fwd(q, k, v, **kw)
     ref, ref_lse = attention_fwd(q, k, v, impl="ref", **kw)
@@ -813,13 +842,13 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
             qt, kt, vt, **skw)
     t = {"library_ms": None, **timings(**fns)}
     ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],))
-    flops = 4 * H * D * visible_keys(S, S, causal, window)
+    flops = 4 * B * h * D * visible_keys(S, Sk, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + lse.numel() * 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
     lib = t["library_ms"]
-    return {"case": name, "S": S, "D": D, "dtype": str(dtype),
-            "kernel": ran,
+    return {"case": name, "S": S, "Sk": Sk, "B": B, "H": h, "KV": kv,
+            "D": D, "dtype": str(dtype), "kernel": ran,
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
             **t, "tflops": flops / t["ms"] / 1e9,
@@ -1042,16 +1071,23 @@ def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
 
 
 def attn_layers(cfg) -> int:
+    """The attention layers of a serve step: an encoder-decoder's decoder
+    layers (the encoder runs outside the step), else the pattern's."""
+    if cfg.family == "encdec":
+        return cfg.n_dec_layers
     return sum(k == "attn" for k in cfg.pattern_for_layers())
 
 
 def serve_main_path(api, params, cfg, per_layer_step: dict, *,
                     max_seq=MAX_SEQ, chunk_tokens=None,
-                    long_prompt=None) -> dict:
-    """8 requests (prompts of 64-480 tokens, 32 greedy tokens each) in a
-    POSIX and a STRICT session through ``ServeClient(max_batch=8,
-    page_tokens=16)``, and with ``long_prompt`` one more POSIX request of
-    that many tokens and LONG_NEW greedy ones, submitted first.  Gates,
+                    long_prompt=None, prompts=PROMPTS,
+                    prepare=None) -> dict:
+    """8 requests (prompts of ``prompts`` = [lo, hi) tokens, 64-480 unless
+    given, 32 greedy tokens each) in a POSIX and a STRICT session through
+    ``ServeClient(max_batch=8, page_tokens=16)``, and with ``long_prompt``
+    one more POSIX request of that many tokens and LONG_NEW greedy ones,
+    submitted first; ``prepare(engine)`` runs on the client's engine
+    before any request (an encoder-decoder's cross K/V).  Gates,
     after every step: each live STRICT sequence's crash replay equals its
     committed pages, and the step launched each kernel of
     ``per_layer_step`` that many times an attention layer and no other
@@ -1076,6 +1112,8 @@ def serve_main_path(api, params, cfg, per_layer_step: dict, *,
                          params, max_batch=8, max_seq=max_seq,
                          page_tokens=T, chunk_tokens=chunk_tokens,
                          oplog=oplog, device="cuda")
+    if prepare is not None:
+        prepare(client.engine)
     posix = client.open_session(mode=Mode.POSIX)
     strict = client.open_session(mode=Mode.STRICT)
     every = []
@@ -1083,7 +1121,7 @@ def serve_main_path(api, params, cfg, per_layer_step: dict, *,
         every.append((posix.submit(np.random.default_rng(5).integers(
             1, cfg.vocab, long_prompt).tolist(), LONG_NEW), LONG_NEW))
     rng = np.random.default_rng(0)
-    for i, n in enumerate(rng.integers(64, 481, 8)):
+    for i, n in enumerate(rng.integers(*prompts, 8)):
         prompt = rng.integers(1, cfg.vocab, int(n)).tolist()
         every.append(((strict if i % 2 else posix).submit(prompt, 32), 32))
     reqs = [r for r, _ in every]
@@ -1213,18 +1251,22 @@ def profiled_window(step, n_steps: int, ops) -> dict:
 
 
 def profile_windows(api, params, cfg, ops=None, *, max_seq=MAX_SEQ,
-                    chunk_tokens=None) -> dict:
+                    chunk_tokens=None, prompts=PROMPTS,
+                    prepare=None) -> dict:
     """Where a serve step's time goes: a CUPTI trace over two all-prefill
     steps and over four decode-only steps of 8 fresh requests, served as
-    ``serve_main_path`` serves them (``max_seq``, ``chunk_tokens``)."""
+    ``serve_main_path`` serves them (``max_seq``, ``chunk_tokens``,
+    ``prompts``, ``prepare``)."""
     from repro_torch.serve import ServeClient
 
     client = ServeClient(api, params, max_batch=8, max_seq=max_seq,
                          page_tokens=T, chunk_tokens=chunk_tokens,
                          device="cuda")
+    if prepare is not None:
+        prepare(client.engine)
     sess = client.open_session()
     rng = np.random.default_rng(2)
-    for n in rng.integers(64, 481, 8):
+    for n in rng.integers(*prompts, 8):
         sess.submit(rng.integers(1, cfg.vocab, int(n)).tolist(), 40)
     eng = client.engine
     eng.step()
@@ -1246,8 +1288,20 @@ def profile_windows(api, params, cfg, ops=None, *, max_seq=MAX_SEQ,
 # ---------------------------------------------------------------------------
 
 
+def cache_groups(caches) -> dict:
+    """name -> (pools or state, stacked) of every part of a cache tree
+    that a step writes: an LM's ``group/<key>`` (stacked over layers) and
+    ``tail/<key>``, an encoder-decoder's ``pools`` (stacked)."""
+    out = {f"{part}/{key}": (v, part == "group")
+           for part in ("group", "tail")
+           for key, v in caches.get(part, {}).items()}
+    if "pools" in caches:
+        out["pools"] = (caches["pools"], True)
+    return out
+
+
 def path_vs_plain(api, params, cfg, *, max_seq=MAX_SEQ, C=T,
-                  lengths=None) -> dict:
+                  lengths=None, cross=None) -> dict:
     """One mixed prefill + decode ``serve_step`` of the whole model at
     chunk width ``C`` (slots of C, 1 and 5 new tokens and an idle one),
     run twice from clones of the same caches: with the kernels and with
@@ -1255,13 +1309,18 @@ def path_vs_plain(api, params, cfg, *, max_seq=MAX_SEQ, C=T,
     before it: three kernel steps of 16 tokens or, given ``lengths``,
     random pools and recurrent state (N(0, 1) in each leaf's dtype) under
     those lengths; the table holds ``cfg.kv_pages_per_seq(max_seq)``
-    pages a slot.  The logits, every pool off the null page and every
-    recurrent state leaf are held to PATH_REL_TOL of their largest
-    value."""
+    pages a slot; ``cross``, an encoder-decoder's (cross_k, cross_v),
+    is written into the caches first.  The logits, every pool off the
+    null page and every recurrent state leaf are held to PATH_REL_TOL of
+    their largest value; the cross K/V, which a step only reads, must
+    come back equal."""
     rng = np.random.default_rng(1)
     caches = api.init_caches(B, max_seq, T, device="cuda")
     seq = cfg.kv_pages_per_seq(max_seq, T) * T
     caches["page_table"].copy_(page_table(rng, idle=(B - 1,), seq=seq))
+    if cross is not None:
+        caches["cross_k"].copy_(cross[0])
+        caches["cross_v"].copy_(cross[1])
     if lengths is None:
         for _ in range(3):      # fill some context with the kernels
             n = torch.tensor([16, 16, 16, 9, 16, 16, 16, 0],
@@ -1271,11 +1330,9 @@ def path_vs_plain(api, params, cfg, *, max_seq=MAX_SEQ, C=T,
             _, caches = api.serve_step(params, tok, caches, n)
     else:
         gen = torch.Generator(device="cuda").manual_seed(13)
-        for part in ("group", "tail"):
-            for v in caches[part].values():
-                for t in (v.values() if isinstance(v, dict) else v):
-                    t.copy_(torch.randn(t.shape, generator=gen,
-                                        device="cuda"))
+        for v, _ in cache_groups(caches).values():
+            for t in (v.values() if isinstance(v, dict) else v):
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
         caches["lengths"].copy_(torch.tensor(lengths, dtype=torch.int32))
     n_new = [C, 1, C, 1, min(5, C), C, 1, 0]
     tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B, C))
@@ -1303,23 +1360,26 @@ def path_vs_plain(api, params, cfg, *, max_seq=MAX_SEQ, C=T,
            "logits_max_abs_err": worst, "logits_max_abs": scale,
            "argmax_agree": f"{agree}/{rows}", "leaves": {}}
     bad = [] if worst <= PATH_REL_TOL * scale else ["logits"]
-    for part in ("group", "tail"):
-        for key, v in ck[part].items():
-            ref = cr[part][key]
-            if isinstance(v, dict):             # recurrent state
-                pairs = [(leaf, v[leaf], ref[leaf]) for leaf in v]
-            else:                               # pools, off the null page
-                off = (slice(None), slice(1, None)) if part == "group" \
-                    else slice(1, None)
-                pairs = [(f"pool{i}", x[off], y[off])
-                         for i, (x, y) in enumerate(zip(v, ref))]
-            for leaf, x, y in pairs:
-                err = float((x.float() - y.float()).abs().max())
-                top = float(y.float().abs().max())
-                res["leaves"][f"{part}/{key}/{leaf}"] = {"max_abs_err": err,
-                                                         "max_abs": top}
-                if err > PATH_REL_TOL * top:
-                    bad.append(f"{part}/{key}/{leaf}")
+    refs = cache_groups(cr)
+    for name, (v, stacked) in cache_groups(ck).items():
+        ref = refs[name][0]
+        if isinstance(v, dict):                 # recurrent state
+            pairs = [(leaf, v[leaf], ref[leaf]) for leaf in v]
+        else:                                   # pools, off the null page
+            off = (slice(None), slice(1, None)) if stacked \
+                else slice(1, None)
+            pairs = [(f"pool{i}", x[off], y[off])
+                     for i, (x, y) in enumerate(zip(v, ref))]
+        for leaf, x, y in pairs:
+            err = float((x.float() - y.float()).abs().max())
+            top = float(y.float().abs().max())
+            res["leaves"][f"{name}/{leaf}"] = {"max_abs_err": err,
+                                               "max_abs": top}
+            if err > PATH_REL_TOL * top:
+                bad.append(f"{name}/{leaf}")
+    for key in ("cross_k", "cross_v"):
+        if key in ck and not torch.equal(ck[key], cr[key]):
+            bad.append(key)
     if cfg.n_experts:
         res.update(moe_calls=len(pin.picks), route_flips=pin.flips,
                    router_logits_max_abs_err=pin.err,
@@ -2233,6 +2293,66 @@ def vlm_serving(cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the encoder-decoder (whisper-large-v3) on the serve path
+# ---------------------------------------------------------------------------
+
+def encdec_serving(cfg) -> dict:
+    """Phase 14: whisper-large-v3 at full width and depth (32 encoder and
+    32 decoder layers) in bf16.  (a) 8 slots' random frames (numpy seed 3)
+    encoded and their cross K/V computed (``encode`` +
+    ``encdec_prefill_cross``, timed), written into the client's caches,
+    and phase 2's 8 requests served at WHISPER_MAX_SEQ with prompts of
+    WHISPER_PROMPTS tokens, every step launching the fused op and the
+    flash forward once a decoder layer and nothing else; (b) phase 3's
+    mixed step from those cross K/V, kernel path against plain path;
+    (c) a prefill and a decode window profiled from the same cross
+    K/V."""
+    from repro_torch.models.encdec import encdec_prefill_cross, encode
+    api, params, out = serving_weights(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)).cuda()
+
+    def encode_cross():
+        with torch.no_grad():
+            return encdec_prefill_cross(params, cfg,
+                                        encode(params, cfg, frames))
+
+    encode_cross()                      # warm
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cross = encode_cross()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    assert all(torch.isfinite(x).all() for x in cross)
+    out["encode_cross_ms"] = statistics.median(times)
+    out["encode_cross_ms_all"] = times
+    out["cross_bytes"] = sum(x.numel() * x.element_size() for x in cross)
+
+    def prepare(eng):                   # the harness writes the cross K/V
+        eng.caches["cross_k"].copy_(cross[0])
+        eng.caches["cross_v"].copy_(cross[1])
+
+    out["serve"] = serve_main_path(api, params, cfg, CROSS_STEP,
+                                   max_seq=WHISPER_MAX_SEQ,
+                                   prompts=WHISPER_PROMPTS, prepare=prepare)
+    out["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["path_vs_plain"] = path_vs_plain(api, params, cfg,
+                                         max_seq=WHISPER_MAX_SEQ,
+                                         cross=cross)
+    out["profile"] = profile_windows(
+        api, params, cfg, {"paged_attention_append_chunk": PAGED_KERNELS,
+                           "flash_attention": (
+                               FLASH_KERNELS[torch.bfloat16],)},
+        max_seq=WHISPER_MAX_SEQ, prompts=WHISPER_PROMPTS, prepare=prepare)
+    del params, cross
+    release()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the checkpointed trainer (the SplitFS store, the checkpoint
 # manager, crash and resume, and the launch.train entry point)
 # ---------------------------------------------------------------------------
@@ -2831,6 +2951,25 @@ def main() -> int:
           for what, case, extra in (("attention", attention_case, {}),
                                     ("fused", fused_case, {"library": True}))
           for C in (16, 1)),
+        # whisper-large-v3 (phase 14): the cross attention, C=16 (prefill)
+        # and C=1 (decode) queries of 8 sequences against their 1500
+        # encoder frames, and the encoder's self attention at S=1500, all
+        # non-causal with 20 heads over 20 of 64; the decoder's fused self
+        # attention at that row (a group of one) on its 28-page table,
+        # with contexts of 64-416 tokens as phase 14 serves
+        *(flash_case(rng, f"flash Sq={C} Sk={WHISPER_FRAMES} B={B} H=KV=20 "
+                     f"D=64 non-causal ({what})", C, Sk=WHISPER_FRAMES,
+                     B=B, h=20, kv=20, D=64, causal=False)
+          for C, what in ((16, "cross, prefill"), (1, "cross, decode"))),
+        flash_case(rng, f"flash S={WHISPER_FRAMES} B={B} H=KV=20 D=64 "
+                   "non-causal (encoder)", WHISPER_FRAMES, B=B, h=20, kv=20,
+                   D=64, causal=False),
+        *(case(rng, C, f"{what} D=64 H=KV=20 C={C}", **WHISPER_HEADS,
+               seq=WHISPER_MAX_SEQ,
+               starts=lambda r, C=C: r.integers(64, 417 - C, B), **extra)
+          for what, case, extra in (("attention", attention_case, {}),
+                                    ("fused", fused_case, {"library": True}))
+          for C in (16, 1)),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
@@ -2972,6 +3111,18 @@ def main() -> int:
     vlm = vlm_serving(get_config("internvl2-1b"))
     log("phase13 (c) internvl2", json.dumps({"card": card, **vlm}))
     log(f"phase13 seconds {time.perf_counter() - t13:.1f}")
+
+    t14 = time.perf_counter()
+    log(f"phase14 starts at {t14 - t_script:.1f} s")
+    whisper = encdec_serving(get_config("whisper-large-v3"))
+    log("phase14 (a) whisper", json.dumps(
+        {"card": card, **{k: v for k, v in whisper.items()
+                          if k not in ("path_vs_plain", "profile")}}))
+    log("phase14 (b) whisper kernel vs plain", json.dumps(
+        {"card": card, **whisper["path_vs_plain"]}))
+    log("phase14 (c) whisper profile", json.dumps(
+        {"card": card, **whisper["profile"]}))
+    log(f"phase14 seconds {time.perf_counter() - t14:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -3125,11 +3276,13 @@ def main() -> int:
     # 13's paths (the standalone attention at those rows: phase 1 only),
     # each at the chunk its prefill steps run (recurrentgemma's: RG_CHUNK,
     # past the window)
-    for tag, case, prefix, res in (
+    for tag, case, prefix, res, phase in (
             ("D=256 MQA, window 2048", f"fused D=256 MQA C={RG_CHUNK} "
-             "window=2048 past the window", "D=256 MQA", rg),
+             "window=2048 past the window", "D=256 MQA", rg, 13),
             ("D=64, 14 heads over 2", "fused D=64 H=14 KV=2 C=16",
-             "D=64 H=14", vlm)):
+             "D=64 H=14", vlm, 13),
+            ("D=64, 20 heads over 20", "fused D=64 H=KV=20 C=16",
+             "D=64 H=KV=20", whisper, 14)):
         c = by[case]
         kernels.append({
             "name": f"paged_attention_append_chunk ({tag})", "route": "cuda",
@@ -3141,7 +3294,7 @@ def main() -> int:
             "launches_by_chunk": {
                 c: n * res["attention_layers"]
                 for c, n in res["serve"]["steps_by_chunk"].items()},
-            "path": f"phase 13: {res['arch']} serving",
+            "path": f"phase {phase}: {res['arch']} serving",
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "call_ms": c["ms_call"], "timing": c["ms_timing"],
@@ -3150,6 +3303,29 @@ def main() -> int:
                 "bound_by", "plain_ms", "library_ms", "max_abs_err",
                 "bitwise_vs_unfused")}
                 for x in by.values() if prefix in x["case"]]})
+    # the flash forward on phase 14's serve path: the cross attention,
+    # once a decoder layer and step (the encoder's self attention runs
+    # outside the step, 32 launches an encode)
+    c = by[f"flash Sq=16 Sk={WHISPER_FRAMES} B={B} H=KV=20 D=64 non-causal "
+           "(cross, prefill)"]
+    kernels.append({
+        "name": "flash_attention (cross attention, whisper)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+        "launches": whisper["serve"]["launches"]["flash_attention"],
+        "launches_by_chunk": {
+            k: n * whisper["attention_layers"]
+            for k, n in whisper["serve"]["steps_by_chunk"].items()},
+        "path": f"phase 14: {whisper['arch']} serving",
+        **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")},
+        "call_ms": c["ms_call"], "timing": c["ms_timing"],
+        "cases": [{k: x.get(k) for k in (
+            "case", "S", "Sk", "ms", "bound_ms", "bound_by", "plain_ms",
+            "library_ms", "ms_over_library", "max_abs_err")}
+            for x in by.values() if "H=KV=20" in x["case"]
+            and x["case"].startswith("flash S")]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

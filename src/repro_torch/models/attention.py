@@ -9,8 +9,11 @@ the C=1 slice.  ``mla_serve`` is deepseek-v2's serve step over ONE latent
 pool ``[P, T, 1, R + dr]`` that is both K and V: ``kernels.kv_append_chunk``
 and then ``kernels.paged_attention_chunk`` at head dim R + dr (576 at full
 width), unfused as in the reference.  Pools are updated IN PLACE (the JAX
-version returns new pools).  ``mla_train`` and ``gqa_cross`` wait for
-their slices (ROADMAP queue 1, items 3.2 and 2.6).
+version returns new pools).  ``gqa_cross`` is the encoder-decoder's cross
+attention: queries from the decoder, K/V precomputed from the encoder
+output by ``cross_kv``, through ``kernels.attention`` (the flash kernel)
+non-causally.  ``mla_train`` waits for its slice (ROADMAP queue 1, item
+3.2).
 """
 
 from __future__ import annotations
@@ -121,6 +124,38 @@ def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def gqa_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              k: torch.Tensor, v: torch.Tensor, *,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """Cross attention: queries from x [B, S, D], K/V [B, Senc, KV, hd]
+    precomputed from the encoder.  Only q and the output projection are
+    evaluated here (no self-K/V products)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    dt = cfg.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt).reshape(H, hd)
+    out = attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=False, softcap=cfg.attn_logit_softcap,
+                       impl=impl)
+    return out.reshape(B, S, H * hd) @ p["wo"].to(dt)
+
+
+def cross_kv(p: Dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """Per-layer cross K/V [B, Senc, KV, hd] from the encoder output
+    (computed once per request)."""
+    B, Se, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, kv, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, kv, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt).reshape(kv, hd)
+        v = v + p["bv"].to(dt).reshape(kv, hd)
+    return k, v
 
 
 def paged_chunk_ids(page_table: torch.Tensor, lengths: torch.Tensor,

@@ -1,14 +1,17 @@
-"""The model API (port of ``repro/models/registry.py``) for the
-decoder-only families — dense, MoE (``moe``: grok's GQA and deepseek's
-MLA), Mamba2 (``ssm``) and the RG-LRU hybrid (``hybrid``:
-recurrentgemma) — and the VLM (``vlm``: internvl2): the training surface
+"""The model API (port of ``repro/models/registry.py``) for every family
+of the reference: the decoder-only ones — dense, MoE (``moe``: grok's GQA
+and deepseek's MLA), Mamba2 (``ssm``) and the RG-LRU hybrid (``hybrid``:
+recurrentgemma) — the VLM (``vlm``: internvl2) and the encoder-decoder
+(``encdec``: whisper): the training surface
 
     loss(params, batch, impl=None)   -> scalar
     logits(params, batch, impl=None) -> [B, S, V]
 
 over ``batch = {"tokens", "targets"}`` (a VLM's also holds
 ``"patch_embeds"`` [B, n_patch_tokens, D], which go before the tokens; its
-loss is taken on the text positions only), and the serve surface
+loss is taken on the text positions only; an encoder-decoder's holds
+``"frames"`` [B, enc_frames, D], which the encoder reads), and the serve
+surface
 
     serve_step(params, tokens [B, C], caches, n_new [B], impl=None)
         -> (logits [B, C, V], caches)
@@ -18,8 +21,10 @@ slice.  The API owns the KV pool geometry (``kv_geometry``), so the
 engine's controller and the device pools derive from one formula (an SSM
 model keeps the controller's page metadata, as the reference does, but
 no pools).  A VLM serves through the decoder's step, with no prefix, as
-the reference does.  The encoder-decoder family raises until its slice
-lands (ROADMAP queue 1, item 2.6).
+the reference does.  An encoder-decoder's caches hold the decoder's pools
+under ``"pools"`` and the cross K/V, which the caller writes
+(``encdec.encdec_prefill_cross``): the step only reads them.  A family
+the reference does not have raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from . import encdec as ed
 from . import lm
 from .config import ModelConfig
 from ..core.kvcache import KVGeometry
@@ -55,10 +61,6 @@ def _kv_geometry(cfg: ModelConfig, max_batch: int, max_seq: int,
                       pages_per_seq=pages_per_seq)
 
 
-# family -> the ROADMAP.md queue-1 item that ports it
-_PENDING_FAMILIES = {"encdec": "2.6"}
-
-
 def _vlm_loss(p: Dict, cfg: ModelConfig, b: Dict,
               impl=None) -> torch.Tensor:
     """The patch embeddings occupy the first n_patch_tokens positions; the
@@ -69,12 +71,25 @@ def _vlm_loss(p: Dict, cfg: ModelConfig, b: Dict,
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"item {_PENDING_FAMILIES.get(cfg.family, '2')}); the "
-            "decoder-only families (dense, moe, ssm, hybrid) and the VLM "
-            "run in repro_torch")
+    geometry = lambda b, s, pt=128: _kv_geometry(cfg, b, s, pt)
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            init_specs=lambda: ed.encdec_init(cfg),
+            loss=lambda p, b, impl=None: ed.encdec_loss(
+                p, cfg, b["frames"], b["tokens"], b["targets"], impl=impl),
+            logits=lambda p, b, impl=None: ed.decode_train(
+                p, cfg, b["tokens"], ed.encode(p, cfg, b["frames"],
+                                               impl=impl), impl=impl),
+            init_caches=lambda batch, max_seq, page_tokens=128, *, device="cuda":
+                ed.encdec_init_caches(cfg, batch, max_seq, page_tokens,
+                                      device=device),
+            serve_step=lambda p, t, c, n, impl=None:
+                ed.encdec_serve_step(p, cfg, t, c, n, impl=impl),
+            kv_geometry=geometry,
+        )
     if cfg.family == "vlm":
         loss = lambda p, b, impl=None: _vlm_loss(p, cfg, b, impl)
         logits = lambda p, b, impl=None: lm.lm_logits(
@@ -93,5 +108,5 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             lm.lm_init_caches(cfg, batch, max_seq, page_tokens, device=device),
         serve_step=lambda p, t, c, n, impl=None:
             lm.lm_serve_step(p, cfg, t, c, n, impl=impl),
-        kv_geometry=lambda b, s, pt=128: _kv_geometry(cfg, b, s, pt),
+        kv_geometry=geometry,
     )

@@ -940,13 +940,20 @@ class ServingEngine:
 
     def _pool_leaves(self) -> List[torch.Tensor]:
         """The stacked [L, P, T, KV, D] pools in a deterministic walk order
-        (cache-tree order; state dicts hold no pages) — that order IS the
-        host arena's page layout, shared by gather/scatter/copy."""
+        (cache-tree order over ``group``, ``tail`` and an encoder-decoder's
+        ``pools``, the keys a cache tree has; state dicts hold no pages)
+        — that order IS the host arena's page layout, shared by
+        gather/scatter/copy.  An encoder-decoder's cross K/V are not
+        pages: the walk leaves them out, as the reference's does."""
         out: List[torch.Tensor] = []
-        for key in ("group", "tail"):
-            for pools in self.caches[key].values():
-                if not isinstance(pools, dict):
-                    out.extend(pools)
+        for key in ("group", "tail", "pools"):
+            node = self.caches.get(key)
+            if isinstance(node, tuple):             # (pool_k, pool_v)
+                out.extend(node)
+            elif node:
+                for pools in node.values():
+                    if not isinstance(pools, dict):
+                        out.extend(pools)
         return out
 
     def _walk_state(self, fn) -> None:

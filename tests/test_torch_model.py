@@ -78,11 +78,20 @@ def test_config_fields_equal_reference(which):
 
 
 def test_unported_archs_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every architecture of the reference resolves (whisper-large-v3,
+    the last one ported, to the reference's fields) and builds; a family
+    the reference does not have still raises in ``build_model``."""
+    import repro.configs.whisper_large_v3 as ref_mod
+    for which in ("CONFIG", "SMOKE"):
+        ref = getattr(ref_mod, which)
+        port = get_config("whisper-large-v3", smoke=which == "SMOKE")
+        for f in dataclasses.fields(ref):
+            if f.name not in ("dtype", "param_dtype"):
+                assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        assert build_model(port).cfg is port
+    with pytest.raises(ValueError, match="family"):
         build_model(dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
-                                        family="encdec"))
+                                        family="retrieval"))
 
 
 def test_params_from_numpy_key_for_key(jax_params):
