@@ -46,9 +46,16 @@ sm_90a) and then, failing with a non-zero exit on any error:
      shapes: the flash kernel non-causal at its cross attention (B=8,
      C=16 and C=1 queries against 1500 encoder frames) and its encoder
      (S=1500), 20 heads over 20 of 64, and the attention and the fused op
-     at 20 heads over 20 of 64 on its 28-page table.  It times kernel,
-     plain version and one PyTorch library call where there is one (a
-     yardstick the port never calls);
+     at 20 heads over 20 of 64 on its 28-page table; and phase 15's
+     training shapes, forward and backward (``train_flash_cases``): MLA's
+     Q/K 192 wide beside V 128 (the op zero-pads V to 192, its pad timed
+     on a line of its own) at 16 heads over 16, causal, in bf16 at the
+     training sequence and in float32 at S=512, recurrentgemma's D=256 MQA
+     under its 2048 window, internvl2's 4352 positions, and whisper's
+     encoder (S=1500) and cross attention (448 queries against 1500 keys,
+     the backward's first Sq != Sk shape), B=4, non-causal.  It times
+     kernel, plain version and one PyTorch library call where there is one
+     (a yardstick the port never calls; SDPA takes V's own width);
   2. serves 8 requests (prompts of 64-480 tokens, 32 new tokens each,
      greedy) at full width through ``ServeClient`` (prefix cache on, as
      by default; the prompts share no page) with one POSIX and one STRICT
@@ -184,11 +191,27 @@ sm_90a) and then, failing with a non-zero exit on any error:
      (b) phase 3's comparison from those cross K/V (logits and pools; the
      cross K/V come back unchanged); (c) a prefill and a decode window
      profiled from them.
+ 15. trains the other families (run before phase 11) at full width in
+     bf16 as phase 4 trains qwen2 (``family_training``: 4 AdamW steps of
+     4 microbatches, remat "full", finite losses, the first near ln V +
+     sigma^2 / 2, exact flash forward and backward launches a step, one
+     profiled step with both flash ops' kernels in the trace, and one
+     microbatch's loss and grads through the kernels against the plain
+     path at one seed, held to bounds of the family's own): deepseek-v2-
+     lite-16b (MLA through the flash kernel at Q/K 192 and V 128, the
+     MoE; the check in float32 activations), recurrentgemma-9b (the
+     RG-LRU, D=256 MQA under the 2048 window, the layer tail; the peak
+     memory of ``rglru_train``'s doubling scan at S=4096), internvl2-1b
+     (256 patch embeddings + 4096 tokens) and whisper-large-v3 (1500
+     frames, 448 decoder tokens: the encoder, the decoder's self and
+     cross attentions).
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
-layers: its bf16 weights are ~632 GB) and phase 11 (a)'s qwen2-1.5b (14
+layers: its bf16 weights are ~632 GB), phase 11 (a)'s qwen2-1.5b (14
 of its 28 layers, at full width: three saves and three restores of the
-full-depth state took 462-598 s of the script's 1200 s).
+full-depth state took 462-598 s of the script's 1200 s) and phase 15's
+deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
+their float32 training state does not fit 80 GB at full depth.
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -216,6 +239,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs.shapes import TRAIN_4K  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
@@ -250,8 +275,9 @@ LSE_ATOL = 1e-4                  # flash lse, float32 in both versions
 # in another order; bf16 rounds P and dS to bf16 before the products (2^-9
 # relative each, as SDPA does) and the grads once more on the way out
 FLASH_BWD_TOL = {torch.bfloat16: (1e-2, 3e-2), torch.float32: (2e-5, 1e-4)}
-# phase 4-5: the training shape (configs/shapes.py TRAIN_4K's sequence)
-TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 4, 4
+# phases 4-7 and 15: the training shape, TRAIN_4K's sequence
+# (repro_torch/configs/shapes.py) at a batch of 4 (of its 256)
+TRAIN_S, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = TRAIN_4K.seq_len, 4, 4, 4
 # phase 5 bounds, each well above the largest reading of a correct bf16
 # kernel and below every reading of a kernel that drops a key tile
 # (PERF.md §6, "the phase-5 gate"): the mma.sync and wgmma kernels read
@@ -264,6 +290,9 @@ LOSS_TOL = 1e-3                  # |loss_kernel - loss_plain|
 GNORM_TOL = 1e-3                 # relative global grad-norm gap
 LEAF_TOL = 2.5e-2                # per-leaf relative grad error
 PHASE5_SEEDS = (0, 1, 2)         # batch and parameter draws of phase 5
+# the bounds of train_path_vs_plain, by the reading each holds
+TRAIN_BOUNDS = {"loss_abs_diff": LOSS_TOL, "grad_norm_rel_diff": GNORM_TOL,
+                "leaf_rel_err_max": LEAF_TOL}
 # phase 7's bf16 lane (mamba2 as phase 6 trains it), gated on the relative
 # grad-norm gap alone: at seeds 0-2 the kernels read <= 0.0155 and the
 # plain path with its ssd_chunk output perturbed by 1e-7 relative noise
@@ -312,6 +341,50 @@ WHISPER_MAX_SEQ = 448
 WHISPER_PROMPTS = (64, 385)      # prompts of 64-384 tokens, + 32 new
 WHISPER_FRAMES = 1500
 CROSS_STEP = {"paged_attention_append_chunk": 1, "flash_attention": 1}
+# phase 15: the other families' training at full width, bf16, phase 4's
+# shape (4 steps of 4 microbatches of one sequence, AdamW, remat "full").
+# Layer cuts where the float32 params, AdamW's two moments and the grad
+# buffer (16 B a parameter), a microbatch's float32 grads (4 B more) and
+# the loss over the vocabulary would not fit 80 GB: deepseek-v2-lite-16b
+# on 4 of 27 layers (2.76 G parameters; all 27: 16.2 G), recurrentgemma-9b
+# on 4 of 38 (one group of rec, rec, attn and one tail rec layer: 2.99 G,
+# 2.10 G of them the embedding and the untied head; on 5 layers, 3.22 G,
+# the step ran out of the card's 79.2 GiB in the backward).  internvl2-1b
+# trains 256 patch embeddings + 4096 tokens a sequence, whisper-large-v3
+# 1500 frames and its decoder context of 448 tokens (WHISPER_MAX_SEQ, the
+# length phase 14 serves), both at full depth.
+DS_TRAIN_LAYERS = 4
+RG_TRAIN_LAYERS = 4
+# each family's kernel path against its plain path: one microbatch's loss
+# and grads at one seed, deepseek in float32 activations (bf16 routes that
+# tie flip between the lanes; float32 also runs the 3xTF32 flash at
+# D=192), the others in bf16.  Bounds from ``tools/train_gate.py`` at
+# seeds 0-2 (H100 80GB HBM3, 700 W): the kernels' largest (loss gap,
+# grad-norm gap, leaf error) against the smallest of two broken copies,
+# whose forward or backward drops keys 128-255 (the loss gap of a broken
+# backward is the kernels': its forward is right):
+#   deepseek, float32: kernels <= (1.7e-5, 4.3e-5, 7.1e-4); broken
+#     >= (1.2e-2 forward, 0.14, 0.29): phase 5's bounds
+#   recurrentgemma, bf16: kernels <= (5.5e-5, 3.6e-5, 9.1e-3); broken
+#     >= (2.8e-4 forward, 9.6e-3, 8.7e-2): phase 5's bounds (the loss gap
+#     does not separate)
+#   internvl2, bf16: kernels <= (5.4e-4, 5.6e-4, 1.3e-2); broken >=
+#     (7.6e-3 forward, 2.4e-2, 0.73)
+#   whisper, bf16: kernels <= (4.7e-4, 2.7e-4, 3.2e-2); broken >= (7.3e-5
+#     forward: the loss gap does not separate, 0.21, 0.78)
+FAMILY_BOUNDS = {
+    "deepseek-v2-lite-16b": TRAIN_BOUNDS,
+    "recurrentgemma-9b": TRAIN_BOUNDS,
+    "internvl2-1b": {"loss_abs_diff": 2e-3, "grad_norm_rel_diff": 3e-3,
+                     "leaf_rel_err_max": 5e-2},
+    "whisper-large-v3": {"loss_abs_diff": 2e-3, "grad_norm_rel_diff": 1e-2,
+                         "leaf_rel_err_max": 0.1},
+}
+# (arch, layers, tokens a sequence, seed of the check, float32 check)
+PHASE15 = (("deepseek-v2-lite-16b", DS_TRAIN_LAYERS, TRAIN_S, 0, True),
+           ("recurrentgemma-9b", RG_TRAIN_LAYERS, TRAIN_S, 1, False),
+           ("internvl2-1b", None, TRAIN_S, 2, False),
+           ("whisper-large-v3", None, WHISPER_MAX_SEQ, 0, False))
 # phase 11 (a): qwen2-1.5b at full width on half its 28 layers (three saves
 # and three restores of the full 18.52 GB state took 462-598 s of the
 # script's 1200 s)
@@ -789,11 +862,26 @@ def visible_keys(Sq: int, Sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_inputs(rng, S, dtype, D=128, Sk=None, B=1, h=H, kv=KV):
+def flash_inputs(rng, S, dtype, D=128, Sk=None, B=1, h=H, kv=KV, Dv=None):
+    """q [B, S, h, D], k [B, Sk, kv, D] and v [B, Sk, kv, Dv] (D unless
+    given)."""
     Sk = S if Sk is None else Sk
     return (randn(rng, B, S, h, D, dtype=dtype),
             randn(rng, B, Sk, kv, D, dtype=dtype),
-            randn(rng, B, Sk, kv, D, dtype=dtype))
+            randn(rng, B, Sk, kv, D if Dv is None else Dv, dtype=dtype))
+
+
+def v_pad_ms(q, pads, wide) -> dict:
+    """Device time of the flash op's V pad: ``pads`` (V and the tensors of
+    its width) zero-padded to q's head dim by ``pad_v``, and ``wide`` (the
+    output or dV, q's width) sliced back to V's width."""
+    from repro_torch.kernels.flash_attention.ops import pad_v
+    Dv = pads[0].shape[-1]
+
+    def pad():
+        pad_v(q, *pads)
+        return wide[..., :Dv].contiguous()
+    return {"pad_" + k: x for k, x in timings(ms=pad).items()}
 
 
 def sdpa_args(q, k, v, causal, window):
@@ -814,14 +902,18 @@ def sdpa_args(q, k, v, causal, window):
 
 def flash_case(rng, name: str, S: int, *, causal=True, window=None,
                softcap=None, dtype=torch.bfloat16, D=128, Sk=None, B=1,
-               h=H, kv=KV) -> dict:
+               h=H, kv=KV, Dv=None) -> dict:
     """``S`` query rows against ``Sk`` keys (S unless given), ``B``
-    sequences of ``h`` heads over ``kv``."""
+    sequences of ``h`` heads over ``kv``; V ``Dv`` wide (D unless given).
+    With ``Dv < D`` the op's output (V padded, the output sliced) is held
+    to the plain version; ``ms`` times the kernel on the padded V and
+    ``pad_ms`` the pad and the slice."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_fwd
+    from repro_torch.kernels.flash_attention.ops import pad_v
 
-    q, k, v = flash_inputs(rng, S, dtype, D, Sk, B, h, kv)
-    Sk = k.shape[1]
+    q, k, v = flash_inputs(rng, S, dtype, D, Sk, B, h, kv, Dv)
+    Sk, Dv = k.shape[1], v.shape[-1]
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = attention_fwd(q, k, v, **kw)
     ref, ref_lse = attention_fwd(q, k, v, impl="ref", **kw)
@@ -829,11 +921,13 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
     atol, rtol = FLASH_TOL[dtype]
     err = float((out.float() - ref.float()).abs().max())
     lse_err = float((lse - ref_lse).abs().max())
-    if not (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+    if not (out.shape == (B, S, h, Dv) and
+            torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
             and lse_err <= LSE_ATOL and torch.isfinite(out).all()):
         raise AssertionError(f"{name}: kernel vs plain max |err| {err}, "
                              f"lse {lse_err}")
-    fns = dict(ms=lambda: attention_fwd(q, k, v, **kw),
+    (vp,) = pad_v(q, v)
+    fns = dict(ms=lambda: attention_fwd(q, k, vp, **kw),
                plain_ms=lambda: attention_fwd(q, k, v, impl="ref", **kw))
     if softcap is None:
         # yardstick: SDPA on [B, H, S, D] views built outside the timed call
@@ -841,14 +935,16 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
         fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, **skw)
     t = {"library_ms": None, **timings(**fns)}
+    if Dv != D:
+        t.update(v_pad_ms(q, (v,), q))
     ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],))
-    flops = 4 * B * h * D * visible_keys(S, Sk, causal, window)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + lse.numel() * 4
+    flops = 2 * B * h * (D + Dv) * visible_keys(S, Sk, causal, window)
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size() + lse.numel() * 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
     lib = t["library_ms"]
     return {"case": name, "S": S, "Sk": Sk, "B": B, "H": h, "KV": kv,
-            "D": D, "dtype": str(dtype), "kernel": ran,
+            "D": D, "Dv": Dv, "dtype": str(dtype), "kernel": ran,
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": {"atol": atol, "rtol": rtol, "lse_atol": LSE_ATOL},
             **t, "tflops": flops / t["ms"] / 1e9,
@@ -857,16 +953,21 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
 
 
 def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
-                   softcap=None, dtype=torch.bfloat16, D=128) -> dict:
+                   softcap=None, dtype=torch.bfloat16, D=128, Sk=None, B=1,
+                   h=H, kv=KV, Dv=None) -> dict:
     """The backward kernel against the plain backward on the same forward
     residuals and upstream gradient; timed beside the plain backward and
     SDPA's backward, and forward + backward through autograd beside SDPA's
-    forward + backward."""
+    forward + backward.  Shapes as ``flash_case``; with ``Dv < D``,
+    ``ms`` times the kernel on V, out and dO padded to D and ``pad_ms``
+    the pad and dV's slice."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention, attention_bwd, attention_fwd
+    from repro_torch.kernels.flash_attention.ops import pad_v
 
-    q, k, v = flash_inputs(rng, S, dtype, D)
-    g = randn(rng, *q.shape, dtype=dtype)
+    q, k, v = flash_inputs(rng, S, dtype, D, Sk, B, h, kv, Dv)
+    Sk, Dv = k.shape[1], v.shape[-1]
+    g = randn(rng, B, S, h, Dv, dtype=dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = attention_fwd(q, k, v, **kw)
     got = attention_bwd(q, k, v, out, lse, g, **kw)
@@ -884,7 +985,8 @@ def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
                                  f"{scale}")
     del got, want
     req = [x.detach().requires_grad_() for x in (q, k, v)]
-    fns = dict(ms=lambda: attention_bwd(q, k, v, out, lse, g, **kw),
+    vp, outp, gp = pad_v(q, v, out, g)
+    fns = dict(ms=lambda: attention_bwd(q, k, vp, outp, lse, gp, **kw),
                plain_ms=lambda: attention_bwd(q, k, v, out, lse, g,
                                               impl="ref", **kw),
                fwd_bwd_ms=lambda: torch.autograd.grad(
@@ -899,16 +1001,21 @@ def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
         fns["library_fwd_bwd_ms"] = lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, **skw), req, gt)
     t = {"library_ms": None, "library_fwd_bwd_ms": None, **timings(**fns)}
+    if Dv != D:
+        t.update(v_pad_ms(q, (v, out, g), vp))
     ran = check_ran(name, fns["ms"], FLASH_BWD_KERNELS[dtype])
-    # five products of the forward's size: S, dP, dQ, dK, dV; each input
-    # (q, k, v, out, dO, lse) read once, each grad written once
-    flops = 10 * H * D * visible_keys(S, S, causal, window)
+    # the products of the forward's size: S and dQ, dK (2 D a pair each),
+    # dP and dV (2 Dv); each input (q, k, v, out, dO, lse) read once, each
+    # grad written once
+    flops = 2 * B * h * (3 * D + 2 * Dv) * visible_keys(S, Sk, causal,
+                                                        window)
     esz = q.element_size()
-    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * esz \
-        + lse.numel() * 4
+    nbytes = (2 * q.numel() + 2 * out.numel() + 2 * (k.numel() + v.numel())
+              ) * esz + lse.numel() * 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
     lib = t["library_ms"]
-    return {"case": name, "S": S, "D": D, "dtype": str(dtype),
+    return {"case": name, "S": S, "Sk": Sk, "B": B, "H": h, "KV": kv,
+            "D": D, "Dv": Dv, "dtype": str(dtype),
             "kernel": ran, "ms_by_kernel": kernel_split(fns["ms"]),
             "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
             "grad_rel_err": rel,
@@ -916,6 +1023,40 @@ def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
             **t, "tflops": flops / t["ms"] / 1e9,
             "ms_over_library": None if lib is None else t["ms"] / lib,
             **bound(nbytes, flops, peak)}
+
+
+def train_flash_cases(rng, run=None) -> list:
+    """Phase 15's flash shapes, forward and backward, each against its
+    plain version: MLA's Q/K 192 wide beside V 128 (16 heads over 16,
+    causal) at the training sequence in bf16 and at S=512 in float32;
+    recurrentgemma's D=256 MQA under its 2048 window; internvl2's 256
+    patches + 4096 tokens (14 heads over 2 of 64); whisper's encoder (S =
+    1500) and cross attention (its 448 decoder tokens against 1500 frames),
+    B=4, 20 heads over 20 of 64, non-causal.  ``run(case, rng, name, *a,
+    **kw)`` calls each case (default: the call itself)."""
+    run = run or (lambda case, *a, **kw: case(*a, **kw))
+    mla = dict(h=16, kv=16, D=192, Dv=128)
+    wh = dict(B=TRAIN_BATCH, h=20, kv=20, D=64, causal=False)
+    vlm_s = TRAIN_S + 256
+    cases = []
+    for case, tag in ((flash_case, "flash"), (flash_bwd_case, "flash bwd")):
+        cases += [
+            run(case, rng, f"{tag} S={TRAIN_S} causal D=192 Dv=128 H=KV=16 "
+                "(MLA)", TRAIN_S, **mla),
+            run(case, rng, f"{tag} S=512 causal D=192 Dv=128 H=KV=16 "
+                "float32 (MLA)", 512, dtype=torch.float32, **mla),
+            run(case, rng, f"{tag} S={TRAIN_S} D=256 H=16 KV=1 window=2048 "
+                "(recurrentgemma)", TRAIN_S, window=RG_WINDOW, h=16, kv=1,
+                D=256),
+            run(case, rng, f"{tag} S={vlm_s} D=64 H=14 KV=2 (internvl2)",
+                vlm_s, h=14, kv=2, D=64),
+            run(case, rng, f"{tag} S={WHISPER_FRAMES} B={TRAIN_BATCH} "
+                "H=KV=20 D=64 non-causal (whisper encoder)", WHISPER_FRAMES,
+                **wh),
+            run(case, rng, f"{tag} Sq={WHISPER_MAX_SEQ} Sk={WHISPER_FRAMES} "
+                f"B={TRAIN_BATCH} H=KV=20 D=64 non-causal (whisper cross)",
+                WHISPER_MAX_SEQ, Sk=WHISPER_FRAMES, **wh)]
+    return cases
 
 
 def ssd_inputs(rng, Bp, L, H, P, N, dtype):
@@ -2670,14 +2811,16 @@ def entry_point_run(args: list, kernels=(), device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def train_main_path(api, cfg, expected: dict) -> dict:
+def train_main_path(api, cfg, expected: dict, seq_len: int = TRAIN_S
+                    ) -> dict:
     """``expected``: each kernel wrapper the step must launch, with its
-    launches per step."""
+    launches per step; ``seq_len`` tokens a sequence (a VLM's patches and
+    an encoder-decoder's frames come beside them, from the pipeline)."""
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, LoopConfig, run_training
 
-    pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_S,
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=seq_len,
                          seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2692,14 +2835,20 @@ def train_main_path(api, cfg, expected: dict) -> dict:
                                                     res.losses)), res
     # random init: unit-RMS final norm times the tied N(0, 0.02^2)
     # embedding gives logits of std sigma = 0.02 sqrt(d_model), so the first
-    # loss is about ln(V) + sigma^2 / 2 (0.31 for qwen2, 0.41 for mamba2)
+    # loss is about ln(V) + sigma^2 / 2 (0.31 for qwen2, 0.41 for mamba2).
+    # An untied head (deepseek, recurrentgemma) is ``lm_head`` [d_model, V]
+    # drawn N(0, 0.02^2) too (its ParamSpec's scale=0.02): each logit is
+    # again a sum of d_model unit-RMS inputs times N(0, 0.02^2) weights, so
+    # sigma and the offset are the same formula (0.41 for deepseek, 0.82
+    # for recurrentgemma); whisper's LayerNorm leaves zero-mean unit-
+    # variance rows (0.26), internvl2's text logits as qwen2's (0.18)
     offset = 0.02 ** 2 * cfg.d_model / 2
     expect0 = math.log(cfg.vocab) + offset
     assert abs(res.losses[0] - expect0) < 0.5, (res.losses, expect0)
     for kernel, per_step in expected.items():
         assert launches[kernel] == per_step * TRAIN_STEPS, (kernel, launches)
     step_s = statistics.median(res.step_seconds[1:])
-    tokens = TRAIN_BATCH * TRAIN_S
+    tokens = TRAIN_BATCH * seq_len
     return {"losses": res.losses, "step_seconds": res.step_seconds,
             "step_s_median_2_4": step_s, "tokens_per_step": tokens,
             "tokens_per_s": tokens / step_s, "launches": launches,
@@ -2711,9 +2860,9 @@ def train_main_path(api, cfg, expected: dict) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def train_batch(cfg, n: int, seed: int = 0) -> dict:
+def train_batch(cfg, n: int, seed: int = 0, seq_len: int = TRAIN_S) -> dict:
     from repro_torch.data import TokenPipeline
-    b = TokenPipeline(cfg, global_batch=n, seq_len=TRAIN_S,
+    b = TokenPipeline(cfg, global_batch=n, seq_len=seq_len,
                       seed=seed).batch_at(0)
     return {k: torch.from_numpy(x).cuda() for k, x in b.items()}
 
@@ -2724,7 +2873,8 @@ def fresh_params(api, seed: int = 0):
     return init_params(api.init_specs(), gen, device="cuda")
 
 
-def train_profile(api, cfg, expected: dict, ops: dict) -> dict:
+def train_profile(api, cfg, expected: dict, ops: dict,
+                  seq_len: int = TRAIN_S) -> dict:
     """One warm train step, then a CUPTI window over the next, holding the
     step to ``expected`` launches (as train_main_path); ``ops`` maps each
     op to the names of its kernels in the trace, and each must show."""
@@ -2735,7 +2885,7 @@ def train_profile(api, cfg, expected: dict, ops: dict) -> dict:
         api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
         microbatches=TRAIN_MB)
     box = {"state": init_state(fresh_params(api))}
-    batch = train_batch(cfg, TRAIN_BATCH)
+    batch = train_batch(cfg, TRAIN_BATCH, seq_len=seq_len)
 
     def one():
         box["state"], m = step(box["state"], batch)
@@ -2753,13 +2903,9 @@ def train_profile(api, cfg, expected: dict, ops: dict) -> dict:
     return out
 
 
-# the bounds of train_path_vs_plain, by the reading each holds
-TRAIN_BOUNDS = {"loss_abs_diff": LOSS_TOL, "grad_norm_rel_diff": GNORM_TOL,
-                "leaf_rel_err_max": LEAF_TOL}
-
-
 def train_path_vs_plain(api, cfg, seed: int = 0,
-                        bounds: dict = TRAIN_BOUNDS) -> dict:
+                        bounds: dict = TRAIN_BOUNDS,
+                        seq_len: int = TRAIN_S) -> dict:
     """Loss and grads of one microbatch through the kernel and through the
     plain version, from the parameters and batch of ``seed``;
     ``within_tolerance`` says whether every bound in ``bounds`` (reading
@@ -2768,7 +2914,7 @@ def train_path_vs_plain(api, cfg, seed: int = 0,
     from repro_torch.train.optimizer import leaves
 
     params = fresh_params(api, seed)
-    batch = train_batch(cfg, 1, seed)
+    batch = train_batch(cfg, 1, seed, seq_len)
     got = {}
     for impl in (None, "ref"):
         loss, grads = make_loss_and_grad(api, 1, impl=impl)(params, batch)
@@ -2798,6 +2944,125 @@ def check_train_path(phase: str, res: dict) -> None:
     if not res["within_tolerance"]:
         raise AssertionError(f"{phase}: training kernel path vs plain path "
                              "outside its bounds")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the other families' training at full width
+# ---------------------------------------------------------------------------
+
+
+def flash_train_step(cfg) -> dict:
+    """Flash launches a train step of ``TRAIN_MB`` microbatches: under
+    remat "full" a layer group's forward runs again in the backward, so an
+    attention in a checkpointed group launches the forward twice and the
+    backward once; a hybrid's tail runs outside the checkpoints (once).
+    An encoder-decoder checkpoints every encoder and decoder layer: the
+    encoder's self attention, the decoder's self and cross attentions."""
+    if cfg.family == "encdec":
+        n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+        return {"flash_attention": 2 * n * TRAIN_MB,
+                "flash_attention_bwd": n * TRAIN_MB}
+    kinds = cfg.pattern_for_layers()
+    pattern = cfg.block_pattern or ("attn",)
+    n_group = (cfg.n_layers // len(pattern)) * len(pattern)
+    grouped = sum(k == "attn" for k in kinds[:n_group])
+    tail = sum(k == "attn" for k in kinds[n_group:])
+    return {"flash_attention": (2 * grouped + tail) * TRAIN_MB,
+            "flash_attention_bwd": (grouped + tail) * TRAIN_MB}
+
+
+def rglru_scan_peak(cfg, seq_len: int = TRAIN_S) -> dict:
+    """Device memory of one RG-LRU layer's ``rglru_train`` (its doubling
+    scan keeps log2 S float32 [B, S, L] pairs for the backward) at one
+    ``seq_len``-token sequence, bf16 activations: what the forward keeps
+    for the backward, and the peaks of the forward and of the backward,
+    each above the memory held before it."""
+    from repro_torch.models import init_params
+    from repro_torch.models.ssm import rglru_init, rglru_train
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(rglru_init(cfg), gen, device="cuda")
+    x = torch.randn(1, seq_len, cfg.d_model, device="cuda",
+                    generator=gen).to(cfg.dtype).requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = rglru_train(p, cfg, x)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    L = cfg.lru_width or cfg.d_model
+    return {"seq_len": seq_len, "lru_width": L,
+            "scan_rounds": math.ceil(math.log2(seq_len)),
+            "float32_BSL_gb": seq_len * L * 4 / 2**30,
+            "kept_for_backward_gb": kept / 2**30,
+            "forward_peak_gb": fwd_peak / 2**30,
+            "backward_peak_gb": bwd_peak / 2**30}
+
+
+def family_training(arch: str, layers, seq_len: int, seed: int,
+                    bounds: dict, float32_check: bool) -> dict:
+    """Phase 4's four AdamW steps (phase 4's gates: finite losses, the
+    first near ln V + sigma^2 / 2, exact flash launches a step), a
+    profiled step whose flash kernels must show in the trace by name,
+    and phase 5's kernel path against the plain path at ``seed``, in
+    float32 activations with ``float32_check``, held to ``bounds``;
+    ``layers`` cuts the depth (None: all)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = build_model(cfg)
+    expected = flash_train_step(cfg)
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "published_layers": get_config(arch).n_layers,
+           "seq_len": seq_len, "batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MB, "remat": cfg.remat}
+    out["train"] = train_main_path(api, cfg, expected, seq_len)
+    if cfg.family == "vlm":
+        out["train"]["positions_per_step"] = TRAIN_BATCH * (
+            seq_len + cfg.n_patch_tokens)
+    if cfg.family == "encdec":
+        out["train"]["frames_per_step"] = TRAIN_BATCH * cfg.enc_frames
+    release()
+    out["profile"] = train_profile(
+        api, cfg, expected,
+        {"flash_attention": tuple(FLASH_KERNELS.values()),
+         "flash_attention_bwd": FLASH_BWD_KERNELS[torch.bfloat16]},
+        seq_len)
+    release()
+    if cfg.family == "hybrid":
+        out["rglru_scan"] = rglru_scan_peak(cfg, seq_len)
+        release()
+    check_cfg = dataclasses.replace(cfg, dtype=torch.float32) \
+        if float32_check else cfg
+    out["path_vs_plain"] = train_path_vs_plain(
+        build_model(check_cfg), check_cfg, seed, bounds, seq_len)
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase15(card: str) -> dict:
+    """Every family of PHASE15 through ``family_training``, each logged
+    (its gated check failing the phase)."""
+    out = {}
+    for arch, layers, seq_len, seed, f32 in PHASE15:
+        res = family_training(arch, layers, seq_len, seed,
+                              FAMILY_BOUNDS[arch], f32)
+        log(f"phase15 {arch}", json.dumps(
+            {"card": card, **{k: v for k, v in res.items()
+                              if k != "path_vs_plain"}}))
+        check_train_path(f"phase15 {arch} kernel vs plain",
+                         res["path_vs_plain"])
+        out[arch] = res
+    return out
 
 
 def release() -> None:
@@ -2970,9 +3235,14 @@ def main() -> int:
           for what, case, extra in (("attention", attention_case, {}),
                                     ("fused", fused_case, {"library": True}))
           for C in (16, 1)),
+        # phase 15's training shapes
+        *train_flash_cases(rng),
     ]
     for c in cases:
         log("phase1", json.dumps(c))
+    log("phase1 V pad", json.dumps([
+        {k: c[k] for k in ("case", "ms", "pad_ms", "pad_ms_call")}
+        for c in cases if "pad_ms" in c]))
 
     cfg = get_config("qwen2-1.5b")
     api = build_model(cfg)
@@ -3123,6 +3393,11 @@ def main() -> int:
     log("phase14 (c) whisper profile", json.dumps(
         {"card": card, **whisper["profile"]}))
     log(f"phase14 seconds {time.perf_counter() - t14:.1f}")
+
+    t15 = time.perf_counter()
+    log(f"phase15 starts at {t15 - t_script:.1f} s")
+    families = phase15(card)
+    log(f"phase15 seconds {time.perf_counter() - t15:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -3326,6 +3601,33 @@ def main() -> int:
             "library_ms", "ms_over_library", "max_abs_err")}
             for x in by.values() if "H=KV=20" in x["case"]
             and x["case"].startswith("flash S")]})
+    # the flash forward and backward on phase 15's training paths, each
+    # family beside its phase-1 case
+    shape_of = {
+        "deepseek-v2-lite-16b": "S=4096 causal D=192 Dv=128 H=KV=16 (MLA)",
+        "recurrentgemma-9b": "S=4096 D=256 H=16 KV=1 window=2048 "
+                             "(recurrentgemma)",
+        "internvl2-1b": "S=4352 D=64 H=14 KV=2 (internvl2)",
+        "whisper-large-v3": f"Sq={WHISPER_MAX_SEQ} Sk={WHISPER_FRAMES} "
+                            f"B={TRAIN_BATCH} H=KV=20 D=64 non-causal "
+                            "(whisper cross)"}
+    for arch, res in families.items():
+        for name, case, src in (
+                ("flash_attention", f"flash {shape_of[arch]}",
+                 "src/repro_torch/kernels/csrc/flash_attention.cu"),
+                ("flash_attention_bwd", f"flash bwd {shape_of[arch]}",
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")):
+            c = by[case]
+            kernels.append({
+                "name": f"{name} ({arch} training)", "route": "cuda",
+                "source": src,
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+                "launches": res["train"]["launches"][name],
+                "path": f"phase 15: {arch} training",
+                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+                "call_ms": c["ms_call"], "timing": c["ms_timing"],
+                **({"pad_ms": c["pad_ms"]} if "pad_ms" in c else {})})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

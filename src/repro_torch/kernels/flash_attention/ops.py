@@ -22,6 +22,15 @@ no score and give zero output columns and grads, sliced off) and copies a
 base that is not on 16 bytes.  A head dim that is a multiple of 8 on an
 aligned base (every model's) launches as it is; so does the backward's
 upstream gradient.
+
+V may be narrower than Q and K (MLA: Q/K 192 wide, V 128): every entry
+point zero-pads V to q's head dim in plain PyTorch (``pad_v``) before the
+kernel or its plain version, and slices the output back.  The pad is
+exact: zero V columns give zero output columns, so the upstream gradient
+reaches the kernel with zeros there and ``dP = dO.V^T`` and ``delta`` are
+unchanged; autograd (or ``attention_bwd``) slices ``dv``.  The score
+scale stays ``D ** -0.5`` of q's width, as the reference's.  Neither
+kernel has a V width of its own yet.
 """
 
 from __future__ import annotations
@@ -48,6 +57,18 @@ def tma_operands(*ts: torch.Tensor):
         return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
     return tuple(t if t.data_ptr() % TMA_ALIGN == 0 else t.clone()
                  for t in ts)
+
+
+def pad_v(q: torch.Tensor, v: torch.Tensor, *ts: torch.Tensor):
+    """``v`` (and ``ts``, tensors of its width) zero-padded from V's width
+    ``Dv`` to q's head dim ``D``; ``Dv > D`` raises."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if Dv > D:
+        raise ValueError(f"flash_attention: V's head dim {Dv} is wider than "
+                         f"Q/K's {D}")
+    if Dv == D:
+        return (v, *ts)
+    return tuple(torch.nn.functional.pad(t, (0, D - Dv)) for t in (v, *ts))
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,22 +145,27 @@ class _FlashAttention(torch.autograd.Function):
 
 def attention(q: torch.Tensor,            # [B, Sq, H, D]
               k: torch.Tensor,            # [B, Sk, KV, D]
-              v: torch.Tensor,            # [B, Sk, KV, D]
+              v: torch.Tensor,            # [B, Sk, KV, Dv], Dv <= D
               *, causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, q_offset: int = 0,
               lengths: Optional[torch.Tensor] = None,
               impl: Optional[str] = None) -> torch.Tensor:
-    """Fused attention entry point used by every model block."""
+    """Fused attention entry point used by every model block: out [B, Sq,
+    H, Dv]."""
     impl = common.resolve_impl(q, impl)
+    Dv = v.shape[-1]
+    (v,) = pad_v(q, v)
     if q_offset != 0 or lengths is not None:
         if impl == "cuda":
             raise NotImplementedError(
                 "flash_attention: the CUDA kernel takes neither q_offset nor "
                 "lengths (no model passes them); use impl='ref'")
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset, softcap=softcap,
-                             lengths=lengths)
-    return _FlashAttention.apply(q, k, v, causal, window, softcap, impl)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, softcap=softcap,
+                            lengths=lengths)
+    else:
+        out = _FlashAttention.apply(q, k, v, causal, window, softcap, impl)
+    return out if Dv == q.shape[-1] else out[..., :Dv]
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -147,11 +173,15 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   softcap: Optional[float] = None,
                   impl: Optional[str] = None):
     """(out, lse) of one forward, without autograd: the kernel or its
-    plain version, as ``attention`` would pick them."""
+    plain version, as ``attention`` would pick them (V as there)."""
+    Dv = v.shape[-1]
+    (v,) = pad_v(q, v)
     if common.resolve_impl(q, impl) == "cuda":
-        return _launch(q, k, v, causal, window, softcap)
-    return blockwise_fwd(q, k, v, causal=causal, window=window,
-                         softcap=softcap)
+        out, lse = _launch(q, k, v, causal, window, softcap)
+    else:
+        out, lse = blockwise_fwd(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    return (out if Dv == q.shape[-1] else out[..., :Dv].contiguous()), lse
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,9 +230,14 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   impl: Optional[str] = None):
     """(dq, dk, dv) of ``sum(out * g)`` from one forward's ``out`` and
     ``lse``, without autograd: the backward kernel or ``blockwise_bwd``,
-    as ``attention`` would pick them."""
+    as ``attention`` would pick them (V, ``out`` and ``g`` of V's width,
+    padded as there)."""
+    Dv = v.shape[-1]
+    v, out, g = pad_v(q, v, out, g)
     if common.resolve_impl(q, impl) == "cuda":
-        return _launch_bwd(q, k, v, out, lse, g.contiguous(), causal, window,
-                           softcap)
-    return blockwise_bwd(q, k, v, out, lse, g, causal=causal, window=window,
-                         softcap=softcap)
+        dq, dk, dv = _launch_bwd(q, k, v, out, lse, g.contiguous(), causal,
+                                 window, softcap)
+    else:
+        dq, dk, dv = blockwise_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window, softcap=softcap)
+    return dq, dk, (dv if Dv == q.shape[-1] else dv[..., :Dv].contiguous())

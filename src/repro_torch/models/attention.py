@@ -12,8 +12,10 @@ width), unfused as in the reference.  Pools are updated IN PLACE (the JAX
 version returns new pools).  ``gqa_cross`` is the encoder-decoder's cross
 attention: queries from the decoder, K/V precomputed from the encoder
 output by ``cross_kv``, through ``kernels.attention`` (the flash kernel)
-non-causally.  ``mla_train`` waits for its slice (ROADMAP queue 1, item
-3.2).
+non-causally.  ``mla_train`` is MLA's full-sequence forward: K and V
+expanded from the latent per head, through the flash kernel at Q/K's
+head dim ``qk_nope + qk_rope`` (192 at full width) with V at its own
+``v_head_dim`` (128), which the op zero-pads to Q/K's width.
 """
 
 from __future__ import annotations
@@ -62,13 +64,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(
-            "MLA training (mla_train) is not ported yet (ROADMAP queue 1, "
-            "item 3.2); MLA serves through mla_serve")
-
-
 def gqa_init(cfg: ModelConfig) -> Dict:
     D, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -110,7 +105,8 @@ def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               return_kv: bool = False, impl: Optional[str] = None):
     """Full-sequence attention.  ``kv_override`` supplies external K/V
     (cross-attention).  Returns (out, (k, v) if return_kv)."""
-    _no_mla(cfg)
+    if cfg.mla:
+        raise ValueError("gqa_train: an MLA config trains through mla_train")
     q, k, v = _qkv(p, cfg, x, positions if use_rope else None, use_rope)
     if kv_override is not None:
         k, v = kv_override
@@ -234,6 +230,28 @@ def _mla_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """MLA's full-sequence forward: per-head K = [c_kv W_uk, k_rope] (the
+    rope part shared by every head) and V = c_kv W_uv, causal attention at
+    head dim dn + dr with V dv wide, then ``wo``.  x: [B, S, D]."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = cfg.dtype
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
+    v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                  dim=-1)
+    out = attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=True, softcap=cfg.attn_logit_softcap,
+                       impl=impl)
+    return out.reshape(B, S, H * dv) @ p["wo"].to(dt)
 
 
 def mla_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,

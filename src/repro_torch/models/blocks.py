@@ -11,8 +11,8 @@ The port has the reference's three kinds, all pre-norm residual: the
   rec   {"conv", "h"}      RG-LRU state, [B, ...] per layer
   ssm   {"conv", "ssd"}    Mamba2 state, [B, ...] per layer
 
-MLA training raises ``NotImplementedError`` until its slice lands
-(ROADMAP queue 1, item 3.2).
+An MLA config's attention trains through ``mla_train`` and serves through
+``mla_serve``; the MoE channel mix through ``moe_apply`` in both.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from .attention import (gqa_init, gqa_serve, gqa_train, mla_init,
-                        mla_serve)
+                        mla_serve, mla_train)
 from .config import ModelConfig
 from .layers import (mlp_apply, mlp_init, moe_apply, moe_init, norm_apply,
                      norm_init)
@@ -66,8 +66,11 @@ def block_train(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if kind == "rec":
         x = x + rglru_train(p["rec"], cfg, h)
         return x + mlp_apply(p["mlp"], cfg, norm_apply(p["norm2"], cfg, x))
-    h = gqa_train(p["attn"], cfg, h, positions, window=cfg.attn_window,
-                  use_rope=cfg.rope_theta is not None, impl=impl)
+    if cfg.mla:
+        h = mla_train(p["attn"], cfg, h, positions, impl=impl)
+    else:
+        h = gqa_train(p["attn"], cfg, h, positions, window=cfg.attn_window,
+                      use_rope=cfg.rope_theta is not None, impl=impl)
     x = x + h
     h = norm_apply(p["norm2"], cfg, x)
     return x + _channel_mix(p, cfg, h)

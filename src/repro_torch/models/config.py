@@ -94,6 +94,12 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode state: SSM and hybrid (bounded local
+        attention)."""
+        return self.family in ("ssm", "hybrid")
+
     def kv_pages_per_seq(self, max_seq: int, page_tokens: int) -> int:
         """THE pool-sizing formula (single source: init_caches and the
         engine's KVGeometry both derive from here).  One page chain per

@@ -4,8 +4,8 @@ mixer (port of ``repro/models/layers.py``).
 Norms compute in float32 and cast back to ``cfg.dtype``; parameters are
 cast to ``cfg.dtype`` at each use (``x @ w.to(dt)``), as the reference
 does — a no-op when the serving engine already cast them once at load.
-The MoE's load-balance loss (``moe_aux_loss``) belongs to training
-(ROADMAP queue 1, item 3.2).
+The MoE's load-balance loss (``moe_aux_loss``) is ported with the
+reference's; as there, no loss calls it.
 """
 
 from __future__ import annotations
@@ -192,3 +192,17 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(xt @ sp["wi_gate"].to(dt)) * (xt @ sp["wi_up"].to(dt))
         out = out + h @ sp["wo"].to(dt)
     return out.reshape(B, S, D)
+
+
+def moe_aux_loss(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Load-balance auxiliary loss (Switch-style fraction * prob) of x [B,
+    S, D]: E * sum_e (share of the top-k picks that chose e) * (mean router
+    probability of e), the picks taken as ``moe_route`` takes them."""
+    E, K = cfg.n_experts, cfg.top_k
+    xt = x.reshape(-1, x.shape[-1])
+    logits = (xt @ p["router"].to(cfg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    _, experts = top_k_experts(logits, K)
+    counts = torch.bincount(experts.reshape(-1), minlength=E).float()
+    frac = counts / counts.sum()
+    return E * torch.sum(frac * probs.mean(0))
