@@ -205,13 +205,31 @@ sm_90a) and then, failing with a non-zero exit on any error:
      (256 patch embeddings + 4096 tokens) and whisper-large-v3 (1500
      frames, 448 decoder tokens: the encoder, the decoder's self and
      cross attentions).
+ 16. reduces the grads across ranks through the compressed codec (run
+     before phase 11): (a) qwen2-1.5b at full width and depth over a
+     one-rank NCCL group, phase 4's shape, ``run_training`` for 3 steps
+     each of codec none, int8 and top-k from the same params, every
+     reduction timed with CUDA events and each bucket held to the codec's
+     identities (``CodecProbe``), the flash launches a step phase 4's,
+     the residuals non-zero, int8's losses within ``POD_LOSS_TOL`` of
+     none's; it prints the bucket plan, the residuals' GB, the int8
+     wire's bytes against float32's, the codec's ms and share of a step
+     and the peak memory; (b) two ranks spawned on the one card over
+     gloo, each through ``run_training(pod_group=...)``, qwen2-1.5b at
+     full width on 4 of 28 layers, 2 steps each of none and int8: every
+     bucket's reduction within the rounding bound of the plain float32
+     mean of both ranks' values, both ranks' params bitwise equal after
+     every step, their residual rows different, int8 within (a)'s bound
+     of none.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB), phase 11 (a)'s qwen2-1.5b (14
 of its 28 layers, at full width: three saves and three restores of the
 full-depth state took 462-598 s of the script's 1200 s) and phase 15's
 deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
-their float32 training state does not fit 80 GB at full depth.
+their float32 training state does not fit 80 GB at full depth; and
+phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
+one card and its float32 grads through the host fit the phase's time).
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -389,6 +407,35 @@ PHASE15 = (("deepseek-v2-lite-16b", DS_TRAIN_LAYERS, TRAIN_S, 0, True),
 # and three restores of the full 18.52 GB state took 462-598 s of the
 # script's 1200 s)
 PHASE11_LAYERS = 14
+# phase 16: the compressed gradient reduction on qwen2-1.5b.  (a) one rank
+# (NCCL) at full width and depth, phase 4's shape, 3 steps a codec from the
+# same params; (b) two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device) at full width on 4 of 28 layers: ~0.42 G parameters,
+# so ~1.7 GB of float32 grads a rank a step pass through the host, two
+# ranks' state (~10 GB each with the residuals) fits beside each other,
+# and the phase stays within its 120 s
+POD_CODECS = ("none", "int8", "topk")
+POD_STEPS = 3
+POD_BUCKETS = 10                     # qwen2-1.5b at DEFAULT_BUCKET_ELEMS
+POD_RANKS, POD_RANK_LAYERS, POD_RANK_STEPS = 2, 4, 2
+POD_RANK_TIMEOUT = 300               # seconds for (b)'s two processes
+# int8's losses against codec "none"'s at the same params and batches,
+# the largest |loss_int8 - loss_none| over the 3 steps, read by
+# ``python3 tools/codec_gate.py`` at seeds 0-2 (H100 80GB HBM3, 700 W):
+# the codec 5.7e-4, 3.7e-4, 4.1e-3; a copy that drops the residual
+# 6.2e-4, 3.2e-4, 3.9e-3 (three steps cannot show the lost feedback);
+# a copy that truncates 1.5e-2, 2.5e-3, 1.0e-2.  The loss gap separates
+# neither copy at every seed; ``CodecProbe``'s identities catch both at
+# every seed (the new residual is not x - reduced; |reduced - x| reads
+# 2.0 of scale / 2).  The bound sits 2x above the codec's largest reading
+POD_LOSS_TOL = 8e-3
+# phase 16's int8 bound, scale / 2 an element (over two ranks, the mean
+# of the ranks' scale / 2), widened by float32's rounding of x / scale
+# and q * scale (up to ~127 ulps of the block's largest |x|: ~3e-5 of
+# scale / 2) and, over two ranks, of the two sums the mean takes
+# (~3e-5 more); truncation reads up to 2, a mean never divided by the
+# group's size ~254
+INT8_ROUNDING_SLACK = 1e-4
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_tc_kernel"}
@@ -3065,6 +3112,401 @@ def phase15(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the compressed gradient reduction across ranks
+# ---------------------------------------------------------------------------
+
+
+class CodecProbe:
+    """Wraps the train step's reduction (``compression.
+    bucketed_compressed_psum``, or ``train.step.exact_mean`` for codec
+    "none") and its AdamW update while it is entered.  CUDA events time
+    each reduction; then, outside the timed region, every bucket of a
+    compressed call is held to the plain float32 mean over the group of
+    each rank's ``x = flat + err`` (all-reduced beside the codec's own
+    reduction): top-k exactly, ``reduced == mean(x - new_err)`` with
+    ``x - new_err`` this rank's kept entries (each ``x`` or zero, no
+    dropped entry above a kept one, the residual the dropped ones); int8
+    within the group's mean of ``scale / 2`` (the rounding bound,
+    ``scale`` of ``x``'s block), and on one rank ``new_err == x -
+    reduced`` bitwise with ``|reduced + new_err - x|`` within ``scale /
+    2``.  Over more than one rank, the parameters are compared bitwise
+    with rank 0's after each AdamW update.  ``readings`` keeps the largest of each reading, ``ms`` the
+    reductions' times, ``check_s`` the host seconds the checks took,
+    ``residuals`` the last residual rows."""
+
+    def __init__(self):
+        from repro_torch.dist import compression
+        import repro_torch.train.step as train_step
+        self.compression, self.train_step = compression, train_step
+        self.ms, self.check_s = [], []
+        self.readings = Counter()
+        self.failures = []
+        self.residuals = []
+        self.params_equal = []
+        self.group = None
+
+    def __enter__(self):
+        self.real = (self.compression.bucketed_compressed_psum,
+                     self.train_step.exact_mean,
+                     self.train_step.adamw_update)
+        self.compression.bucketed_compressed_psum = self.psum
+        self.train_step.exact_mean = self.mean
+        self.train_step.adamw_update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        (self.compression.bucketed_compressed_psum,
+         self.train_step.exact_mean,
+         self.train_step.adamw_update) = self.real
+
+    def timed(self, fn, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        end.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+    def mean(self, grads, group):
+        self.group = group
+        out = self.timed(self.real[1], grads, group)
+        self.check_s.append(0.0)
+        return out
+
+    def psum(self, tree, residuals, group, *, plan, codec, topk_frac):
+        self.group = group
+        out, new = self.timed(self.real[0], tree, residuals, group,
+                              plan=plan, codec=codec, topk_frac=topk_frac)
+        t0 = time.perf_counter()
+        self.check(tree, residuals, out, new, plan, codec, group)
+        self.residuals = new
+        self.check_s.append(time.perf_counter() - t0)
+        return out, new
+
+    def update(self, cfg, params, grads, state):
+        import torch.distributed as dist
+        from repro_torch.tree import leaves
+        out = self.real[2](cfg, params, grads, state)
+        if dist.get_world_size(self.group) == 1:
+            return out
+        t0 = time.perf_counter()
+        same = torch.ones((), device="cuda")
+        for p in leaves(out[0]):
+            p0 = p.clone()
+            dist.broadcast(p0, group=self.group, group_src=0)
+            same *= torch.equal(p0.view(torch.int32), p.view(torch.int32))
+            del p0
+        dist.all_reduce(same, op=dist.ReduceOp.MIN, group=self.group)
+        self.params_equal.append(bool(same.item()))
+        self.check_s[-1] += time.perf_counter() - t0
+        return out
+
+    def read(self, key: str, value: float) -> None:
+        self.readings[key] = max(self.readings[key], value)
+
+    @staticmethod
+    def group_mean(x, group):
+        import torch.distributed as dist
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x / dist.get_world_size(group)
+
+    def check(self, tree, residuals, out, new, plan, codec, group) -> None:
+        import torch.distributed as dist
+        from repro_torch.tree import leaves
+        c = self.compression
+        one = dist.get_world_size(group) == 1
+        grads, reduced = leaves(tree), leaves(out)
+        for b in range(plan.num_buckets):
+            x = c.bucket_flat(grads, plan, b) + residuals[b]
+            red = c.bucket_flat(reduced, plan, b)
+            e = new[b]
+            if codec == "topk":
+                sent = x - e
+                kept = sent != 0
+                if not (torch.equal(sent[kept], x[kept])
+                        and torch.equal(e[~kept], x[~kept])):
+                    self.failures.append((b, "top-k's residual is not "
+                                          "the dropped entries"))
+                if not torch.equal(red, self.group_mean(sent, group)):
+                    self.failures.append((b, "top-k's mean is not the "
+                                          "kept entries' mean"))
+                ax = x.abs()
+                lo = ax[kept].min() if kept.any() else x.new_zeros(())
+                hi = ax[~kept].max() if (~kept).any() else x.new_zeros(())
+                if hi > lo:
+                    self.failures.append((b, "a dropped entry tops a kept"))
+                self.read("kept_share", float(kept.float().mean()))
+                continue
+            half = torch.clamp_min(
+                x.reshape(-1, c.BLOCK).abs().amax(1, keepdim=True) / 127.0,
+                torch.finfo(torch.float32).tiny) / 2
+            # float32 rounding of x / scale and of q * scale adds up to
+            # ~127 ulps of the block's largest |x|, 3e-5 of scale / 2
+            bound = self.group_mean(half, group).expand(
+                -1, c.BLOCK).reshape(-1)
+            err_r = float(((red - self.group_mean(x, group)).abs()
+                           / bound).max())
+            self.read("codec_err_over_half_scale", err_r)
+            if one:
+                if not torch.equal(e, x - red):
+                    self.failures.append((b, "new_err != x - reduced"))
+                tel_r = float(((red + e - x).abs() / bound).max())
+                self.read("telescope_over_half_scale", tel_r)
+                err_r = max(err_r, tel_r)
+            if err_r > 1 + INT8_ROUNDING_SLACK:
+                self.failures.append((b, "outside the int8 rounding bound"))
+
+
+def pod_plan_summary(plan) -> dict:
+    """The bucket plan and what its residuals and wire hold."""
+    from repro_torch.dist.compression import BLOCK
+    n, padded = sum(plan.sizes), sum(plan.padded_sizes)
+    wire = padded + 4 * (padded // BLOCK)
+    return {"buckets": plan.num_buckets, "leaves": sum(map(len,
+                                                          plan.groups)),
+            "elements": n, "largest_bucket": max(plan.sizes),
+            "residual_gb": 4 * padded / 1e9,
+            "int8_wire_bytes": wire, "float32_wire_bytes": 4 * n,
+            "int8_over_float32": wire / (4 * n)}
+
+
+def pod_one_rank(cfg, seed: int = 0, codecs=POD_CODECS,
+                 steps: int = POD_STEPS, expected=None) -> dict:
+    """Phase 16 (a): ``run_training`` over a one-rank NCCL group (a
+    FileStore in a temporary directory) for ``steps`` steps of each codec,
+    params and batches from ``seed``, through a ``CodecProbe``; each run's
+    flash launches a step are read for ``expected``."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+    from repro_torch.train.step import grad_bucket_plan
+
+    api = build_model(cfg)
+    out = {"plan": pod_plan_summary(grad_bucket_plan(api)), "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            for codec in codecs:
+                pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_S, seed=seed)
+                release()
+                torch.cuda.reset_peak_memory_stats()
+                common.reset_launch_counts()
+                with CodecProbe() as probe:
+                    res = run_training(
+                        api, pipe, LoopConfig(steps=steps,
+                                              microbatches=TRAIN_MB,
+                                              seed=seed, codec=codec),
+                        AdamWConfig(lr=3e-4, warmup_steps=2,
+                                    total_steps=TRAIN_STEPS),
+                        device="cuda", pod_group=dist.group.WORLD)
+                launches = dict(common.LAUNCHES)
+                step_ms = [1e3 * (a - b) for a, b in
+                           zip(res.step_seconds, probe.check_s)]
+                out["runs"][codec] = {
+                    "losses": res.losses, "codec_ms": probe.ms,
+                    "step_ms_without_checks": step_ms,
+                    "check_s": probe.check_s,
+                    "codec_share": [m / t for m, t in zip(probe.ms,
+                                                          step_ms)],
+                    "readings": dict(probe.readings),
+                    "failures": probe.failures,
+                    "params_equal": probe.params_equal,
+                    "residual_nonzero": any(bool(e.any())
+                                            for e in probe.residuals),
+                    "launches": launches,
+                    "launches_per_step": {
+                        k: launches.get(k, 0) / steps
+                        for k in (expected or {})},
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                del res, probe
+        finally:
+            dist.destroy_process_group()
+    release()
+    none = out["runs"].get("none")
+    for codec, run in out["runs"].items():
+        if none is not None and codec != "none":
+            run["loss_gap_vs_none"] = max(
+                abs(a - b) for a, b in zip(run["losses"], none["losses"]))
+    return out
+
+
+def check_pod_one_rank(res: dict, expected: dict) -> None:
+    """Phase 16 (a)'s gates."""
+    plan = res["plan"]
+    assert plan["buckets"] == POD_BUCKETS, plan
+    for codec, run in res["runs"].items():
+        assert all(map(math.isfinite, run["losses"])), (codec, run)
+        assert run["launches_per_step"] == expected, (codec, run)
+        assert not run["failures"], (codec, run["failures"])
+        if codec != "none":
+            assert run["residual_nonzero"], codec
+    assert res["runs"]["int8"]["loss_gap_vs_none"] <= POD_LOSS_TOL, res
+
+
+def pod_rank(rank: int, world: int, store_path: str, out_path: str,
+             layers: int, steps: int) -> None:
+    """Phase 16 (b), one rank: a gloo group over ``store_path`` on the one
+    card, ``run_training(pod_group=...)`` on qwen2-1.5b at full width on
+    ``layers`` layers, ``steps`` steps of codecs none and int8 from the
+    same params (seed 0), this rank's rows of phase 4's global batch of
+    four in microbatches of one, through a ``CodecProbe`` (each bucket
+    held to the plain mean of both ranks' ``x``, both ranks' params
+    compared bitwise after every step); after int8 each rank's residual
+    rows, per bucket (sum, sum of squares in float64), gathered to
+    compare."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    group = dist.group.WORLD
+    out = {"rank": rank}
+    # gloo's all_reduce and broadcast on the card's tensors, first
+    probe = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(probe, group=group)
+    dist.broadcast(probe, src=0, group=group)
+    out["gloo_all_reduce_broadcast"] = \
+        probe.tolist() == [world * (world + 1) / 2] * 4
+    assert out["gloo_all_reduce_broadcast"], probe
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers)
+    api = build_model(cfg)
+    out["runs"] = {}
+    for codec in ("none", "int8"):
+        pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_S,
+                             seed=0)
+        common.reset_launch_counts()
+        with CodecProbe() as probe:
+            res = run_training(
+                api, pipe, LoopConfig(steps=steps,
+                                      microbatches=TRAIN_MB // world,
+                                      seed=0, codec=codec),
+                AdamWConfig(lr=3e-4, warmup_steps=2,
+                            total_steps=TRAIN_STEPS),
+                device="cuda", pod_group=group)
+        run = {"losses": res.losses, "step_s": res.step_seconds,
+               "check_s": probe.check_s, "codec_ms": probe.ms,
+               "params_equal": probe.params_equal,
+               "readings": dict(probe.readings),
+               "failures": probe.failures,
+               "launches": dict(common.LAUNCHES)}
+        if probe.residuals:
+            nb = len(probe.residuals)
+            stats = torch.zeros((world, nb, 2), dtype=torch.float64,
+                                device="cuda")
+            for b, e in enumerate(probe.residuals):
+                stats[rank, b, 0] = e.double().sum()
+                stats[rank, b, 1] = e.double().square().sum()
+            dist.all_reduce(stats, group=group)
+            run["residual_rows_differ"] = not torch.equal(stats[0],
+                                                          stats[1])
+            run["residual_nonzero"] = bool(stats.abs().sum() > 0)
+        out["runs"][codec] = run
+        del res, probe
+        release()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def pod_two_ranks(layers: int = POD_RANK_LAYERS,
+                  steps: int = POD_RANK_STEPS, entry=None) -> dict:
+    """Phase 16 (b): ``pod_rank`` in two processes spawned with
+    ``torch.multiprocessing``, each within ``POD_RANK_TIMEOUT``; both are
+    killed at the deadline.  ``entry`` (``tools/codec_gate.py``'s broken
+    copies) takes ``_pod_rank_entry``'s place."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            entry or _pod_rank_entry, args=(POD_RANKS, tmp, layers, steps),
+            nprocs=POD_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + POD_RANK_TIMEOUT
+        try:
+            while not ctx.join(timeout=2):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"phase 16 (b): the ranks ran past "
+                                       f"{POD_RANK_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(POD_RANKS)]
+    return {"ranks": ranks, "layers": layers, "steps": steps,
+            "seconds": time.perf_counter() - t0}
+
+
+def _pod_rank_entry(rank, world, tmp, layers, steps):
+    pod_rank(rank, world, os.path.join(tmp, "store"),
+             os.path.join(tmp, f"rank{rank}.json"), layers, steps)
+
+
+def check_pod_two_ranks(res: dict, expected: dict) -> None:
+    """Phase 16 (b)'s gates: the ranks' params bitwise equal after every
+    step, every bucket's reduction within the bound of the plain mean of
+    both ranks' values, their residual rows differ, the same losses on
+    both ranks, and int8's losses within (a)'s bound of none's."""
+    r0, r1 = res["ranks"]
+    for codec in ("none", "int8"):
+        a, b = r0["runs"][codec], r1["runs"][codec]
+        for r in (a, b):
+            assert r["params_equal"] == [True] * res["steps"], res
+            assert not r["failures"], (codec, r["failures"])
+        assert a["losses"] == b["losses"], res
+        assert all(map(math.isfinite, a["losses"])), res
+        for r in (a, b):
+            for k, n in expected.items():
+                assert r["launches"].get(k, 0) == n * res["steps"], (k, r)
+    for r in (r0, r1):
+        assert r["runs"]["int8"]["residual_rows_differ"], res
+        assert r["runs"]["int8"]["residual_nonzero"], res
+    gap = max(abs(x - y) for x, y in zip(r0["runs"]["int8"]["losses"],
+                                         r0["runs"]["none"]["losses"]))
+    res["int8_loss_gap_vs_none"] = gap
+    assert gap <= POD_LOSS_TOL, res
+
+
+def phase16(card: str) -> dict:
+    """Phase 16 (a) and (b), each logged, then gated."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b")
+    flash_step = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB,
+                  "flash_attention_bwd": cfg.n_layers * TRAIN_MB}
+    t0 = time.perf_counter()
+    one = pod_one_rank(cfg, expected=flash_step)
+    one["seconds"] = time.perf_counter() - t0
+    log("phase16 (a)", json.dumps({"card": card, **one}))
+    # each rank runs TRAIN_MB / POD_RANKS microbatches of its layers
+    rank_step = {k: v // cfg.n_layers * POD_RANK_LAYERS // POD_RANKS
+                 for k, v in flash_step.items()}
+    two = pod_two_ranks()
+    log("phase16 (b)", json.dumps({"card": card, **two}))
+    check_pod_one_rank(one, flash_step)
+    check_pod_two_ranks(two, rank_step)
+    return {"one_rank": one, "two_ranks": two}
+
+
 def release() -> None:
     """Return the memory of a finished phase to the card."""
     gc.collect()
@@ -3399,6 +3841,11 @@ def main() -> int:
     families = phase15(card)
     log(f"phase15 seconds {time.perf_counter() - t15:.1f}")
 
+    t16 = time.perf_counter()
+    log(f"phase16 starts at {t16 - t_script:.1f} s")
+    pods = phase16(card)
+    log(f"phase16 seconds {time.perf_counter() - t16:.1f}")
+
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
     # (b)'s two processes run beside (a), whose first minute formats its
@@ -3628,6 +4075,30 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
                 "call_ms": c["ms_call"], "timing": c["ms_timing"],
                 **({"pad_ms": c["pad_ms"]} if "pad_ms" in c else {})})
+    # the flash forward and backward on phase 16's path: (a)'s train steps
+    # through every codec over a one-rank group (phase 4's shape)
+    runs = pods["one_rank"]["runs"]
+    for name, case, src in (
+            ("flash_attention", "flash S=4096 causal",
+             "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            ("flash_attention_bwd", "flash bwd S=4096 causal",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")):
+        c = by[case]
+        kernels.append({
+            "name": f"{name} (qwen2-1.5b, compressed reduction)",
+            "route": "cuda", "source": src,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches_by_codec": {k: r["launches"][name]
+                                  for k, r in runs.items()},
+            "launches_two_ranks": [r["runs"][k]["launches"][name]
+                                   for r in pods["two_ranks"]["ranks"]
+                                   for k in r["runs"]],
+            "path": "phase 16: qwen2-1.5b training, one rank, codecs "
+                    + ", ".join(runs),
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+            "call_ms": c["ms_call"], "timing": c["ms_timing"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,6 +100,10 @@ class ModelConfig:
         attention)."""
         return self.family in ("ssm", "hybrid")
 
+    @property
+    def has_decode_step(self) -> bool:
+        return True  # encoder-only archs would return False; all 10 decode
+
     def kv_pages_per_seq(self, max_seq: int, page_tokens: int) -> int:
         """THE pool-sizing formula (single source: init_caches and the
         engine's KVGeometry both derive from here).  One page chain per

@@ -17,7 +17,8 @@ surface
         -> (logits [B, C, V], caches)
 
 processes up to C new tokens per sequence per call; decode is the C=1
-slice.  The API owns the KV pool geometry (``kv_geometry``), so the
+slice, ``decode_step(params, tokens [B, 1], caches, impl=None)``.  The
+API owns the KV pool geometry (``kv_geometry``), so the
 engine's controller and the device pools derive from one formula (an SSM
 model keeps the controller's page metadata, as the reference does, but
 no pools).  A VLM serves through the decoder's step, with no prefix, as
@@ -49,6 +50,12 @@ class ModelAPI:
     init_caches: Callable[..., Dict]      # (batch, max_seq, page_tokens, *, device)
     serve_step: Callable[..., Any]        # (params, tokens[B,C], caches, n_new[B], impl)
     kv_geometry: Callable[..., KVGeometry]  # (max_batch, max_seq, page_tokens)
+
+    def decode_step(self, params, tokens, caches, impl=None):
+        """Single-token decode: the C=1 slice of the unified serve_step."""
+        n_new = torch.ones((tokens.shape[0],), dtype=torch.int32,
+                           device=tokens.device)
+        return self.serve_step(params, tokens, caches, n_new, impl=impl)
 
 
 def _kv_geometry(cfg: ModelConfig, max_batch: int, max_seq: int,

@@ -1,5 +1,5 @@
-"""Training loop on one device (port of ``repro/train/loop.py``): data
-pipeline -> train_step -> checkpoint -> fault path.
+"""Training loop, one device a rank (port of ``repro/train/loop.py``):
+data pipeline -> train_step -> checkpoint -> fault path.
 
 The loop consumes heartbeats, saves through the SplitFS checkpoint
 manager, and on (injected or real) failure the caller restarts it: it
@@ -16,18 +16,34 @@ Parameters are drawn from ``torch.Generator(device).manual_seed(seed)``
 numpy pipeline and go to the device with ``torch.from_numpy(...).to``.
 The step updates the state in place; a restore replaces the state with
 the restored tensors (``opt["step"]`` included), which the next in-place
-step then updates.  The reference's pod-reduction codec options are
-ROADMAP queue 1, item 5.
+step then updates.
+
+With ``pod_group`` (a ``torch.distributed`` process group, one process a
+rank: the reference's ``"pod"`` mesh axis) the step reduces the grads
+across the group through ``loop_cfg.codec`` (``train.step``).  Every
+rank draws the same global batch from its pipeline and keeps its own
+contiguous rows ``[r*B/W, (r+1)*B/W)``, the reference's ``P("pod")``
+split on dim 0; every rank draws the same parameters from the seed.  Rank
+0 alone holds the ``CheckpointManager``: a save gathers each bucket's
+residual rows into the reference's global ``[W * n]`` layout, rank-major;
+a restore on rank 0 broadcasts the params, the optimizer state and the
+pipeline's position, and hands each rank its own residual row.  The
+fault path (``monitor``, ``policy``) does not run over a group.  The
+reference's mesh and its shardings (``dist/sharding.py``,
+``models/shardctx.py``, ``serve/step.py``'s ``gspmd`` / ``shard_map``
+variants, ``train.step.pod_err_struct``) have no port: a rank holds whole
+parameters.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager
 from ..data.pipeline import TokenPipeline
@@ -35,6 +51,7 @@ from ..dist.fault import FaultPolicy, HeartbeatMonitor, RemeshPlan, StealPlan
 from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
 from ..models.spec import init_params
+from ..tree import leaves, unflatten
 from .optimizer import AdamWConfig
 from .step import make_train_step
 
@@ -46,6 +63,8 @@ class LoopConfig:
     log_every: int = 10
     microbatches: int = 1
     seed: int = 0
+    codec: str = "int8"              # pod-reduction codec (int8 | topk | none)
+    bucket_elems: Optional[int] = None   # None = compression default
 
 
 @dataclass
@@ -59,34 +78,117 @@ class LoopResult:
     step_seconds: List[float] = field(default_factory=list)
 
 
+def gather_residuals(errs: List[torch.Tensor], group
+                     ) -> Optional[List[torch.Tensor]]:
+    """Every rank's residual rows, bucket by bucket, as the reference's
+    global ``[W * n]`` buffers (rank-major) on rank 0; None on the other
+    ranks.  A collective: every rank of ``group`` calls it."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    out = []
+    for e in errs:
+        rows = []
+        for r in range(world):
+            buf = e if r == rank else torch.empty_like(e)
+            dist.broadcast(buf, group=group, group_src=r)
+            rows.append(buf)
+        if rank == 0:
+            out.append(torch.cat(rows))
+    return out if rank == 0 else None
+
+
+def _broadcast_state(state: Dict, restored: Optional[Dict], group) -> Dict:
+    """Rank 0's restored params, optimizer state and residuals on every
+    rank: params and moments bitwise, and each rank's own row of every
+    global ``[W * n]`` residual buffer.  A collective."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    out = dict(state)
+    for key in ("params", "opt"):
+        mine = leaves(state[key]) if rank else leaves(restored[key])
+        for t in mine:
+            dist.broadcast(t, group=group, group_src=0)
+        out[key] = unflatten(state[key], mine)
+    if "err" in state:
+        rows = []
+        for e in state["err"]:
+            full = restored["err"][len(rows)] if rank == 0 else \
+                torch.empty(world * e.numel(), dtype=e.dtype,
+                            device=e.device)
+            dist.broadcast(full, group=group, group_src=0)
+            rows.append(full[rank * e.numel():(rank + 1) * e.numel()].clone())
+        out["err"] = rows
+    return out
+
+
 def run_training(api: ModelAPI, pipeline: TokenPipeline,
                  loop_cfg: LoopConfig, opt_cfg: AdamWConfig, *,
                  ckpt: Optional[CheckpointManager] = None,
                  monitor: Optional[HeartbeatMonitor] = None,
                  worker: int = 0,
                  policy: Optional[FaultPolicy] = None,
-                 device="cuda", crash_at: Optional[int] = None) -> LoopResult:
+                 device="cuda", crash_at: Optional[int] = None,
+                 pod_group=None) -> LoopResult:
     """Run (or resume) training.  ``crash_at`` raises after that step's
-    checkpointable state exists — tests use it to exercise restart."""
+    checkpointable state exists — tests use it to exercise restart.
+    ``pod_group``: reduce the grads across this group's ranks (module
+    docstring); ``ckpt`` then belongs to rank 0 alone, and ``monitor``
+    and ``policy`` are refused (each rank would plan on its own)."""
     dev = resolve_device(device)
+    rank = world = None
+    if pod_group is not None:
+        rank = dist.get_rank(pod_group)
+        world = dist.get_world_size(pod_group)
+        if ckpt is not None and rank != 0:
+            raise ValueError(f"rank {rank} was given a CheckpointManager: "
+                             "rank 0 alone saves and restores")
+        if monitor is not None or policy is not None:
+            # the fault path plans on each rank alone: a rank that steps
+            # out, or stops for a remesh, would leave the others blocked
+            # in the group's next collective
+            raise ValueError("a HeartbeatMonitor or FaultPolicy does not "
+                             "run over a pod_group")
+        if pipeline.local_batch % world:
+            raise ValueError(f"a batch of {pipeline.local_batch} rows does "
+                             f"not split over {world} ranks")
+        rows = pipeline.local_batch // world
+        lo, hi = rank * rows, (rank + 1) * rows
+    step_kwargs = {}
+    if loop_cfg.bucket_elems is not None:
+        step_kwargs["bucket_elems"] = loop_cfg.bucket_elems
     train_step, init_state = make_train_step(
-        api, opt_cfg, microbatches=loop_cfg.microbatches)
+        api, opt_cfg, microbatches=loop_cfg.microbatches,
+        pod_group=pod_group, codec=loop_cfg.codec, **step_kwargs)
     gen = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
     state = init_state(init_params(api.init_specs(), gen, device=dev),
                        device=dev)
     result = LoopResult()
     start = 0
-    if ckpt is not None:
-        restored = ckpt.restore(state)
-        if restored is not None:
-            start, state, extra = restored
-            pipeline.restore(extra.get("pipeline_step", start))
+    restored = ckpt.restore(state) if ckpt is not None else None
+    has_ckpt = ckpt is not None
+    if pod_group is not None:
+        # rank 0 tells the group whether it checkpoints and what it restored
+        head = torch.tensor(
+            [has_ckpt, restored is not None,
+             restored[0] if restored else 0,
+             restored[2].get("pipeline_step", restored[0]) if restored
+             else 0], dtype=torch.int64, device=dev)
+        dist.broadcast(head, group=pod_group, group_src=0)
+        has_ckpt, found, start, pipe_step = (int(x) for x in head.tolist())
+        if found:
+            state = _broadcast_state(
+                state, restored[1] if restored else None, pod_group)
+            pipeline.restore(pipe_step)
             result.restored_from = start
+    elif restored is not None:
+        start, state, extra = restored
+        pipeline.restore(extra.get("pipeline_step", start))
+        result.restored_from = start
 
     for step in range(start, loop_cfg.steps):
         t0 = time.monotonic()
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in next(pipeline).items()}
+        batch = next(pipeline)
+        if pod_group is not None:          # this rank's rows of the batch
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         state, metrics = train_step(state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0
@@ -117,9 +219,15 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
                 return result
         if not np.isfinite(loss):
             raise FloatingPointError(f"loss diverged at step {step}: {loss}")
-        if ckpt is not None and (step + 1) % loop_cfg.ckpt_every == 0:
-            ckpt.save(step + 1, state,
-                      extra={"pipeline_step": pipeline.snapshot()})
+        if has_ckpt and (step + 1) % loop_cfg.ckpt_every == 0:
+            tree = state
+            if "err" in state and pod_group is not None:
+                tree = {**state,
+                        "err": gather_residuals(state["err"], pod_group)}
+            if ckpt is not None:
+                ckpt.save(step + 1, tree,
+                          extra={"pipeline_step": pipeline.snapshot()})
+            del tree
         if crash_at is not None and step + 1 >= crash_at:
             raise RuntimeError(f"injected crash at step {step + 1}")
     return result

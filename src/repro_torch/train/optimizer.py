@@ -1,6 +1,7 @@
 """AdamW with decoupled weight decay, global-norm clipping and linear
 warmup + cosine decay (port of ``repro/train/optimizer.py``), on the same
-nested dicts of tensors, walked in sorted-key order as JAX flattens them.
+nested dicts of tensors, walked in sorted-key order as JAX flattens them
+(``repro_torch.tree``).
 
 Where the reference returns new parameters and moments (and its train
 step donates the old ones), ``adamw_update`` updates params, mu and nu IN
@@ -13,9 +14,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+
+from ..tree import leaves, unflatten
 
 
 @dataclass(frozen=True)
@@ -29,25 +32,6 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10000
     min_lr_ratio: float = 0.1
-
-
-def leaves(tree: Any) -> List[torch.Tensor]:
-    """Tensor leaves of nested dicts in sorted-key order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    return [tree]
-
-
-def unflatten(like: Any, flat: List[torch.Tensor]) -> Any:
-    """``flat`` (in ``leaves`` order) rebuilt into the structure of
-    ``like``."""
-    it = iter(flat)
-
-    def build(node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(like)
 
 
 def adamw_init(params: Any) -> Dict:
