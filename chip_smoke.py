@@ -127,7 +127,7 @@ sm_90a) and then, failing with a non-zero exit on any error:
      but for its trie's pins, every engine serves one copy of the weights,
      and every qwen2 step of every engine, restored pages included,
      launches the fused append and attention once a layer;
- 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width on 14
+ 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width on 8
      of its 28 layers, phase 4's shape, ``run_training`` with a
      ``CheckpointManager(keep=1)``: on a SYNC ``USplit``, 4 steps with a
      save every 2 and a crash after step 3; ``Volume.mount`` of the same
@@ -221,15 +221,30 @@ sm_90a) and then, failing with a non-zero exit on any error:
      mean of both ranks' values, both ranks' params bitwise equal after
      every step, their residual rows different, int8 within (a)'s bound
      of none.
+ 17. serves across ranks through the mesh serve step (run before phase
+     11): qwen2-72b at full width on 4 of its 80 layers, (a) unsharded
+     through ``api.serve_step`` (8 prompts of 16-64 tokens in chunks of
+     16, then 16 greedy decode steps) in float32 and bf16, each lane's
+     tokens and logits kept; (b) the same weights' shards on gloo ranks
+     spawned on the one card through ``serve.step.make_serve_step``,
+     teacher-forced with (a)'s tokens: mesh (1, 4) in both lanes and
+     (2, 2) in float32, every rank's logits within ``MESH_LOGIT_TOL`` of
+     (a)'s at every step, its float32 greedy tokens equal to (a)'s where
+     (a)'s top-2 gap exceeds twice the step's largest difference, the
+     fused op launched once a layer a step and no other kernel, both
+     runs timed by step; phase 1 holds the fused op at a rank's shape
+     (16 heads over 2 KV heads of 128, C=16 and C=1).
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
-layers: its bf16 weights are ~632 GB), phase 11 (a)'s qwen2-1.5b (14
+layers: its bf16 weights are ~632 GB), phase 11 (a)'s qwen2-1.5b (8
 of its 28 layers, at full width: three saves and three restores of the
 full-depth state took 462-598 s of the script's 1200 s) and phase 15's
 deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
 their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
-one card and its float32 grads through the host fit the phase's time).
+one card and its float32 grads through the host fit the phase's time);
+and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
+bf16 weights need four cards, ``tools/mesh_serve.py``).
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -403,10 +418,11 @@ PHASE15 = (("deepseek-v2-lite-16b", DS_TRAIN_LAYERS, TRAIN_S, 0, True),
            ("recurrentgemma-9b", RG_TRAIN_LAYERS, TRAIN_S, 1, False),
            ("internvl2-1b", None, TRAIN_S, 2, False),
            ("whisper-large-v3", None, WHISPER_MAX_SEQ, 0, False))
-# phase 11 (a): qwen2-1.5b at full width on half its 28 layers (three saves
-# and three restores of the full 18.52 GB state took 462-598 s of the
-# script's 1200 s)
-PHASE11_LAYERS = 14
+# phase 11 (a): qwen2-1.5b at full width on 8 of its 28 layers, a 7.3 GB
+# state (three saves and three restores of the full 18.52 GB state took
+# 462-598 s of the script's 1200 s; of the 10.66 GB state on 14 layers,
+# 291-305 s, when phase 17 took the script to 1095-1183 s)
+PHASE11_LAYERS = 8
 # phase 16: the compressed gradient reduction on qwen2-1.5b.  (a) one rank
 # (NCCL) at full width and depth, phase 4's shape, 3 steps a codec from the
 # same params; (b) two ranks on the one card over gloo (NCCL refuses two
@@ -436,6 +452,37 @@ POD_LOSS_TOL = 8e-3
 # (~3e-5 more); truncation reads up to 2, a mean never divided by the
 # group's size ~254
 INT8_ROUNDING_SLACK = 1e-4
+# phase 17: the mesh serve step on qwen2-72b at full width (d_model 8192,
+# 64 heads over 8 KV heads of 128, d_ff 29568, vocab 152064) on 4 of its
+# 80 layers: 6.0 G parameters, 24.0 GB in float32 (the whole model: 72.7 G,
+# 145.4 GB in bf16).  (a) unsharded in this process, float32 then bf16;
+# (b) its shards on gloo ranks on the one card, mesh (1, 4) in both lanes
+# and (2, 2) in float32: a rank holds 16 heads over 2 KV heads, a quarter
+# of the FFN and of the vocabulary, and 1/data of the batch and pages.
+# Phase 2's geometry (8 slots of MAX_SEQ tokens in pages of T), prompts
+# of 16-64 tokens in chunks of T, then MESH_NEW greedy decode steps.
+MESH_ARCH = "qwen2-72b"
+MESH_LAYERS = 4
+MESH_PROMPTS = (16, 65)
+MESH_NEW = 16
+MESH_LANES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+MESH_SHAPES = (((1, 4), ("float32", "bfloat16")), ((2, 2), ("float32",)))
+MESH_RANKS = 4                       # one spawn of 4 ranks for both meshes
+MESH_RANK_TIMEOUT = 400              # seconds for the ranks
+# each rank's logits against (a)'s at every valid position of every step,
+# the largest |difference| (logits up to ~10.3), read by ``python3
+# tools/mesh_gate.py`` (H100 80GB HBM3, 700 W): the sharded step 3.8e-5 /
+# 3.9e-5 in float32 at (1, 4) / (2, 2) and 0.13 in bf16 (two bf16 ulps
+# at 8-16); a copy whose MLP all_reduce drops rank 1's partial sum 6.65 /
+# 8.74 in float32 and 6.64 in bf16.  Each bound sits near the geometric
+# middle of its lane's two readings
+MESH_LOGIT_TOL = {torch.float32: 1e-2, torch.bfloat16: 1.0}
+# phase 1's repetitions a callable: event-timed calls (their median, the
+# ``_call`` times) and traced calls (their device time summed, ``ms``).
+# At 30 and 20 they took 43.6 and 42.9 s of the cases' 122.5 s (H100
+# 80GB HBM3, 700 W; ``case_s`` and ``timing_s`` of each phase-1 line); most
+# of the event timing is each shape's warm-up, which the count leaves
+PHASE1_CALLS, PHASE1_TRACED = 10, 10
 # the flash kernel of each dtype, as CUPTI names it in a trace
 FLASH_KERNELS = {torch.bfloat16: "flash_wgmma_kernel",
                  torch.float32: "flash_f32_tc_kernel"}
@@ -481,9 +528,10 @@ API_CALLS = ("Launch", "Memcpy", "Memset")
 
 def trace_events(prof) -> list:
     """Every complete event of a torch.profiler run, read from its Chrome
-    trace (ts and dur in microseconds)."""
+    trace (ts and dur in microseconds; a file a process, so ranks that
+    profile at once do not share one)."""
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / "profile.tmp.json"
+    path = TRACE_DIR / f"profile.{os.getpid()}.tmp.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())
     path.unlink()
@@ -525,23 +573,37 @@ def device_ms(fn, reps: int = 20):
     durations in a CUPTI trace of ``reps`` calls.  None when that trace
     does not hold ``reps`` times the events of a trace of one call, as
     when the profiler drops events or records none."""
+    got = traced_call(fn, reps)
+    return None if got is None else got[0]
+
+
+def traced_call(fn, reps: int = 20):
+    """``device_ms``'s two traces, and what else they show: (device ms per
+    call, the kernel names of the traced single call, device ms per call
+    by kernel over the ``reps`` calls), or None as ``device_ms``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per_call = len(device_events(prof))
+    one = device_events(prof)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     ev = device_events(prof)
-    if per_call == 0 or len(ev) != reps * per_call:
+    if not one or len(ev) != reps * len(one):
         log(f"  cupti: {len(ev)} device events for {reps} calls of "
-            f"{per_call}")
+            f"{len(one)}")
         return None
-    return sum(e["dur"] for e in ev) / reps / 1e3
+    split = {}
+    for e in ev:
+        key = e["name"].replace("(anonymous namespace)::", "")
+        key = key.removeprefix("void ").split("(")[0]
+        split[key] = split.get(key, 0.0) + e["dur"] / reps / 1e3
+    return (sum(e["dur"] for e in ev) / reps / 1e3,
+            [e["name"] for e in one], split)
 
 
 def kernel_names(fn, want=(), tries: int = 3) -> list:
@@ -612,21 +674,52 @@ def ptxas_summary(build_log: str) -> list:
     return lines
 
 
+def timed_case(case):
+    """A phase-1 case function whose result holds its host seconds
+    (``case_s``), what phase 1's time is made of."""
+    import functools
+
+    @functools.wraps(case)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = case(*args, **kwargs)
+        out["case_s"] = time.perf_counter() - t0
+        return out
+    return run
+
+
+def traced_timings(**fns):
+    """``timings`` (PHASE1_CALLS event-timed calls, PHASE1_TRACED traced
+    ones), and for each callable the kernel names of its traced single
+    call and its device ms by kernel (None and {} where its trace stayed
+    off), so a case's kernel check and split take no trace of their
+    own."""
+    t, names, split = {}, {}, {}
+    spent = {"events_s": 0.0, "cupti_s": 0.0}
+    for name, fn in fns.items():
+        t0 = time.perf_counter()
+        call = time_ms(fn, reps=PHASE1_CALLS)
+        t1 = time.perf_counter()
+        got = traced_call(fn, PHASE1_TRACED)
+        if got is None:
+            got = traced_call(fn, PHASE1_TRACED)
+        spent["events_s"] += t1 - t0
+        spent["cupti_s"] += time.perf_counter() - t1
+        t[name] = call if got is None else got[0]
+        t[name + "_call"] = call
+        t[name + "_timing"] = "events" if got is None else "cupti"
+        names[name] = None if got is None else got[1]
+        split[name] = {} if got is None else got[2]
+    t["timing_s"] = spent
+    return t, names, split
+
+
 def timings(**fns) -> dict:
     """For each named callable: device ms per call (CUPTI) as ``<name>``
     and the event-timed call as ``<name>_call``.  A trace whose event count
     is off is taken once more; if it stays off, ``<name>`` falls back to
     the event-timed call and ``<name>_timing`` says so."""
-    out = {}
-    for name, fn in fns.items():
-        call = time_ms(fn)
-        dev = device_ms(fn)
-        if dev is None:
-            dev = device_ms(fn)
-        out[name] = call if dev is None else dev
-        out[name + "_call"] = call
-        out[name + "_timing"] = "events" if dev is None else "cupti"
-    return out
+    return traced_timings(**fns)[0]
 
 
 def bound(nbytes: int, flops: int, peak: float) -> dict:
@@ -664,6 +757,7 @@ def randn(rng, *shape, dtype=torch.bfloat16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@timed_case
 def kv_append_case(rng, C: int, name: str, *, kv=KV, d=D) -> dict:
     """``kv``, ``d``: the pool's row (MLA's latent: one head of 576)."""
     from repro_torch.kernels import kv_append_chunk
@@ -693,6 +787,7 @@ def kv_append_case(rng, C: int, name: str, *, kv=KV, d=D) -> dict:
             **bound(nbytes, 0, BF16_FLOPS)}
 
 
+@timed_case
 def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
                    straddle=False, table_pages=None, full=False,
                    short=False, idle=False, dtype=torch.bfloat16, h=H,
@@ -750,7 +845,8 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
                                                impl="ref", **kw))
     if softcap is None:
         fns["library_ms"] = sdpa_yardstick(q, pk, pv, pt, lengths, window)
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     kernel = (PAGED_KERNELS[3] if d > 256 and dtype == torch.bfloat16
               else PAGED_KERNELS[0] if dtype == torch.bfloat16
               else PAGED_KERNELS[1])
@@ -758,7 +854,7 @@ def attention_case(rng, C: int, name: str, *, window=None, softcap=None,
             "D": d, "T": ptok, "aliased_pools": alias, "splits": splits,
             "max_abs_err": err, "tolerance": {"atol": tol, "rtol": tol}, **t,
             "kernel": kernel if d <= 256 else check_ran(
-                name, fns["ms"], (kernel,)),
+                name, fns["ms"], (kernel,), names["ms"]),
             **paged_bound(starts, C, window, table_pages, q.element_size(),
                           h=h, kv=kv, d=d, pools=1 if alias else 2,
                           page_tokens=ptok)}
@@ -818,6 +914,7 @@ def paged_bound(starts, C: int, window, table_pages: int, esz: int,
     return bound(nbytes, flops, peak)
 
 
+@timed_case
 def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
                idle=False, dtype=torch.bfloat16, h=H, kv=KV, d=D,
                seq=MAX_SEQ, starts=None, library=False) -> dict:
@@ -887,15 +984,16 @@ def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
                plain_ms=lambda: fused(*work, impl="ref"))
     if library:
         fns["library_ms"] = sdpa_yardstick(q, *work, pt, lengths, window)
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     return {"case": name, "C": C, "dtype": str(dtype), "H": h, "KV": kv,
             "D": d, "table_pages": seq // T, "splits": splits,
             "bitwise_vs_unfused": bitwise, "pools_equal_off_page0":
             pools_equal, "max_abs_err": err,
             "tolerance": {"atol": tol, "rtol": tol},
-            "kernel": check_ran(name, lambda: fused(*work), PAGED_KERNELS[:1]
+            "kernel": check_ran(name, fns["ms"], PAGED_KERNELS[:1]
                                 if dtype == torch.bfloat16
-                                else PAGED_KERNELS[1:2]),
+                                else PAGED_KERNELS[1:2], names["ms"]),
             **t, "ms_over_unfused": t["ms"] / t["unfused_ms"],
             **paged_bound(starts, C, window, seq // T, q.element_size(),
                           append=True, h=h, kv=kv, d=d)}
@@ -947,6 +1045,7 @@ def sdpa_args(q, k, v, causal, window):
     return (qt, kt, vt), {"attn_mask": m, "enable_gqa": True}
 
 
+@timed_case
 def flash_case(rng, name: str, S: int, *, causal=True, window=None,
                softcap=None, dtype=torch.bfloat16, D=128, Sk=None, B=1,
                h=H, kv=KV, Dv=None) -> dict:
@@ -981,10 +1080,11 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
         (qt, kt, vt), skw = sdpa_args(q, k, v, causal, window)
         fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, **skw)
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     if Dv != D:
         t.update(v_pad_ms(q, (v,), q))
-    ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],))
+    ran = check_ran(name, fns["ms"], (FLASH_KERNELS[dtype],), names["ms"])
     flops = 2 * B * h * (D + Dv) * visible_keys(S, Sk, causal, window)
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
         * q.element_size() + lse.numel() * 4
@@ -999,6 +1099,7 @@ def flash_case(rng, name: str, S: int, *, causal=True, window=None,
             **bound(nbytes, flops, peak)}
 
 
+@timed_case
 def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
                    softcap=None, dtype=torch.bfloat16, D=128, Sk=None, B=1,
                    h=H, kv=KV, Dv=None) -> dict:
@@ -1047,10 +1148,11 @@ def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
             o_sdpa, req, gt, retain_graph=True)
         fns["library_fwd_bwd_ms"] = lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, **skw), req, gt)
-    t = {"library_ms": None, "library_fwd_bwd_ms": None, **timings(**fns)}
+    t, names, split = traced_timings(**fns)
+    t = {"library_ms": None, "library_fwd_bwd_ms": None, **t}
     if Dv != D:
         t.update(v_pad_ms(q, (v, out, g), vp))
-    ran = check_ran(name, fns["ms"], FLASH_BWD_KERNELS[dtype])
+    ran = check_ran(name, fns["ms"], FLASH_BWD_KERNELS[dtype], names["ms"])
     # the products of the forward's size: S and dQ, dK (2 D a pair each),
     # dP and dV (2 Dv); each input (q, k, v, out, dO, lse) read once, each
     # grad written once
@@ -1063,7 +1165,8 @@ def flash_bwd_case(rng, name: str, S: int, *, causal=True, window=None,
     lib = t["library_ms"]
     return {"case": name, "S": S, "Sk": Sk, "B": B, "H": h, "KV": kv,
             "D": D, "Dv": Dv, "dtype": str(dtype),
-            "kernel": ran, "ms_by_kernel": kernel_split(fns["ms"]),
+            "kernel": ran, "ms_by_kernel": split["ms"] or kernel_split(
+                fns["ms"]),
             "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
             "grad_rel_err": rel,
             "tolerance": {"atol": f"{atol} x grad_max_abs", "rtol": rtol},
@@ -1143,17 +1246,22 @@ def ssd_work(Bp, L, H, P, N, esz, part="fwd"):
     return nbytes, same + mixed, (same + mixed) / secs
 
 
-def check_ran(name: str, fn, kernels) -> str:
+def check_ran(name: str, fn, kernels, traced=None) -> str:
     """The kernels a traced call of ``fn`` ran must include ``kernels``: a
     time filed under them is never another's (a trace that lost every
-    event shows nothing; one that lost some is taken again)."""
-    ran = kernel_names(fn, kernels)
+    event shows nothing; one that lost some is taken again).  ``traced``:
+    the kernel names of a call of ``fn`` that ``traced_timings`` already
+    recorded, read first."""
+    ran = traced or []
+    if not all(any(k in n for n in ran) for k in kernels):
+        ran = kernel_names(fn, kernels)
     missing = [k for k in kernels if not any(k in n for n in ran)]
     if ran and missing:
         raise AssertionError(f"{name}: no {missing} in {ran}")
     return " + ".join(kernels) if ran else "no events traced"
 
 
+@timed_case
 def ssd_case(rng, name: str, *, Bp, L, H, P, N,
              dtype=torch.float32) -> dict:
     from repro_torch.kernels import ssd_chunk_fwd
@@ -1172,11 +1280,13 @@ def ssd_case(rng, name: str, *, Bp, L, H, P, N,
     # no single PyTorch call computes this function: library_ms is None
     fns = dict(ms=lambda: ssd_chunk_fwd(*args),
                plain_ms=lambda: ssd_chunk_fwd(*args, impl="ref"))
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     esz = args[0].element_size()
     return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
             "dtype": str(dtype),
-            "kernel": check_ran(name, fns["ms"], SSD_FWD_KERNELS),
+            "kernel": check_ran(name, fns["ms"], SSD_FWD_KERNELS,
+                                names["ms"]),
             "max_abs_err": err, "out_max_abs": scale,
             "tolerance": {"atol": f"{atol} x out_max_abs", "rtol": rtol},
             **t, **bound(*ssd_work(Bp, L, H, P, N, esz))}
@@ -1199,6 +1309,7 @@ def check_grads(name: str, got, want) -> dict:
     return errs
 
 
+@timed_case
 def ssd_bwd_case(rng, name: str, *, Bp, L, H, P, N,
                  dtype=torch.float32) -> dict:
     """The backward on its own: the kernel against the plain backward on
@@ -1213,17 +1324,20 @@ def ssd_bwd_case(rng, name: str, *, Bp, L, H, P, N,
     errs = check_grads(name, got, want)
     fns = dict(ms=lambda: ssd_chunk_bwd(*args, dy),
                plain_ms=lambda: ssd_chunk_bwd(*args, dy, impl="ref"))
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     esz = args[0].element_size()
     return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
             "dtype": str(dtype),
-            "kernel": check_ran(name, fns["ms"], SSD_BWD_KERNELS),
+            "kernel": check_ran(name, fns["ms"], SSD_BWD_KERNELS,
+                                names["ms"]),
             "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
             "tolerance": {"float32": f"{SSD_GRAD_TOL} (atol x grad_max_abs"
                           ", rtol)", "bf16": str(SSD_TOL[torch.bfloat16])},
             **t, **bound(*ssd_work(Bp, L, H, P, N, esz, "bwd"))}
 
 
+@timed_case
 def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
     """The op's five gradients (forward and backward kernels) against
     torch.autograd through the plain forward, and both timed forward +
@@ -1242,11 +1356,13 @@ def ssd_grad_case(rng, name: str, *, Bp, L, H, P, N) -> dict:
     errs = check_grads(name, got, want)
     fns = dict(ms=lambda: grads(ssd_chunk),
                plain_ms=lambda: grads(ssd_chunk_ref))
-    t = {"library_ms": None, **timings(**fns)}
+    t, names, _ = traced_timings(**fns)
+    t = {"library_ms": None, **t}
     atol, rtol = SSD_GRAD_TOL
     return {"case": name, "Bp": Bp, "L": L, "H": H, "P": P, "N": N,
             "kernel": check_ran(name, fns["ms"],
-                                SSD_FWD_KERNELS + SSD_BWD_KERNELS),
+                                SSD_FWD_KERNELS + SSD_BWD_KERNELS,
+                                names["ms"]),
             "max_abs_err": max(errs.values()),
             "grad_max_abs_err": errs,
             "tolerance": {"atol": f"{atol} x grad_max_abs", "rtol": rtol},
@@ -3507,44 +3623,386 @@ def phase16(card: str) -> dict:
     return {"one_rank": one, "two_ranks": two}
 
 
-def release() -> None:
-    """Return the memory of a finished phase to the card."""
-    gc.collect()
-    torch.cuda.empty_cache()
+# ---------------------------------------------------------------------------
+# phase 17: the mesh serve step (serve/step.py) over a ("data", "model")
+# mesh of gloo ranks on the one card
+# ---------------------------------------------------------------------------
 
 
-def main() -> int:
-    t_script = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA card", file=sys.stderr)
-        return 2
+def mesh_config():
+    """qwen2-72b at full width on MESH_LAYERS of its 80 layers."""
     from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+
+
+def mesh_prompts(vocab: int, span=MESH_PROMPTS) -> tuple:
+    """Phase 17's 8 prompts (lengths drawn from ``span``, seed 17),
+    zero-padded to their longest: (tokens [B, longest], lengths)."""
+    rng = np.random.default_rng(17)
+    lengths = rng.integers(*span, B)
+    tokens = rng.integers(1, vocab, (B, int(lengths.max())))
+    for b, n in enumerate(lengths):
+        tokens[b, n:] = 0
+    return tokens.astype(np.int32), lengths.astype(np.int32)
+
+
+def mesh_drive(step, params, caches, prompts, lengths, *,
+               rows=slice(None), forced=None, new=MESH_NEW) -> list:
+    """Phase 17's requests through ``step``: the prompts in chunks of T
+    (a slot whose prompt is done takes n_new 0), then ``new`` greedy
+    decode steps.  ``rows``: this rank's batch rows.  ``forced``: the
+    records of another run, whose tokens are fed (teacher forcing).  Each
+    record: the global tokens and n_new fed, the step's logits (this
+    rank's rows, float32 on the card) and its host ms (synchronized)."""
+    longest = prompts.shape[1]
+    chunks = -(-longest // T)
+    records = []
+    nxt = np.zeros(B, np.int64)
+    for s in range(chunks + new):
+        if forced is not None:
+            tok, n_new = forced[s]["tokens"], forced[s]["n_new"]
+        elif s < chunks:
+            tok = np.zeros((B, T), np.int32)
+            part = prompts[:, s * T:(s + 1) * T]
+            tok[:, :part.shape[1]] = part
+            n_new = np.clip(lengths - s * T, 0, T).astype(np.int32)
+        else:
+            tok = nxt.astype(np.int32)[:, None]
+            n_new = np.ones(B, np.int32)
+        t0 = time.perf_counter()
+        rows_tok = torch.from_numpy(np.ascontiguousarray(tok[rows]))
+        logits, caches = step(params, rows_tok.cuda(), caches,
+                              torch.from_numpy(n_new[rows]).cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        logits = logits.float()
+        records.append({"tokens": tok, "n_new": n_new, "logits": logits,
+                        "ms": ms})
+        if forced is None:
+            # each slot's next token: the argmax at its last valid position
+            last = torch.from_numpy(np.maximum(n_new - 1, 0)).long().cuda()
+            pick = logits[torch.arange(B, device="cuda"), last].argmax(-1)
+            pick = pick.cpu().numpy()
+            done = (s >= chunks) | (np.minimum(lengths, (s + 1) * T)
+                                    == lengths) & (n_new > 0)
+            nxt = np.where(done, pick, nxt)
+    return records
+
+
+def mesh_reference(tmp: str, base) -> dict:
+    """Phase 17 (a): the unsharded run in this process.  ``base``'s
+    float32 weights (seed 0, as ``init_params`` draws them), then the same
+    cast to bf16; each lane's records saved for the ranks (tokens, n_new,
+    logits on the host) with each leaf's sum, which the ranks' own draws
+    must equal."""
     from repro_torch.convert import cast_params
     from repro_torch.kernels import common
     from repro_torch.models import build_model, init_params
+    from repro_torch.tree import leaves, map_with_path
 
+    out = {"arch": base.name, "layers": base.n_layers}
+    prompts, lengths = mesh_prompts(base.vocab)
+    out["prompt_lengths"] = lengths.tolist()
+    api = build_model(base)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(api.init_specs(), gen)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(x.numel() for x in leaves(params))
+    # a fingerprint of each leaf: its sum (float32, with no copy; the same
+    # reduction of the same values on the same card gives the same bits)
+    sums = map_with_path(lambda _, x: float(x.sum()), params)
+    Path(tmp, "sums.json").write_text(json.dumps(sums))
+    for lane, dtype in MESH_LANES:
+        cfg = dataclasses.replace(base, dtype=dtype)
+        api = build_model(cfg)
+        weights = params if dtype == torch.float32 else cast_params(params,
+                                                                    cfg)
+        caches = api.init_caches(B, MAX_SEQ, T)
+        common.reset_launch_counts()
+        recs = mesh_drive(api.serve_step, weights, caches, prompts, lengths)
+        launches = dict(common.LAUNCHES)
+        logits = [r["logits"] for r in recs]
+        assert all(torch.isfinite(x).all() for x in logits), lane
+        assert all(x.shape[-1] == cfg.vocab for x in logits), lane
+        assert launches == fused_launches(launches, dtype,
+                                          base.n_layers * len(recs)), \
+            (lane, launches)
+        torch.save([{"tokens": r["tokens"], "n_new": r["n_new"],
+                     "logits": r["logits"].cpu()} for r in recs],
+                   Path(tmp, f"ref-{lane}.pt"))
+        out[lane] = {**step_ms(recs, prompts.shape[1]),
+                     "launches": launches}
+        del weights, caches, recs, logits
+        release()
+    del params
+    release()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["reserved_after_gb"] = torch.cuda.memory_reserved() / 2**30
+    return out
+
+
+def fused_launches(launches: dict, dtype, n: int) -> dict:
+    """The counts a run of ``n`` fused launches gives: every one of them
+    the fused op's (in float32, its float32 instantiation's), no other."""
+    want = {k: 0 for k in launches}
+    want["paged_attention_append_chunk"] = n
+    if dtype == torch.float32:
+        want["paged_attention_append_chunk:float32"] = n
+    return want
+
+
+def step_ms(recs: list, longest: int) -> dict:
+    chunks = -(-longest // T)
+    pre = [r["ms"] for r in recs[:chunks]]
+    dec = [r["ms"] for r in recs[chunks:]]
+    return {"steps": len(recs), "prefill_steps": len(pre),
+            "prefill_ms": pre, "decode_ms_median": statistics.median(dec),
+            "decode_ms": dec}
+
+
+def mesh_compare(recs: list, ref: list, rows, lane: str) -> dict:
+    """This rank's logits against (a)'s rows at every valid position: the
+    largest |difference| a step (and the largest |logit|); in float32, the
+    greedy token (argmax) equal to (a)'s wherever (a)'s top-2 gap exceeds
+    twice the step's largest difference (the measured noise)."""
+    errs, scale, checked, positions, wrong = [], 0.0, 0, 0, []
+    for s, (r, w) in enumerate(zip(recs, ref)):
+        n_new = w["n_new"][rows]
+        want = w["logits"][rows].to(r["logits"].device)
+        got = r["logits"]
+        err = 0.0
+        for b in range(got.shape[0]):
+            k = int(n_new[b])
+            if k:
+                err = max(err, float((got[b, :k] - want[b, :k]).abs().max()))
+                scale = max(scale, float(want[b, :k].abs().max()))
+        errs.append(err)
+        if lane != "float32":
+            continue
+        for b in range(got.shape[0]):
+            k = int(n_new[b])
+            if not k:
+                continue
+            top = want[b, :k].topk(2, dim=-1).values
+            gap = top[:, 0] - top[:, 1]
+            sure = gap > 2 * err
+            positions += k
+            checked += int(sure.sum())
+            same = got[b, :k].argmax(-1) == want[b, :k].argmax(-1)
+            bad = torch.nonzero(sure & ~same).flatten().tolist()
+            wrong += [(s, b, c) for c in bad]
+    return {"max_abs_err": max(errs), "max_abs_err_by_step": errs,
+            "logit_max_abs": scale, "positions": positions,
+            "tokens_checked": checked, "tokens_wrong": wrong}
+
+
+def mesh_rank(rank: int, world: int, tmp: str, base, out_path: str) -> None:
+    """Phase 17 (b), one rank of every mesh of MESH_SHAPES in turn: a gloo
+    group over a FileStore on the one card (NCCL refuses two ranks on one
+    device), its collectives on the card's tensors probed first; for each
+    mesh its shard of each leaf drawn as (a) drew it (the whole leaf from
+    the same seed, its sum checked, sliced, freed), then each of the
+    mesh's lanes through ``make_serve_step``, teacher-forced with (a)'s
+    tokens, its logits held to (a)'s (``mesh_compare``), its launches
+    counted."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.convert import cast_params
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serve.step import make_serve_step
+    from repro_torch.tree import leaves, map_with_path
+
+    torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
-    log(f"nvidia-smi: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-    log("tf32: matmul off, cudnn off")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    # the step's collectives on this device's tensors, first
+    probe = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((4,), float(rank + 1), device="cuda", dtype=dtype)
+        dist.all_reduce(x)
+        probe[f"all_reduce {dtype}"] = x.tolist() == [world * (world + 1)
+                                                      / 2] * 4
+        got = [torch.empty(2, device="cuda", dtype=dtype)
+               for _ in range(world)]
+        dist.all_gather(got, torch.full((2,), float(rank), device="cuda",
+                                        dtype=dtype))
+        probe[f"all_gather {dtype}"] = [float(g[0]) for g in got] == \
+            list(map(float, range(world)))
+    assert all(probe.values()), probe
+    sums = json.loads(Path(tmp, "sums.json").read_text())
+    prompts, lengths = mesh_prompts(base.vocab)
+    meshes = []
+    for shape, lanes in MESH_SHAPES:
+        t_mesh = time.perf_counter()
+        mesh = make_mesh(shape)
+        out = {"rank": rank, "mesh": list(shape), "coords": mesh.coords,
+               "gloo_probe": probe}
+        api = build_model(base)
+        caches = api.init_caches(B, MAX_SEQ, T)
+        _, pspecs, cspecs = make_serve_step(api, mesh, caches)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        bad = []
+
+        def draw(path, spec, pspec, total):
+            """The whole leaf, drawn in (a)'s order, its sum checked, then
+            this rank's shard (the whole leaf freed)."""
+            full = init_params(spec, gen)
+            if float(full.sum()) != total:
+                bad.append("/".join(path))
+            mine = shard_params(full, pspec, mesh)
+            del full
+            release()             # four ranks' leaves share the one card
+            return mine
+
+        params = map_with_path(draw, api.init_specs(), pspecs, sums)
+        torch.cuda.synchronize()
+        out["shard_s"] = time.perf_counter() - t0
+        out["shard_gb"] = sum(x.numel() * x.element_size()
+                              for x in leaves(params)) / 1e9
+        assert not bad, ("the rank's draws differ from (a)'s", bad)
+        d = mesh.coords["data"] if "data" in cspecs["lengths"] else 0
+        per = B // (mesh.shape["data"] if "data" in cspecs["lengths"]
+                    else 1)
+        rows = slice(d * per, (d + 1) * per)
+        for lane, dtype in MESH_LANES:
+            if lane not in lanes:
+                continue
+            cfg = dataclasses.replace(base, dtype=dtype)
+            api = build_model(cfg)
+            if dtype != torch.float32:
+                params = cast_params(params, cfg)
+            release()
+            caches = api.init_caches(B, MAX_SEQ, T)
+            step, _, cspecs = make_serve_step(api, mesh, caches)
+            caches = shard_params(caches, cspecs, mesh)
+            ref = torch.load(Path(tmp, f"ref-{lane}.pt"), weights_only=False)
+            torch.cuda.synchronize()
+            common.reset_launch_counts()
+            recs = mesh_drive(step, params, caches, prompts, lengths,
+                              rows=rows, forced=ref)
+            launches = dict(common.LAUNCHES)
+            res = mesh_compare(recs, ref, rows, lane)
+            res["finite"] = all(bool(torch.isfinite(r["logits"]).all())
+                                for r in recs)
+            res["logit_sums"] = [float(r["logits"].double().sum())
+                                 for r in recs]
+            res["pool_shape"] = list(caches["group"]["b0_attn"][0].shape)
+            out[lane] = {**step_ms(recs, prompts.shape[1]), **res,
+                         "launches": launches}
+            del caches, recs, ref
+            release()
+        del params
+        release()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out["seconds"] = time.perf_counter() - t_mesh
+        meshes.append(out)
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(meshes))
+
+
+def _mesh_rank_entry(rank, world, tmp, base):
+    mesh_rank(rank, world, tmp, base, os.path.join(tmp, f"rank-{rank}.json"))
+
+
+def mesh_ranks(tmp: str, base, entry=None) -> dict:
+    """Phase 17 (b): ``mesh_rank`` in a process a rank, spawned once with
+    ``torch.multiprocessing`` for every mesh of MESH_SHAPES (each has
+    MESH_RANKS ranks), all within MESH_RANK_TIMEOUT (killed at the
+    deadline).  ``entry`` (``tools/mesh_gate.py``'s broken copy) takes
+    ``_mesh_rank_entry``'s place.  Returns each mesh's ranks."""
+    import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
-    common.library()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {common.BUILD_INFO.get('seconds', 0.0):.2f} s, "
-        f"cached={common.BUILD_INFO.get('cached')})")
-    for line in ptxas_summary(str(common.BUILD_INFO.get("log", ""))):
-        log("  ptxas", line)
+    ctx = mp.start_processes(entry or _mesh_rank_entry,
+                             args=(MESH_RANKS, tmp, base),
+                             nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 17 (b): the ranks ran past "
+                                   f"{MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    return {"seconds": time.perf_counter() - t0, "meshes": [
+        {"mesh": list(shape), "seconds": ranks[0][i]["seconds"],
+         "ranks": [r[i] for r in ranks]}
+        for i, (shape, _) in enumerate(MESH_SHAPES)]}
 
+
+def check_mesh(res: dict, lanes: tuple, layers: int) -> None:
+    """Phase 17 (b)'s gates on every rank: finite logits within
+    MESH_LOGIT_TOL of (a)'s at every step; in float32 every greedy token
+    equal to (a)'s where (a)'s top-2 gap exceeds the noise; the fused op
+    launched once a layer a step (float32: its float32 instantiation) and
+    no other kernel; the ranks of a data shard with the same logits."""
+    steps = None
+    for r in res["ranks"]:
+        for lane, dtype in MESH_LANES:
+            if lane not in lanes:
+                continue
+            x = r[lane]
+            steps = x["steps"]
+            assert x["finite"], (lane, r["rank"])
+            assert x["max_abs_err"] <= MESH_LOGIT_TOL[dtype], \
+                (lane, r["rank"], x["max_abs_err_by_step"])
+            assert not x["tokens_wrong"], (lane, r["rank"], x["tokens_wrong"])
+            if dtype == torch.float32:
+                assert x["tokens_checked"] > 0, (lane, r["rank"])
+            assert x["launches"] == fused_launches(
+                x["launches"], dtype, layers * steps), \
+                (lane, r["rank"], x["launches"])
+    model = res["mesh"][1]
+    for lane, _ in MESH_LANES:
+        if lane in lanes:
+            for r in res["ranks"]:
+                twin = res["ranks"][r["rank"] // model * model]
+                assert r[lane]["logit_sums"] == twin[lane]["logit_sums"], \
+                    (lane, r["rank"])
+
+
+def phase17(card: str, entry=None) -> dict:
+    """Phase 17 (a), then (b) on each mesh of MESH_SHAPES, each logged and
+    then gated.  ``entry``: as ``mesh_ranks``'s, whose meshes are then
+    logged and not gated."""
+    import tempfile
+
+    base = mesh_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = mesh_reference(tmp, base)
+        ref["seconds"] = time.perf_counter() - t0
+        log("phase17 (a)", json.dumps({"card": card, **ref}))
+        ranks = mesh_ranks(tmp, base, entry)
+        log(f"phase17 (b) seconds {ranks['seconds']:.1f}")
+        for res, (shape, lanes) in zip(ranks["meshes"], MESH_SHAPES):
+            log(f"phase17 (b) {shape[0]}x{shape[1]}",
+                json.dumps({"card": card, **res}))
+            if entry is None:
+                check_mesh(res, lanes, base.n_layers)
+    return {"reference": ref, **ranks}
+
+
+def phase1_cases() -> list:
+    """Phase 1: every case, each kernel against its plain version, drawn
+    in this order from one generator (seed 0)."""
     rng = np.random.default_rng(0)
-    cases = [
+    return [
         kv_append_case(rng, 16, "kv_append C=16"),
         kv_append_case(rng, 1, "kv_append C=1"),
         attention_case(rng, 16, "attention C=16"),
@@ -3679,9 +4137,55 @@ def main() -> int:
           for C in (16, 1)),
         # phase 15's training shapes
         *train_flash_cases(rng),
+        # qwen2-72b's attention on one rank of phase 17's model=4 mesh: 16
+        # heads over 2 KV heads of 128 (a group of 8: C x 8 = 128 query
+        # rows at C=16)
+        *(fused_case(rng, C, f"fused D=128 H=16 KV=2 C={C} (qwen2-72b, a "
+                     "rank of model=4)", h=16, kv=2, d=128, library=True)
+          for C in (16, 1)),
     ]
+
+
+def release() -> None:
+    """Return the memory of a finished phase to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    t_script = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.kernels import common
+    from repro_torch.models import build_model, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+    log(f"nvidia-smi: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    log("tf32: matmul off, cudnn off")
+
+    t0 = time.perf_counter()
+    common.library()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {common.BUILD_INFO.get('seconds', 0.0):.2f} s, "
+        f"cached={common.BUILD_INFO.get('cached')})")
+    for line in ptxas_summary(str(common.BUILD_INFO.get("log", ""))):
+        log("  ptxas", line)
+
+    cases = phase1_cases()
     for c in cases:
         log("phase1", json.dumps(c))
+    log(f"phase1 seconds {time.perf_counter() - t0:.1f} (build included)")
     log("phase1 V pad", json.dumps([
         {k: c[k] for k in ("case", "ms", "pad_ms", "pad_ms_call")}
         for c in cases if "pad_ms" in c]))
@@ -3845,6 +4349,11 @@ def main() -> int:
     log(f"phase16 starts at {t16 - t_script:.1f} s")
     pods = phase16(card)
     log(f"phase16 seconds {time.perf_counter() - t16:.1f}")
+
+    t17 = time.perf_counter()
+    log(f"phase17 starts at {t17 - t_script:.1f} s")
+    meshes = phase17(card)
+    log(f"phase17 seconds {time.perf_counter() - t17:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -4099,6 +4608,30 @@ def main() -> int:
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
             "call_ms": c["ms_call"], "timing": c["ms_timing"]})
+    # the fused op on phase 17's path: every rank of the (1, 4) mesh, one
+    # launch a layer a step in each lane, at its per-rank shape
+    c = by["fused D=128 H=16 KV=2 C=16 (qwen2-72b, a rank of model=4)"]
+    tp = meshes["meshes"][0]
+    kernels.append({
+        "name": "paged_attention_append_chunk (qwen2-72b, a rank of the "
+                "(1, 4) mesh)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/kv_append/kernel.py:38 + "
+                    "src/repro/kernels/paged_attention/kernel.py:96",
+        "launches": sum(r[lane]["launches"]["paged_attention_append_chunk"]
+                        for r in tp["ranks"] for lane in MESH_SHAPES[0][1]),
+        "launches_by_rank": [
+            {lane: r[lane]["launches"]["paged_attention_append_chunk"]
+             for lane in MESH_SHAPES[0][1]} for r in tp["ranks"]],
+        "path": "phase 17: qwen2-72b mesh serving, 4 gloo ranks",
+        **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")},
+        "call_ms": c["ms_call"], "timing": c["ms_timing"],
+        "cases": [{k: x.get(k) for k in (
+            "case", "C", "splits", "ms", "unfused_ms", "bound_ms",
+            "bound_by", "plain_ms", "library_ms", "max_abs_err",
+            "bitwise_vs_unfused")}
+            for x in by.values() if "qwen2-72b" in x["case"]]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

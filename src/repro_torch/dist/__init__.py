@@ -1,5 +1,5 @@
-"""Distribution substrate of the port: the fault plane and the gradient
-codec.
+"""Distribution substrate of the port: the fault plane, the gradient
+codec and the mesh partition rules.
 
   * ``fault`` (a copy of ``repro.dist.fault``): heartbeat monitoring,
     straggler detection and the steal / remesh planning that the serving
@@ -7,27 +7,33 @@ codec.
   * ``compression``: the int8 and top-k codecs with per-bucket error
     feedback for the slow links between ranks, over a
     ``torch.distributed`` process group (the reference's ``"pod"`` mesh
-    axis); ``train.step`` runs it when it is given a group.
+    axis); ``train.step`` runs it when it is given a group;
+  * ``sharding``: the partition rules over a ("data", "model") mesh and
+    each rank's shard of a parameter or cache tree, which
+    ``serve.step.make_serve_step`` serves from (tensor parallelism over
+    "model", request parallelism over "data").
 
-Not ported, by design: ``sharding`` (mesh partition rules: FSDP and TP
-over a mesh), ``models/shardctx.py`` (activation sharding hints), the
-``gspmd`` / ``shard_map`` variants of ``serve/step.py`` and
-``train.step.pod_err_struct`` (dry-run tooling).  Each rank of the port
-holds whole, replicated parameters on its own card.
+Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
+The trainer's ranks hold whole, replicated parameters (``train_rules``
+in the trainer: ROADMAP item 7).
 """
 
-from . import compression, fault
+from . import compression, fault, sharding
 from .compression import (BucketPlan, bucketed_compressed_psum,
                           compressed_psum, dequantize_int8, init_residuals,
                           plan_buckets, quantize_int8,
                           quantize_with_feedback, topk_psum, topk_sparsify)
 from .fault import (FaultPolicy, HeartbeatMonitor, RemeshPlan, StealPlan,
                     plan_remesh, plan_steal)
+from .sharding import (batch_axes, cache_specs, fit_batch_axes,
+                       gather_params, serve_rules, shard_params, train_rules)
 
 __all__ = [
-    "BucketPlan", "bucketed_compressed_psum", "compressed_psum",
-    "compression", "dequantize_int8", "fault", "FaultPolicy",
-    "HeartbeatMonitor", "init_residuals", "plan_buckets", "plan_remesh",
-    "plan_steal", "quantize_int8", "quantize_with_feedback", "RemeshPlan",
-    "StealPlan", "topk_psum", "topk_sparsify",
+    "batch_axes", "BucketPlan", "bucketed_compressed_psum", "cache_specs",
+    "compressed_psum", "compression", "dequantize_int8", "fault",
+    "FaultPolicy", "fit_batch_axes", "gather_params", "HeartbeatMonitor",
+    "init_residuals", "plan_buckets", "plan_remesh", "plan_steal",
+    "quantize_int8", "quantize_with_feedback", "RemeshPlan", "serve_rules",
+    "shard_params", "sharding", "StealPlan", "topk_psum", "topk_sparsify",
+    "train_rules",
 ]

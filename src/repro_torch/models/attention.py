@@ -28,6 +28,7 @@ from ..kernels import attention as attention_op
 from ..kernels import (kv_append_chunk, paged_attention_append_chunk,
                        paged_attention_chunk)
 from .config import ModelConfig
+from .shardctx import model_all_reduce, model_split
 from .spec import ParamSpec
 
 
@@ -82,8 +83,12 @@ def gqa_init(cfg: ModelConfig) -> Dict:
 
 def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
          positions: Optional[torch.Tensor], use_rope: bool = True):
+    """q [B, S, H, hd], k and v [B, S, KV, hd], H and KV read from the
+    weights: a rank of the mesh serve step holds its block of whole heads
+    (``dist.sharding``), ``cfg.head_dim`` stays the global one."""
     B, S, D = x.shape
-    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     dt = cfg.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
     k = (x @ p["wk"].to(dt)).reshape(B, S, KV, hd)
@@ -180,7 +185,10 @@ def gqa_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Chunked serve step: append this chunk's K/V into the staging
     page(s) in place, then attend through the page table with
     chunk-causal masking.  x: [B, C, D] (C=1 for decode).  Returns
-    (out [B, C, D], pool_k, pool_v) — the same pool tensors, updated."""
+    (out [B, C, D], pool_k, pool_v) — the same pool tensors, updated.
+    On a rank of the mesh serve step the weights and pools hold this
+    rank's heads, and ``wo``'s partial products are summed over the model
+    group."""
     B, C = x.shape[:2]
     T = pool_k.shape[1]
     positions, page_ids, slot_ids = paged_chunk_ids(page_table, lengths, C, T)
@@ -189,7 +197,9 @@ def gqa_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         q.contiguous(), k.contiguous(), v.contiguous(), pool_k, pool_v,
         page_table, lengths, page_ids, slot_ids, window=window,
         softcap=cfg.attn_logit_softcap, impl=impl)
-    out = out.reshape(B, C, cfg.n_heads * cfg.head_dim) @ p["wo"].to(cfg.dtype)
+    out = out.reshape(B, C, -1) @ p["wo"].to(cfg.dtype)
+    if model_split(p["wo"].shape[0], cfg.q_dim, "the attention's wo"):
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
     return out, pool_k, pool_v
 
 

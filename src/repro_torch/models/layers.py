@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .shardctx import model_all_reduce, model_split
 from .spec import ParamSpec
 
 
@@ -96,6 +97,8 @@ def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.mlp)
     out = h @ p["wo"].to(dt)
+    if model_split(p["wo"].shape[0], cfg.d_ff, "the MLP's wo"):
+        out = model_all_reduce(out)      # partial sums, before the bias
     if "bo" in p:
         out = out + p["bo"].to(dt)
     return out

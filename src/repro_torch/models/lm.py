@@ -40,6 +40,7 @@ from ..kernels.common import resolve_device
 from .blocks import block_cache_init, block_init, block_serve, block_train
 from .config import ModelConfig
 from .layers import norm_apply, norm_init
+from .shardctx import gather_vocab, model_all_reduce, model_rank, model_split
 from .spec import ParamSpec, tree_map_specs
 
 
@@ -85,8 +86,21 @@ def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  prefix_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Token embeddings [B, S, D]; a VLM's ``prefix_embeds`` [B, Np, D]
-    (its patch embeddings) go before them, cast to ``cfg.dtype``."""
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    (its patch embeddings) go before them, cast to ``cfg.dtype``.  A
+    table split over the model group (the mesh serve step) is looked up
+    vocab-parallel: a token outside this rank's rows reads zeros, and the
+    sum over the group leaves each token its one row."""
+    table = params["embed"].to(cfg.dtype)
+    rows = table.shape[0]
+    if not model_split(rows, cfg.vocab, "the embedding"):
+        x = table[tokens.long()]
+    else:
+        local = tokens.long() - model_rank() * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        x = model_all_reduce(x)
     if cfg.family == "hybrid":               # gemma-style embedding scale
         x = x * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
@@ -95,9 +109,15 @@ def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits [.., V]; a head split over the model group gives this rank's
+    vocab block, gathered over the group."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(cfg.dtype).T
-    return x @ params["lm_head"].to(cfg.dtype)
+        logits = x @ params["embed"].to(cfg.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(cfg.dtype)
+    if model_split(logits.shape[-1], cfg.vocab, "the output head"):
+        logits = gather_vocab(logits)
+    return logits
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
