@@ -233,10 +233,27 @@ sm_90a) and then, failing with a non-zero exit on any error:
      (a)'s top-2 gap exceeds twice the step's largest difference, the
      fused op launched once a layer a step and no other kernel, both
      runs timed by step; phase 1 holds the fused op at a rank's shape
-     (16 heads over 2 KV heads of 128, C=16 and C=1).
+     (16 heads over 2 KV heads of 128, C=16 and C=1).  The same for the
+     MoE family and copied KV heads (``MESH_MODELS``, 8 decode steps):
+     grok-1-314b at full width on 2 layers in bf16 and 1 in float32 at
+     (1, 4) (12 heads over 2 KV heads, 2 whole experts a rank);
+     deepseek-v2-lite-16b on 4 of 27 layers at (1, 4) in float32 and
+     bf16 and at (2, 2) in float32 under both variants, ``shard_map``
+     held to the unsharded step run on each data shard's rows alone (4
+     heads, the whole latent, 16 experts a rank; one latent append and
+     one latent attention a layer a step); qwen2-1.5b at full width and
+     depth in bf16 at (1, 4) (3 heads over a copy of one KV head); the
+     bf16 MoE lanes on their reference's routes (``RouteTape``); phase 1
+     holds each rank's attention shape at C=16 and C=1.
+ 18. item 6's smoke sweep (run before phase 11): minitron-8b and
+     starcoder2-7b at full width and depth in bf16, each through phase
+     3's kernel path against plain path, the fused op launched once a
+     layer a kernel step; phase 1 holds starcoder2's 36 heads over 4
+     (a group of 9) at C=16 and C=1.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
-layers: its bf16 weights are ~632 GB), phase 11 (a)'s qwen2-1.5b (8
+layers: its bf16 weights are ~632 GB; 2 and 1 in phase 17), phase 11
+(a)'s qwen2-1.5b (8
 of its 28 layers, at full width: three saves and three restores of the
 full-depth state took 462-598 s of the script's 1200 s) and phase 15's
 deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
@@ -244,7 +261,9 @@ their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
 one card and its float32 grads through the host fit the phase's time);
 and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
-bf16 weights need four cards, ``tools/mesh_serve.py``).
+bf16 weights need four cards, ``tools/mesh_serve.py``) and
+deepseek-v2-lite-16b (4 of 27 layers, so its float32 run and the ranks'
+shards stay within phase 17's time).
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -266,6 +285,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -466,9 +486,8 @@ MESH_LAYERS = 4
 MESH_PROMPTS = (16, 65)
 MESH_NEW = 16
 MESH_LANES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
-MESH_SHAPES = (((1, 4), ("float32", "bfloat16")), ((2, 2), ("float32",)))
-MESH_RANKS = 4                       # one spawn of 4 ranks for both meshes
-MESH_RANK_TIMEOUT = 400              # seconds for the ranks
+MESH_RANKS = 4                       # one spawn of 4 ranks for every mesh
+MESH_RANK_TIMEOUT = 600              # seconds for the ranks
 # each rank's logits against (a)'s at every valid position of every step,
 # the largest |difference| (logits up to ~10.3), read by ``python3
 # tools/mesh_gate.py`` (H100 80GB HBM3, 700 W): the sharded step 3.8e-5 /
@@ -477,6 +496,38 @@ MESH_RANK_TIMEOUT = 400              # seconds for the ranks
 # 8.74 in float32 and 6.64 in bf16.  Each bound sits near the geometric
 # middle of its lane's two readings
 MESH_LOGIT_TOL = {torch.float32: 1e-2, torch.bfloat16: 1.0}
+# the MoE family and replicated KV heads on the same geometry and ranks,
+# MESH_NEW_MORE decode steps:
+#   grok-1-314b at full width (d_model 6144, 48 heads over 8 KV heads of
+#     128, softcap 30, 8 experts of 32768 top-2, vocab 131072): 2 of 64
+#     layers born in bf16 (11.45 G parameters, 22.90 GB) and 1 layer in
+#     float32 (6.53 G, 26.1 GB), each at (1, 4): a rank holds 12 heads
+#     over 2 KV heads and 2 whole experts;
+#   deepseek-v2-lite-16b at full width on 4 of 27 layers (2.76 G, 11.0 GB
+#     in float32): (1, 4) in float32 and bf16, (2, 2) in float32 under
+#     both variants, ``shard_map`` held to the unsharded step run on each
+#     data shard's rows alone (its own capacity count): a rank holds 4
+#     heads, the whole 576-wide latent pool, 16 experts and 704 of the
+#     shared experts' 2816 FFN columns;
+#   qwen2-1.5b at full width and depth born in bf16 at (1, 4): 3 heads a
+#     rank over a copy of the one KV head they read.
+# The bf16 MoE lanes run on their reference's routes (``pinned``).  The
+# largest |logit difference| of every rank, read by ``python3
+# tools/mesh_gate.py --phase17 --broken --broken-moe --broken-count``
+# (H100 80GB HBM3, 700 W), against a copy whose MoE all_reduce drops rank
+# 1's experts (MLP's, for qwen2-1.5b) and a ``gspmd`` copy that counts
+# capacity shard-locally, read with deepseek's router column 0 x 16 (an
+# expert overflows): grok float32 3.17e-5 / dropped experts 8.83, bf16
+# 0.146 / 8.02 (unpinned: up to 4.29, its routes flipped); deepseek
+# float32 1.01e-5-1.07e-5 (overflowing router 1.9e-5-4.03e-5) / dropped
+# 3.67-5.03 / shard-local count at (2, 2) 3.24-3.32, bf16 0.078
+# (overflowing 0.18) / 3.54; qwen2-1.5b bf16 0.094 / the MLP's dropped
+# 3.14.  Each bound sits near the geometric middle of its lane's
+# correct reading and its nearest broken one
+MESH_NEW_MORE = 8                    # decode steps of the models below
+GROK_TOL = {torch.float32: 1e-2, torch.bfloat16: 1.0}
+DEEPSEEK_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.5}
+QWEN_MESH_TOL = {torch.bfloat16: 0.5}
 # phase 1's repetitions a callable: event-timed calls (their median, the
 # ``_call`` times) and traced calls (their device time summed, ``ms``).
 # At 30 and 20 they took 43.6 and 42.9 s of the cases' 122.5 s (H100
@@ -917,7 +968,8 @@ def paged_bound(starts, C: int, window, table_pages: int, esz: int,
 @timed_case
 def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
                idle=False, dtype=torch.bfloat16, h=H, kv=KV, d=D,
-               seq=MAX_SEQ, starts=None, library=False) -> dict:
+               seq=MAX_SEQ, starts=None, library=False,
+               softcap=None) -> dict:
     """The serve step's fused append and attention
     (``paged_attention_append_chunk``) against the unfused kernel path on
     the same inputs, ``kv_append_chunk`` on each pool and then
@@ -927,7 +979,8 @@ def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
     unfused path's sum and the plain path.  ``h``, ``kv``, ``d``: the
     heads and head dim; ``seq``: the table's tokens a slot; ``starts``:
     the chunks' start positions, drawn by ``starts(rng)``; ``library``:
-    time SDPA's attention alone on the updated pools beside it."""
+    time SDPA's attention alone on the updated pools beside it (with no
+    softcap: SDPA has none); ``softcap``: the logits' tanh cap."""
     from repro_torch.kernels import (common, kv_append_chunk,
                                      paged_attention_append_chunk,
                                      paged_attention_chunk)
@@ -948,7 +1001,7 @@ def fused_case(rng, C: int, name: str, *, window=None, straddle=False,
     kn, vn = (randn(rng, B, C, kv, d, dtype=dtype) for _ in range(2))
     pk, pv = (randn(rng, B * seq // T, T, kv, d, dtype=dtype)
               for _ in range(2))
-    kw = dict(window=window)
+    kw = dict(window=window, softcap=softcap)
 
     def unfused(pool_k, pool_v):
         kv_append_chunk(pool_k, kn, pids, sids)
@@ -3629,10 +3682,63 @@ def phase16(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def mesh_config():
-    """qwen2-72b at full width on MESH_LAYERS of its 80 layers."""
-    from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+@dataclasses.dataclass(frozen=True)
+class MeshModel:
+    """One model of phase 17: ``arch`` at full width on ``layers`` of its
+    layers (None: all), its weights drawn from seed 0 in float32 (a bf16
+    lane casts them) or born in ``born``; ``runs``: (mesh shape, lane,
+    variant) in the order the ranks run them (a shape's float32 lanes
+    first); ``tol``: each lane dtype's logit bound; ``new``: the greedy
+    decode steps after the prompts."""
+    key: str
+    arch: str
+    layers: Optional[int]
+    born: Optional[torch.dtype]
+    runs: tuple
+    tol: dict
+    new: int = MESH_NEW
+
+    def config(self):
+        from repro_torch.configs import get_config
+        cfg = get_config(self.arch)
+        return cfg if self.layers is None else dataclasses.replace(
+            cfg, n_layers=self.layers)
+
+    def shapes(self) -> list:
+        return list(dict.fromkeys(shape for shape, _, _ in self.runs))
+
+    def refs(self) -> list:
+        """(lane, parts) of every unsharded run the lanes are held to:
+        the whole batch, or (``shard_map`` at data > 1) each data
+        shard's rows alone."""
+        return list(dict.fromkeys(
+            (lane, shape[0] if variant == "shard_map" else 1)
+            for shape, lane, variant in self.runs))
+
+
+MESH_MODELS = (
+    MeshModel("qwen2-72b", MESH_ARCH, MESH_LAYERS, None,
+              (((1, 4), "float32", "gspmd"), ((1, 4), "bfloat16", "gspmd"),
+               ((2, 2), "float32", "gspmd")), MESH_LOGIT_TOL),
+    MeshModel("grok-1-314b bf16", "grok-1-314b", 2, torch.bfloat16,
+              (((1, 4), "bfloat16", "gspmd"),), GROK_TOL, MESH_NEW_MORE),
+    MeshModel("grok-1-314b float32", "grok-1-314b", 1, None,
+              (((1, 4), "float32", "gspmd"),), GROK_TOL, MESH_NEW_MORE),
+    MeshModel("deepseek-v2-lite-16b", "deepseek-v2-lite-16b", 4, None,
+              (((1, 4), "float32", "gspmd"), ((1, 4), "bfloat16", "gspmd"),
+               ((2, 2), "float32", "gspmd"),
+               ((2, 2), "float32", "shard_map")), DEEPSEEK_TOL,
+              MESH_NEW_MORE),
+    MeshModel("qwen2-1.5b", "qwen2-1.5b", None, torch.bfloat16,
+              (((1, 4), "bfloat16", "gspmd"),), QWEN_MESH_TOL,
+              MESH_NEW_MORE),
+)
+
+
+def lane_key(lane: str, variant: str) -> str:
+    """A run's key in a rank's results: the lane, and its variant where
+    it is not ``gspmd``."""
+    return lane if variant == "gspmd" else f"{lane} {variant}"
 
 
 def mesh_prompts(vocab: int, span=MESH_PROMPTS) -> tuple:
@@ -3652,23 +3758,24 @@ def mesh_drive(step, params, caches, prompts, lengths, *,
     (a slot whose prompt is done takes n_new 0), then ``new`` greedy
     decode steps.  ``rows``: this rank's batch rows.  ``forced``: the
     records of another run, whose tokens are fed (teacher forcing).  Each
-    record: the global tokens and n_new fed, the step's logits (this
-    rank's rows, float32 on the card) and its host ms (synchronized)."""
-    longest = prompts.shape[1]
+    record: the tokens and n_new fed (every row of ``prompts``), the
+    step's logits (this rank's rows, float32 on the card) and its host ms
+    (synchronized)."""
+    batch, longest = prompts.shape
     chunks = -(-longest // T)
     records = []
-    nxt = np.zeros(B, np.int64)
+    nxt = np.zeros(batch, np.int64)
     for s in range(chunks + new):
         if forced is not None:
             tok, n_new = forced[s]["tokens"], forced[s]["n_new"]
         elif s < chunks:
-            tok = np.zeros((B, T), np.int32)
+            tok = np.zeros((batch, T), np.int32)
             part = prompts[:, s * T:(s + 1) * T]
             tok[:, :part.shape[1]] = part
             n_new = np.clip(lengths - s * T, 0, T).astype(np.int32)
         else:
             tok = nxt.astype(np.int32)[:, None]
-            n_new = np.ones(B, np.int32)
+            n_new = np.ones(batch, np.int32)
         t0 = time.perf_counter()
         rows_tok = torch.from_numpy(np.ascontiguousarray(tok[rows]))
         logits, caches = step(params, rows_tok.cuda(), caches,
@@ -3681,75 +3788,159 @@ def mesh_drive(step, params, caches, prompts, lengths, *,
         if forced is None:
             # each slot's next token: the argmax at its last valid position
             last = torch.from_numpy(np.maximum(n_new - 1, 0)).long().cuda()
-            pick = logits[torch.arange(B, device="cuda"), last].argmax(-1)
-            pick = pick.cpu().numpy()
+            pick = logits[torch.arange(batch, device="cuda"), last]
+            pick = pick.argmax(-1).cpu().numpy()
             done = (s >= chunks) | (np.minimum(lengths, (s + 1) * T)
                                     == lengths) & (n_new > 0)
             nxt = np.where(done, pick, nxt)
     return records
 
 
-def mesh_reference(tmp: str, base) -> dict:
-    """Phase 17 (a): the unsharded run in this process.  ``base``'s
-    float32 weights (seed 0, as ``init_params`` draws them), then the same
-    cast to bf16; each lane's records saved for the ranks (tokens, n_new,
-    logits on the host) with each leaf's sum, which the ranks' own draws
-    must equal."""
+def leaf_sum(x: torch.Tensor) -> float:
+    """A leaf's fingerprint: its sum accumulated in float32, with no copy
+    (the same reduction of the same values on the same card gives the
+    same bits)."""
+    return float(x.sum(dtype=torch.float32))
+
+
+def mesh_reference(tmp: str, model: MeshModel) -> dict:
+    """Phase 17 (a) for one model: the unsharded run in this process.  Its
+    weights (seed 0, as ``init_params`` draws them, in float32 or born in
+    ``model.born``), each leaf's sum saved for the ranks, whose own draws
+    must equal it; then each of ``model.refs()``: a lane (the float32
+    weights cast for a bf16 one) over the whole batch, or over each data
+    shard's rows alone, its records saved for the ranks (tokens, n_new,
+    logits on the host; the parts' rows side by side)."""
     from repro_torch.convert import cast_params
     from repro_torch.kernels import common
     from repro_torch.models import build_model, init_params
     from repro_torch.tree import leaves, map_with_path
 
-    out = {"arch": base.name, "layers": base.n_layers}
+    t_model = time.perf_counter()
+    base = model.config()
+    out = {"model": model.key, "arch": base.name, "layers": base.n_layers}
     prompts, lengths = mesh_prompts(base.vocab)
     out["prompt_lengths"] = lengths.tolist()
     api = build_model(base)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(api.init_specs(), gen)
+    params = init_params(api.init_specs(), gen, dtype=model.born)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     out["params"] = sum(x.numel() for x in leaves(params))
-    # a fingerprint of each leaf: its sum (float32, with no copy; the same
-    # reduction of the same values on the same card gives the same bits)
-    sums = map_with_path(lambda _, x: float(x.sum()), params)
-    Path(tmp, "sums.json").write_text(json.dumps(sums))
-    for lane, dtype in MESH_LANES:
+    out["params_gb"] = sum(x.numel() * x.element_size()
+                           for x in leaves(params)) / 1e9
+    sums = map_with_path(lambda _, x: leaf_sum(x), params)
+    Path(tmp, f"sums-{model.key}.json").write_text(json.dumps(sums))
+    for lane, parts in model.refs():
+        dtype = dict(MESH_LANES)[lane]
         cfg = dataclasses.replace(base, dtype=dtype)
         api = build_model(cfg)
-        weights = params if dtype == torch.float32 else cast_params(params,
-                                                                    cfg)
-        caches = api.init_caches(B, MAX_SEQ, T)
+        weights = params if model.born is not None or \
+            dtype == torch.float32 else cast_params(params, cfg)
         common.reset_launch_counts()
-        recs = mesh_drive(api.serve_step, weights, caches, prompts, lengths)
+        runs, tapes = [], []
+        pin = pinned(cfg)
+        per = B // parts
+        for part in range(parts):
+            rows = slice(part * per, (part + 1) * per)
+            caches = api.init_caches(per, MAX_SEQ, T)
+            with RouteTape() if pin else contextlib.nullcontext() as tape:
+                runs.append(mesh_drive(api.serve_step, weights, caches,
+                                       prompts[rows], lengths[rows],
+                                       new=model.new))
+            if pin:
+                tapes.append(tape.picks)
+            del caches
         launches = dict(common.LAUNCHES)
+        recs = [{"tokens": np.concatenate([r[s]["tokens"] for r in runs]),
+                 "n_new": np.concatenate([r[s]["n_new"] for r in runs]),
+                 "logits": torch.cat([r[s]["logits"] for r in runs]),
+                 "ms": sum(r[s]["ms"] for r in runs)}
+                for s in range(len(runs[0]))]
         logits = [r["logits"] for r in recs]
         assert all(torch.isfinite(x).all() for x in logits), lane
         assert all(x.shape[-1] == cfg.vocab for x in logits), lane
-        assert launches == fused_launches(launches, dtype,
-                                          base.n_layers * len(recs)), \
-            (lane, launches)
+        assert launches == step_launches(
+            cfg, launches, base.n_layers * len(recs) * parts), \
+            (lane, parts, launches)
         torch.save([{"tokens": r["tokens"], "n_new": r["n_new"],
                      "logits": r["logits"].cpu()} for r in recs],
-                   Path(tmp, f"ref-{lane}.pt"))
-        out[lane] = {**step_ms(recs, prompts.shape[1]),
-                     "launches": launches}
-        del weights, caches, recs, logits
+                   Path(tmp, f"ref-{model.key}-{lane}-{parts}.pt"))
+        if pin:            # each call's picks, the parts' rows side by side
+            torch.save([torch.cat(calls) for calls in zip(*tapes)],
+                       Path(tmp, f"picks-{model.key}-{lane}-{parts}.pt"))
+        out[lane if parts == 1 else f"{lane} rows of {parts}"] = {
+            **step_ms(recs, prompts.shape[1]), "launches": launches}
+        del weights, recs, logits, runs, tapes
         release()
     del params
     release()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     out["reserved_after_gb"] = torch.cuda.memory_reserved() / 2**30
+    out["seconds"] = time.perf_counter() - t_model
     return out
 
 
-def fused_launches(launches: dict, dtype, n: int) -> dict:
-    """The counts a run of ``n`` fused launches gives: every one of them
-    the fused op's (in float32, its float32 instantiation's), no other."""
+def pinned(cfg) -> bool:
+    """Whether a lane's MoE routes are pinned to its reference's: in bf16,
+    where the ranks' partial sums, added in another order than the
+    unsharded step's, flip near-tied picks (grok-1-314b's bf16 lane read
+    logit gaps up to 4.29 unpinned, a copy that drops a rank's experts
+    8.92: H100 80GB HBM3, 700 W, ``tools/mesh_gate.py``).  The float32
+    lanes route on their own."""
+    return bool(cfg.n_experts) and cfg.dtype != torch.float32
+
+
+class RouteTape:
+    """The MoE's top-k picks of a run, call by call (one call a layer a
+    step): recorded when ``picks`` is None; else replayed on ``rows`` of
+    the recorded batch (a rank's data shard's) in place of the call's own
+    picks, which are compared with them (``flips``: the token rows whose
+    own picks differ)."""
+
+    def __init__(self, picks=None, rows=slice(None)):
+        from repro_torch.models import layers
+        self.layers, self.inner = layers, layers.top_k_experts
+        self.replay = picks is not None
+        self.picks = picks if self.replay else []
+        self.rows = rows
+        self.calls = self.flips = 0
+
+    def __enter__(self):
+        self.layers.top_k_experts = self.pick
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.top_k_experts = self.inner
+
+    def pick(self, logits, K):
+        vals, own = self.inner(logits, K)
+        if not self.replay:
+            self.picks.append(own.cpu())
+            return vals, own
+        ref = self.picks[self.calls]
+        self.calls += 1
+        per = ref.shape[0] // B              # tokens a row: the chunk
+        lo = (self.rows.start or 0) * per
+        ref = ref[lo:lo + own.shape[0]].to(own.device)
+        self.flips += int((own != ref).any(-1).sum())
+        return logits.gather(1, ref), ref
+
+
+def step_launches(cfg, launches: dict, n: int) -> dict:
+    """The counts ``n`` layer steps of ``cfg``'s serve step give: one
+    fused launch (GQA), or one latent append and one latent attention
+    (MLA), a layer a step, each in float32 its float32 instantiation's
+    where it counts one; no other kernel."""
     want = {k: 0 for k in launches}
-    want["paged_attention_append_chunk"] = n
-    if dtype == torch.float32:
-        want["paged_attention_append_chunk:float32"] = n
+    ops = ("kv_append_chunk", "paged_attention_chunk") if cfg.mla else \
+        ("paged_attention_append_chunk",)
+    for op in ops:
+        want[op] = n
+        if cfg.dtype == torch.float32 and f"{op}:float32" in want:
+            want[f"{op}:float32"] = n
     return want
 
 
@@ -3798,15 +3989,40 @@ def mesh_compare(recs: list, ref: list, rows, lane: str) -> dict:
             "tokens_checked": checked, "tokens_wrong": wrong}
 
 
-def mesh_rank(rank: int, world: int, tmp: str, base, out_path: str) -> None:
-    """Phase 17 (b), one rank of every mesh of MESH_SHAPES in turn: a gloo
+def gloo_probe(rank: int, world: int) -> dict:
+    """The step's collectives on this device's tensors: all_reduce and
+    all_gather in float32 and bf16, and all_gather of int64 (the MoE's
+    expert counts), each result checked."""
+    import torch.distributed as dist
+
+    probe = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        if dtype != torch.int64:
+            x = torch.full((4,), float(rank + 1), device="cuda", dtype=dtype)
+            dist.all_reduce(x)
+            probe[f"all_reduce {dtype}"] = x.tolist() == [
+                world * (world + 1) / 2] * 4
+        got = [torch.empty(2, device="cuda", dtype=dtype)
+               for _ in range(world)]
+        dist.all_gather(got, torch.full((2,), rank, device="cuda",
+                                        dtype=dtype))
+        probe[f"all_gather {dtype}"] = [float(g[0]) for g in got] == \
+            list(map(float, range(world)))
+    return probe
+
+
+def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
+              out_path: str) -> None:
+    """Phase 17 (b), one rank of every model's meshes in turn: a gloo
     group over a FileStore on the one card (NCCL refuses two ranks on one
-    device), its collectives on the card's tensors probed first; for each
-    mesh its shard of each leaf drawn as (a) drew it (the whole leaf from
-    the same seed, its sum checked, sliced, freed), then each of the
-    mesh's lanes through ``make_serve_step``, teacher-forced with (a)'s
-    tokens, its logits held to (a)'s (``mesh_compare``), its launches
-    counted."""
+    device), its collectives on the card's tensors probed first, while
+    (a) runs; once (a) is done (its ``refs-done`` file), for each model
+    and mesh its shard of each leaf drawn as (a) drew it (the whole leaf
+    from the same seed, its sum checked, sliced, freed; one rank at a
+    time, so one whole leaf is on the card), then each of the mesh's runs
+    through ``make_serve_step`` with its variant, teacher-forced with its
+    reference's tokens, its logits held to the reference's
+    (``mesh_compare``), its launches counted."""
     import datetime
     import torch.distributed as dist
     from repro_torch.convert import cast_params
@@ -3814,6 +4030,7 @@ def mesh_rank(rank: int, world: int, tmp: str, base, out_path: str) -> None:
     from repro_torch.kernels import common
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model, init_params
+    from repro_torch.models.spec import stays_float32
     from repro_torch.serve.step import make_serve_step
     from repro_torch.tree import leaves, map_with_path
 
@@ -3823,113 +4040,144 @@ def mesh_rank(rank: int, world: int, tmp: str, base, out_path: str) -> None:
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
-    # the step's collectives on this device's tensors, first
-    probe = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.full((4,), float(rank + 1), device="cuda", dtype=dtype)
-        dist.all_reduce(x)
-        probe[f"all_reduce {dtype}"] = x.tolist() == [world * (world + 1)
-                                                      / 2] * 4
-        got = [torch.empty(2, device="cuda", dtype=dtype)
-               for _ in range(world)]
-        dist.all_gather(got, torch.full((2,), float(rank), device="cuda",
-                                        dtype=dtype))
-        probe[f"all_gather {dtype}"] = [float(g[0]) for g in got] == \
-            list(map(float, range(world)))
+    probe = gloo_probe(rank, world)
     assert all(probe.values()), probe
-    sums = json.loads(Path(tmp, "sums.json").read_text())
-    prompts, lengths = mesh_prompts(base.vocab)
-    meshes = []
-    for shape, lanes in MESH_SHAPES:
-        t_mesh = time.perf_counter()
-        mesh = make_mesh(shape)
-        out = {"rank": rank, "mesh": list(shape), "coords": mesh.coords,
-               "gloo_probe": probe}
-        api = build_model(base)
-        caches = api.init_caches(B, MAX_SEQ, T)
-        _, pspecs, cspecs = make_serve_step(api, mesh, caches)
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        bad = []
-
-        def draw(path, spec, pspec, total):
-            """The whole leaf, drawn in (a)'s order, its sum checked, then
-            this rank's shard (the whole leaf freed)."""
-            full = init_params(spec, gen)
-            if float(full.sum()) != total:
-                bad.append("/".join(path))
-            mine = shard_params(full, pspec, mesh)
-            del full
-            release()             # four ranks' leaves share the one card
-            return mine
-
-        params = map_with_path(draw, api.init_specs(), pspecs, sums)
-        torch.cuda.synchronize()
-        out["shard_s"] = time.perf_counter() - t0
-        out["shard_gb"] = sum(x.numel() * x.element_size()
-                              for x in leaves(params)) / 1e9
-        assert not bad, ("the rank's draws differ from (a)'s", bad)
-        d = mesh.coords["data"] if "data" in cspecs["lengths"] else 0
-        per = B // (mesh.shape["data"] if "data" in cspecs["lengths"]
-                    else 1)
-        rows = slice(d * per, (d + 1) * per)
-        for lane, dtype in MESH_LANES:
-            if lane not in lanes:
-                continue
-            cfg = dataclasses.replace(base, dtype=dtype)
-            api = build_model(cfg)
-            if dtype != torch.float32:
-                params = cast_params(params, cfg)
-            release()
+    while not Path(tmp, "refs-done").exists():
+        time.sleep(0.2)                 # the spawner's deadline bounds it
+    meshes, results = {}, []
+    for model in models:
+        base = model.config()
+        sums = json.loads(Path(tmp, f"sums-{model.key}.json").read_text())
+        prompts, lengths = mesh_prompts(base.vocab)
+        for shape in model.shapes():
+            t_mesh = time.perf_counter()
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape)
+            mesh = meshes[shape]
+            out = {"model": model.key, "rank": rank, "mesh": list(shape),
+                   "coords": mesh.coords, "gloo_probe": probe}
+            api = build_model(base)
             caches = api.init_caches(B, MAX_SEQ, T)
-            step, _, cspecs = make_serve_step(api, mesh, caches)
-            caches = shard_params(caches, cspecs, mesh)
-            ref = torch.load(Path(tmp, f"ref-{lane}.pt"), weights_only=False)
+            _, pspecs, cspecs = make_serve_step(api, mesh, caches)
+            del caches
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            bad = []
+
+            def draw(path, spec, pspec, total):
+                """The whole leaf, drawn in (a)'s order, its sum checked,
+                then this rank's shard (the whole leaf freed); the ranks
+                take turns at a leaf of a GiB or more (its float32 draw)."""
+                dtype = None if model.born is None or stays_float32(path) \
+                    else model.born
+                big = math.prod(spec.shape) * 4 >= 2**30
+                mine = None
+                for turn in range(world if big else 1):
+                    if turn == rank or not big:
+                        full = init_params(spec, gen, dtype=dtype)
+                        if leaf_sum(full) != total:
+                            bad.append("/".join(path))
+                        mine = shard_params(full, pspec, mesh)
+                        del full
+                        if big:
+                            torch.cuda.empty_cache()
+                    if big:
+                        dist.barrier()
+                return mine
+
+            params = map_with_path(draw, api.init_specs(), pspecs, sums)
             torch.cuda.synchronize()
-            common.reset_launch_counts()
-            recs = mesh_drive(step, params, caches, prompts, lengths,
-                              rows=rows, forced=ref)
-            launches = dict(common.LAUNCHES)
-            res = mesh_compare(recs, ref, rows, lane)
-            res["finite"] = all(bool(torch.isfinite(r["logits"]).all())
-                                for r in recs)
-            res["logit_sums"] = [float(r["logits"].double().sum())
-                                 for r in recs]
-            res["pool_shape"] = list(caches["group"]["b0_attn"][0].shape)
-            out[lane] = {**step_ms(recs, prompts.shape[1]), **res,
-                         "launches": launches}
-            del caches, recs, ref
+            out["shard_s"] = time.perf_counter() - t0
+            out["shard_gb"] = sum(x.numel() * x.element_size()
+                                  for x in leaves(params)) / 1e9
+            assert not bad, ("the rank's draws differ from (a)'s", bad)
+            d = mesh.coords["data"] if "data" in cspecs["lengths"] else 0
+            per = B // (mesh.shape["data"] if "data" in cspecs["lengths"]
+                        else 1)
+            rows = slice(d * per, (d + 1) * per)
+            for shape_, lane, variant in model.runs:
+                if shape_ != shape:
+                    continue
+                t_lane = time.perf_counter()
+                dtype = dict(MESH_LANES)[lane]
+                cfg = dataclasses.replace(base, dtype=dtype)
+                api = build_model(cfg)
+                if model.born is None and dtype != torch.float32:
+                    params = cast_params(params, cfg)
+                release()
+                caches = api.init_caches(B, MAX_SEQ, T)
+                step, _, cspecs = make_serve_step(api, mesh, caches,
+                                                  variant=variant)
+                caches = shard_params(caches, cspecs, mesh)
+                parts = shape[0] if variant == "shard_map" else 1
+                ref = torch.load(Path(tmp, f"ref-{model.key}-{lane}-"
+                                      f"{parts}.pt"), weights_only=False)
+                pin = pinned(cfg)
+                tape = RouteTape(torch.load(Path(
+                    tmp, f"picks-{model.key}-{lane}-{parts}.pt")), rows) \
+                    if pin else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                common.reset_launch_counts()
+                with tape:
+                    recs = mesh_drive(step, params, caches, prompts,
+                                      lengths, rows=rows, forced=ref,
+                                      new=model.new)
+                launches = dict(common.LAUNCHES)
+                res = mesh_compare(recs, ref, rows, lane)
+                if pin:
+                    res.update(routes_pinned=True, moe_calls=tape.calls,
+                               route_flips=tape.flips)
+                res["finite"] = all(bool(torch.isfinite(r["logits"]).all())
+                                    for r in recs)
+                res["logit_sums"] = [float(r["logits"].double().sum())
+                                     for r in recs]
+                res["pool_shape"] = list(
+                    next(iter(caches["group"].values()))[0].shape)
+                res["variant"] = variant
+                res["held_to"] = "the whole batch" if parts == 1 else \
+                    f"each of {parts} data shards' rows alone"
+                out[lane_key(lane, variant)] = {
+                    **step_ms(recs, prompts.shape[1]), **res,
+                    "launches": launches,
+                    "seconds": time.perf_counter() - t_lane}
+                del caches, recs, ref
+                release()
+            del params
             release()
-        del params
-        release()
-        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-        out["seconds"] = time.perf_counter() - t_mesh
-        meshes.append(out)
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            out["seconds"] = time.perf_counter() - t_mesh
+            results.append(out)
     dist.destroy_process_group()
-    Path(out_path).write_text(json.dumps(meshes))
+    Path(out_path).write_text(json.dumps(results))
 
 
-def _mesh_rank_entry(rank, world, tmp, base):
-    mesh_rank(rank, world, tmp, base, os.path.join(tmp, f"rank-{rank}.json"))
+def _mesh_rank_entry(rank, world, tmp, models):
+    mesh_rank(rank, world, tmp, models,
+              os.path.join(tmp, f"rank-{rank}.json"))
 
 
-def mesh_ranks(tmp: str, base, entry=None) -> dict:
-    """Phase 17 (b): ``mesh_rank`` in a process a rank, spawned once with
-    ``torch.multiprocessing`` for every mesh of MESH_SHAPES (each has
-    MESH_RANKS ranks), all within MESH_RANK_TIMEOUT (killed at the
-    deadline).  ``entry`` (``tools/mesh_gate.py``'s broken copy) takes
-    ``_mesh_rank_entry``'s place.  Returns each mesh's ranks."""
+def mesh_spawn(tmp: str, models: tuple, entry=None):
+    """Phase 17 (b)'s ranks: ``mesh_rank`` in a process a rank, spawned
+    once with ``torch.multiprocessing`` for every model's meshes (each
+    has MESH_RANKS ranks).  ``entry`` (``tools/mesh_gate.py``'s broken
+    copies) takes ``_mesh_rank_entry``'s place."""
     import torch.multiprocessing as mp
 
-    t0 = time.perf_counter()
-    ctx = mp.start_processes(entry or _mesh_rank_entry,
-                             args=(MESH_RANKS, tmp, base),
-                             nprocs=MESH_RANKS, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    return mp.start_processes(entry or _mesh_rank_entry,
+                              args=(MESH_RANKS, tmp, models),
+                              nprocs=MESH_RANKS, join=False,
+                              start_method="spawn")
+
+
+def mesh_join(ctx, tmp: str, models: tuple, t0: float) -> dict:
+    """Waits for the ranks, all within MESH_RANK_TIMEOUT of their spawn
+    at ``t0`` (killed at the deadline); returns each (model, mesh)'s
+    ranks."""
+    deadline = t0 + MESH_RANK_TIMEOUT
     try:
         while not ctx.join(timeout=2):
-            if time.monotonic() > deadline:
+            if time.perf_counter() > deadline:
                 raise TimeoutError(f"phase 17 (b): the ranks ran past "
                                    f"{MESH_RANK_TIMEOUT} s")
     finally:
@@ -3939,63 +4187,112 @@ def mesh_ranks(tmp: str, base, entry=None) -> dict:
                 p.join()
     ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
              for r in range(MESH_RANKS)]
+    units = [(m, shape) for m in models for shape in m.shapes()]
     return {"seconds": time.perf_counter() - t0, "meshes": [
-        {"mesh": list(shape), "seconds": ranks[0][i]["seconds"],
-         "ranks": [r[i] for r in ranks]}
-        for i, (shape, _) in enumerate(MESH_SHAPES)]}
+        {"model": m.key, "mesh": list(shape),
+         "seconds": ranks[0][i]["seconds"], "ranks": [r[i] for r in ranks]}
+        for i, (m, shape) in enumerate(units)]}
 
 
-def check_mesh(res: dict, lanes: tuple, layers: int) -> None:
-    """Phase 17 (b)'s gates on every rank: finite logits within
-    MESH_LOGIT_TOL of (a)'s at every step; in float32 every greedy token
-    equal to (a)'s where (a)'s top-2 gap exceeds the noise; the fused op
-    launched once a layer a step (float32: its float32 instantiation) and
-    no other kernel; the ranks of a data shard with the same logits."""
-    steps = None
-    for r in res["ranks"]:
-        for lane, dtype in MESH_LANES:
-            if lane not in lanes:
-                continue
-            x = r[lane]
-            steps = x["steps"]
-            assert x["finite"], (lane, r["rank"])
-            assert x["max_abs_err"] <= MESH_LOGIT_TOL[dtype], \
-                (lane, r["rank"], x["max_abs_err_by_step"])
-            assert not x["tokens_wrong"], (lane, r["rank"], x["tokens_wrong"])
+def check_mesh(res: dict, model: MeshModel) -> None:
+    """Phase 17 (b)'s gates on every rank of one (model, mesh): finite
+    logits within the model's bound of its reference's at every step; in
+    float32 every greedy token equal to the reference's where its top-2
+    gap exceeds the noise; the attention's kernels launched once a layer
+    a step (``step_launches``) and no other kernel; the ranks of a data
+    shard with the same logits."""
+    base = model.config()
+    keys = []
+    for shape, lane, variant in model.runs:
+        if list(shape) != res["mesh"]:
+            continue
+        dtype = dict(MESH_LANES)[lane]
+        key = lane_key(lane, variant)
+        keys.append(key)
+        for r in res["ranks"]:
+            x = r[key]
+            assert x["finite"], (model.key, key, r["rank"])
+            assert x["max_abs_err"] <= model.tol[dtype], \
+                (model.key, key, r["rank"], x["max_abs_err_by_step"])
+            assert not x["tokens_wrong"], (model.key, key, r["rank"],
+                                           x["tokens_wrong"])
             if dtype == torch.float32:
-                assert x["tokens_checked"] > 0, (lane, r["rank"])
-            assert x["launches"] == fused_launches(
-                x["launches"], dtype, layers * steps), \
-                (lane, r["rank"], x["launches"])
-    model = res["mesh"][1]
-    for lane, _ in MESH_LANES:
-        if lane in lanes:
-            for r in res["ranks"]:
-                twin = res["ranks"][r["rank"] // model * model]
-                assert r[lane]["logit_sums"] == twin[lane]["logit_sums"], \
-                    (lane, r["rank"])
+                assert x["tokens_checked"] > 0, (model.key, key, r["rank"])
+            cfg = dataclasses.replace(base, dtype=dtype)
+            assert x["launches"] == step_launches(
+                cfg, x["launches"], base.n_layers * x["steps"]), \
+                (model.key, key, r["rank"], x["launches"])
+    m = res["mesh"][1]
+    for key in keys:
+        for r in res["ranks"]:
+            twin = res["ranks"][r["rank"] // m * m]
+            assert r[key]["logit_sums"] == twin[key]["logit_sums"], \
+                (model.key, key, r["rank"])
 
 
-def phase17(card: str, entry=None) -> dict:
-    """Phase 17 (a), then (b) on each mesh of MESH_SHAPES, each logged and
-    then gated.  ``entry``: as ``mesh_ranks``'s, whose meshes are then
-    logged and not gated."""
+def phase17(card: str, entry=None, models=MESH_MODELS) -> dict:
+    """Phase 17: the ranks spawned first (their start-up and gloo probe
+    run beside (a)), then (a) for each model, then (b) on each model's
+    meshes, every one logged, then each gated.  ``entry``: as ``mesh_spawn``'s,
+    whose meshes are then logged and not gated."""
     import tempfile
 
-    base = mesh_config()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ref = mesh_reference(tmp, base)
-        ref["seconds"] = time.perf_counter() - t0
-        log("phase17 (a)", json.dumps({"card": card, **ref}))
-        ranks = mesh_ranks(tmp, base, entry)
-        log(f"phase17 (b) seconds {ranks['seconds']:.1f}")
-        for res, (shape, lanes) in zip(ranks["meshes"], MESH_SHAPES):
-            log(f"phase17 (b) {shape[0]}x{shape[1]}",
+        ctx = mesh_spawn(tmp, models, entry)
+        try:
+            refs = {}
+            for model in models:
+                refs[model.key] = mesh_reference(tmp, model)
+                log(f"phase17 (a) {model.key}",
+                    json.dumps({"card": card, **refs[model.key]}))
+            Path(tmp, "refs-done").write_text("")
+        except BaseException:
+            for p in ctx.processes:
+                p.kill()
+            raise
+        ranks = mesh_join(ctx, tmp, models, t0)
+        log(f"phase17 (b) seconds {ranks['seconds']:.1f} (from the spawn)")
+        by_key = {m.key: m for m in models}
+        for res in ranks["meshes"]:
+            shape = res["mesh"]
+            log(f"phase17 (b) {res['model']} {shape[0]}x{shape[1]}",
                 json.dumps({"card": card, **res}))
-            if entry is None:
-                check_mesh(res, lanes, base.n_layers)
-    return {"reference": ref, **ranks}
+        for res in ranks["meshes"] if entry is None else ():
+            check_mesh(res, by_key[res["model"]])
+    return {"reference": refs, **ranks}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: item 6's smoke sweep, the dense architectures no other phase
+# serves, at full width and depth in bf16
+# ---------------------------------------------------------------------------
+
+SWEEP_ARCHS = ("minitron-8b", "starcoder2-7b")
+
+
+def smoke_sweep(arch: str) -> dict:
+    """``arch`` at full width and depth, born in bf16
+    (``serving_weights``), through phase 3's ``path_vs_plain``: three
+    kernel steps of context, then one mixed step with the kernels and
+    with the plain path; the fused op launched once a layer a kernel step
+    and no other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    api, params, out = serving_weights(cfg)
+    common.reset_launch_counts()
+    out["path_vs_plain"] = path_vs_plain(api, params, cfg)
+    launches = dict(common.LAUNCHES)
+    out["launches"] = launches
+    assert launches == step_launches(cfg, launches, 4 * cfg.n_layers), \
+        (arch, launches)
+    del params
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def phase1_cases() -> list:
@@ -4142,6 +4439,26 @@ def phase1_cases() -> list:
         # rows at C=16)
         *(fused_case(rng, C, f"fused D=128 H=16 KV=2 C={C} (qwen2-72b, a "
                      "rank of model=4)", h=16, kv=2, d=128, library=True)
+          for C in (16, 1)),
+        # phase 17's other ranks at model=4: grok-1-314b's 12 heads over 2
+        # KV heads with its softcap, qwen2-1.5b's 3 heads over a copy of
+        # one KV head, and deepseek's latent at 4 heads (C x 4 = 64 query
+        # rows at C=16); phase 18's starcoder2-7b, 36 heads over 4 (a
+        # group of 9: 144 query rows at C=16) under its 4096 window
+        *(fused_case(rng, C, f"fused D=128 H=12 KV=2 C={C} softcap=30 "
+                     "(grok-1-314b, a rank of model=4)", h=12, kv=2, d=128,
+                     softcap=30.0, library=True)
+          for C in (16, 1)),
+        *(fused_case(rng, C, f"fused D=128 H=3 KV=1 C={C} (qwen2-1.5b, a "
+                     "rank of model=4)", h=3, kv=1, d=128, library=True)
+          for C in (16, 1)),
+        *(attention_case(rng, C, f"attention D=576 H=4 C={C} bf16 "
+                         "(deepseek-v2-lite-16b, a rank of model=4)", h=4,
+                         kv=1, d=576, alias=True)
+          for C in (16, 1)),
+        *(fused_case(rng, C, f"fused D=128 H=36 KV=4 C={C} window=4096 "
+                     "(starcoder2-7b)", h=36, kv=4, d=128, window=4096,
+                     library=True)
           for C in (16, 1)),
     ]
 
@@ -4354,6 +4671,14 @@ def main() -> int:
     log(f"phase17 starts at {t17 - t_script:.1f} s")
     meshes = phase17(card)
     log(f"phase17 seconds {time.perf_counter() - t17:.1f}")
+
+    t18 = time.perf_counter()
+    log(f"phase18 starts at {t18 - t_script:.1f} s")
+    sweep = {}
+    for arch in SWEEP_ARCHS:
+        sweep[arch] = smoke_sweep(arch)
+        log(f"phase18 {arch}", json.dumps({"card": card, **sweep[arch]}))
+    log(f"phase18 seconds {time.perf_counter() - t18:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")
@@ -4612,6 +4937,8 @@ def main() -> int:
     # launch a layer a step in each lane, at its per-rank shape
     c = by["fused D=128 H=16 KV=2 C=16 (qwen2-72b, a rank of model=4)"]
     tp = meshes["meshes"][0]
+    tp_runs = [lane_key(lane, v) for shape, lane, v in MESH_MODELS[0].runs
+               if shape == (1, 4)]
     kernels.append({
         "name": "paged_attention_append_chunk (qwen2-72b, a rank of the "
                 "(1, 4) mesh)", "route": "cuda",
@@ -4619,10 +4946,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/kv_append/kernel.py:38 + "
                     "src/repro/kernels/paged_attention/kernel.py:96",
         "launches": sum(r[lane]["launches"]["paged_attention_append_chunk"]
-                        for r in tp["ranks"] for lane in MESH_SHAPES[0][1]),
+                        for r in tp["ranks"] for lane in tp_runs),
         "launches_by_rank": [
             {lane: r[lane]["launches"]["paged_attention_append_chunk"]
-             for lane in MESH_SHAPES[0][1]} for r in tp["ranks"]],
+             for lane in tp_runs} for r in tp["ranks"]],
         "path": "phase 17: qwen2-72b mesh serving, 4 gloo ranks",
         **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")},
@@ -4632,6 +4959,73 @@ def main() -> int:
             "bound_by", "plain_ms", "library_ms", "max_abs_err",
             "bitwise_vs_unfused")}
             for x in by.values() if "qwen2-72b" in x["case"]]})
+    # the attention's kernels on phase 17's other ranks, each at a rank's
+    # shape: every rank of every mesh of the model, every run
+    for key, op, case, prefix, tag in (
+            ("grok-1-314b", "paged_attention_append_chunk",
+             "fused D=128 H=12 KV=2 C=16 softcap=30 (grok-1-314b, a rank "
+             "of model=4)", "(grok-1-314b, a rank", "12 heads over 2"),
+            ("qwen2-1.5b", "paged_attention_append_chunk",
+             "fused D=128 H=3 KV=1 C=16 (qwen2-1.5b, a rank of model=4)",
+             "(qwen2-1.5b, a rank", "3 heads over a copied KV head"),
+            ("deepseek-v2-lite-16b", "paged_attention_chunk",
+             "attention D=576 H=4 C=16 bf16 (deepseek-v2-lite-16b, a rank "
+             "of model=4)", "(deepseek-v2-lite-16b, a rank",
+             "D=576, MLA, 4 heads"),
+            ("deepseek-v2-lite-16b", "kv_append_chunk", "kv_append D=576 "
+             "C=16", "kv_append D=576", "D=576, MLA, the replicated latent")):
+        c = by[case]
+        units = [u for u in meshes["meshes"]
+                 if u["model"].startswith(key)]
+        by_run = {f"{u['model']} {u['mesh'][0]}x{u['mesh'][1]} {k} rank "
+                  f"{r['rank']}": r[k]["launches"][op]
+                  for u in units for r in u["ranks"]
+                  for k in r if isinstance(r[k], dict)
+                  and "launches" in r[k]}
+        kernels.append({
+            "name": f"{op} ({key}, {tag}, a rank of phase 17's meshes)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "kv_append.cu" if op == "kv_append_chunk"
+                else "paged_attention.cu"),
+            "replaces": {
+                "kv_append_chunk": "src/repro/kernels/kv_append/kernel.py:38",
+                "paged_attention_chunk":
+                    "src/repro/kernels/paged_attention/kernel.py:96",
+                "paged_attention_append_chunk":
+                    "src/repro/kernels/kv_append/kernel.py:38 + "
+                    "src/repro/kernels/paged_attention/kernel.py:96"}[op],
+            "launches": sum(by_run.values()), "launches_by_run": by_run,
+            "path": f"phase 17: {key} mesh serving, 4 gloo ranks",
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+            "call_ms": c["ms_call"], "timing": c["ms_timing"],
+            "cases": [{k: x.get(k) for k in (
+                "case", "C", "splits", "ms", "unfused_ms", "bound_ms",
+                "bound_by", "plain_ms", "library_ms", "max_abs_err",
+                "bitwise_vs_unfused")}
+                for x in by.values() if prefix in x["case"]]})
+    # the fused op on phase 18's starcoder2-7b: 36 heads over 4
+    c = by["fused D=128 H=36 KV=4 C=16 window=4096 (starcoder2-7b)"]
+    kernels.append({
+        "name": "paged_attention_append_chunk (starcoder2-7b, 36 heads over "
+                "4)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/kv_append/kernel.py:38 + "
+                    "src/repro/kernels/paged_attention/kernel.py:96",
+        "launches": sweep["starcoder2-7b"]["launches"][
+            "paged_attention_append_chunk"],
+        "launches_minitron_8b": sweep["minitron-8b"]["launches"][
+            "paged_attention_append_chunk"],
+        "path": "phase 18: starcoder2-7b kernel path against plain path",
+        **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")},
+        "call_ms": c["ms_call"], "timing": c["ms_timing"],
+        "cases": [{k: x.get(k) for k in (
+            "case", "C", "splits", "ms", "unfused_ms", "bound_ms",
+            "bound_by", "plain_ms", "library_ms", "max_abs_err",
+            "bitwise_vs_unfused")}
+            for x in by.values() if "(starcoder2-7b)" in x["case"]]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

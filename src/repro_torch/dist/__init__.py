@@ -11,11 +11,12 @@ codec and the mesh partition rules.
   * ``sharding``: the partition rules over a ("data", "model") mesh and
     each rank's shard of a parameter or cache tree, which
     ``serve.step.make_serve_step`` serves from (tensor parallelism over
-    "model", request parallelism over "data").
+    "model", expert parallelism over it too, request parallelism over
+    "data").
 
 Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
 The trainer's ranks hold whole, replicated parameters (``train_rules``
-in the trainer: ROADMAP item 7).
+in the trainer: ROADMAP item 7.6).
 """
 
 from . import compression, fault, sharding

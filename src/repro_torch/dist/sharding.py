@@ -14,15 +14,19 @@ together (the tests' inverse).  There is no partitioner: a rank holds its
 own shard and runs its own program (``serve.step``).
 
 Deliberate difference (ROADMAP queue 3): the port's serve step splits
-whole heads only.  The reference's ``spec_for`` checks divisibility on
-the ``H * hd`` and ``KV * hd`` dims, so qwen2-1.5b's two KV heads at
-model=4 split inside a head and GSPMD reshards them; ``check_whole_heads``
-raises ``ValueError`` there instead (ROADMAP item 7.1: replicated KV
-heads).
+whole heads only (``head_specs``).  The reference's ``spec_for`` checks
+divisibility on the ``H * hd`` and ``KV * hd`` dims, so qwen2-1.5b's two
+KV heads at model=4 split inside a head (``wk``: ``(None, None,
+"model")``) while every rank keeps the whole pool and GSPMD reshards.
+The port copies each KV head instead, onto the ``model / KV`` ranks
+whose query heads read it: its ``wk`` / ``wv`` / ``bk`` / ``bv``
+columns and its pool's head (a ``Copies`` entry), so a rank's pool
+holds exactly the KV heads its query heads read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Sequence, Tuple
 
@@ -118,16 +122,68 @@ def cache_specs(mesh: Any, caches_like: Any) -> Any:
     return map_with_path(one, caches_like)
 
 
-def check_whole_heads(cfg, mesh: Any) -> None:
-    """The port splits whole heads only: ``model`` must divide the query
-    and the KV heads (the reference would split the ``H * hd`` or
-    ``KV * hd`` dims inside a head)."""
+@dataclasses.dataclass(frozen=True)
+class Copies:
+    """A spec's entry for a dim cut into ``blocks`` blocks over ``axis``
+    (of a size that ``blocks`` divides), each block held by the ``size /
+    blocks`` consecutive ranks of the axis: rank ``r`` holds block ``r //
+    (size / blocks)``.  Replicated KV heads: head ``j`` on the ranks whose
+    query heads read it."""
+    axis: str
+    blocks: int
+
+
+def head_specs(cfg, mesh: Any, param_specs: Any, caches_specs: Any,
+               params_like: Any, caches_like: Any) -> Tuple[Any, Any]:
+    """The port's head rule over the reference's specs (``partition_specs``
+    and ``cache_specs`` of the serving rules): ``model`` must divide the
+    query heads; where it divides the KV heads too, the reference's specs
+    split whole heads and stand; where the KV heads divide ``model``,
+    each KV head is copied onto the ``model / KV`` ranks whose query
+    heads read it (rank ``r`` holds head ``r // (model / KV)``: its
+    attention's ``wk`` / ``wv`` / ``bk`` / ``bv`` columns and its pools'
+    head dim take ``Copies("model", KV)``).  MLA's latent is one head that
+    every rank holds whole (``w_dkv`` is not split; ``cache_specs``
+    leaves the pool whole).  Anything else raises ``ValueError``.
+    ``params_like`` / ``caches_like``: trees of the specs' structure
+    (``ParamSpec``s, tensors), walked beside them.  Returns the specs."""
     m = mesh.shape.get("model", 1)
-    if m > 1 and (cfg.n_heads % m or cfg.n_kv_heads % m):
+    if m == 1:
+        return param_specs, caches_specs
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if H % m:
         raise ValueError(
-            f"{cfg.name}: model={m} does not divide its {cfg.n_heads} heads "
-            f"and {cfg.n_kv_heads} KV heads; the port splits whole heads "
-            "only (replicated KV heads: ROADMAP item 7.1)")
+            f"{cfg.name}: model={m} does not divide its {H} query heads; "
+            "the port splits whole heads only (ROADMAP item 7.1)")
+    if cfg.mla or KV % m == 0:
+        return param_specs, caches_specs
+    if m % KV:
+        raise ValueError(
+            f"{cfg.name}: model={m} neither divides its {KV} KV heads nor "
+            "is divided by them; the port splits or copies whole KV heads "
+            "only (ROADMAP item 7.1)")
+    copies = Copies("model", KV)
+
+    def param(path: tuple, leaf, spec: Spec) -> Spec:
+        if "attn" not in path or path[-1] not in ("wk", "wv", "bk", "bv"):
+            return spec
+        return _with(spec, len(leaf.shape) - 1, copies)
+
+    def cache(path: tuple, leaf, spec: Spec) -> Spec:
+        name = "/".join(map(str, path))
+        if "_attn" not in name or getattr(leaf, "ndim", 0) < 4:
+            return spec
+        return _with(spec, leaf.ndim - 2, copies)   # (.., T, KV, hd)
+
+    return (map_with_path(param, params_like, param_specs),
+            map_with_path(cache, caches_like, caches_specs))
+
+
+def _with(spec: Spec, dim: int, entry) -> Spec:
+    """``spec`` with ``entry`` at ``dim`` (Nones padded)."""
+    out = list(spec) + [None] * (dim + 1 - len(spec))
+    out[dim] = entry
+    return tuple(out)
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -140,7 +196,12 @@ def _block(spec: Spec, shape: Dict[str, int], coords: Dict[str, int],
     """Per dim: (number of blocks, this rank's block index)."""
     out = []
     for d in range(dims):
-        axes = _axes(spec[d]) if d < len(spec) else ()
+        entry = spec[d] if d < len(spec) else None
+        if isinstance(entry, Copies):
+            out.append((entry.blocks, coords[entry.axis]
+                        // (shape[entry.axis] // entry.blocks)))
+            continue
+        axes = _axes(entry)
         n, i = 1, 0
         for a in axes:                      # the first axis is the major one
             n, i = n * shape[a], i * shape[a] + coords[a]
@@ -184,25 +245,35 @@ def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
 
 def gather_params(shards: Sequence[Any], specs: Any, mesh: Any) -> Any:
     """The global tree from ``shards[r]``, rank ``r``'s ``shard_params``
-    output for every rank of the mesh (row-major over ``mesh.shape``)."""
+    output for every rank of the mesh (row-major over ``mesh.shape``).
+    A block that several ranks hold (a replicated leaf, a ``Copies``
+    block) is taken once; the other copies must equal it bitwise, else
+    ``ValueError``."""
     if len(shards) != math.prod(mesh.shape.values()):
         raise ValueError(f"{len(shards)} shards for a mesh of {mesh.shape}")
     coords = [rank_coords(dict(mesh.shape), r) for r in range(len(shards))]
 
     per_rank = [iter(leaves(s)) for s in shards]
 
-    def one(_, leaf0, spec: Spec):
+    def one(path, leaf0, spec: Spec):
         blocks = [next(it) for it in per_rank]
         if not isinstance(leaf0, torch.Tensor):
             return leaf0
         split = [_block(spec, mesh.shape, c, leaf0.ndim) for c in coords]
         full = leaf0.new_empty(tuple(s * n for s, (n, _) in
                                      zip(leaf0.shape, split[0])))
+        taken = set()
         for blk, sp in zip(blocks, split):
             view = full
             for d, (n, i) in enumerate(sp):
                 view = view.narrow(d, i * blk.shape[d], blk.shape[d])
-            view.copy_(blk)
+            key = tuple(i for _, i in sp)
+            if key not in taken:
+                taken.add(key)
+                view.copy_(blk)
+            elif not torch.equal(view, blk):
+                raise ValueError(f"{'/'.join(map(str, path))}: two ranks' "
+                                 f"copies of block {key} differ")
         return full
 
     return map_with_path(one, shards[0], specs)

@@ -226,10 +226,12 @@ def mla_init(cfg: ModelConfig) -> Dict:
 def _mla_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
     """Returns q_nope, q_rope, c_kv (latent), k_rope (shared across
-    heads)."""
+    heads).  The head count is read from ``wq``'s width: a rank of the
+    mesh serve step holds its block of whole heads, and the latent
+    (``w_dkv``) whole."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    H = p["wq"].shape[-1] // (dn + dr)
     R = cfg.kv_lora_rank
     dt = cfg.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
@@ -272,10 +274,13 @@ def mla_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``paged_attention_chunk`` (the same tensor passed twice).  Attention
     runs in latent space with w_uk absorbed into q: score = <q_nope
     W_uk^T, c_kv> + <q_rope, k_rope>.  x: [B, C, D] (C=1 decode).  Returns
-    (out [B, C, D], pool_ckv)."""
+    (out [B, C, D], pool_ckv).  On a rank of the mesh serve step the
+    query, ``w_uk``, ``w_uv`` and ``wo`` weights hold this rank's heads,
+    the pool is the whole latent (every rank appends the same rows), and
+    ``wo``'s partial products are summed over the model group."""
     B, C = x.shape[:2]
-    H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    H = p["wq"].shape[-1] // (dn + dr)
     R = cfg.kv_lora_rank
     dt = cfg.dtype
     T = pool_ckv.shape[1]
@@ -299,4 +304,6 @@ def mla_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     w_uv = p["w_uv"].to(dt).reshape(R, H, dv)
     out = torch.einsum("bchr,rhd->bchd", lat, w_uv)
     out = out.reshape(B, C, H * dv) @ p["wo"].to(dt)
+    if model_split(H, cfg.n_heads, "the MLA attention's heads"):
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
     return out, pool_ckv

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .shardctx import model_all_reduce, model_split
+from .shardctx import (data_prefix, data_size, model_all_reduce,
+                       model_rank, model_split)
 from .spec import ParamSpec
 
 
@@ -142,8 +143,17 @@ def moe_route(p: Dict, cfg: ModelConfig, xt: torch.Tensor):
     """The router of T tokens xt [T, D]: (weights [T, K] float32, softmax
     over the K picks; experts [T, K]; keep [T*K], whether each (token, k)
     pick, in token-major order, fits its expert's capacity; slot [T*K],
-    its row of the dispatch buffer, ``E * capacity`` (the overflow row)
-    where it does not; capacity)."""
+    its row of the dispatch buffer, ``E * rows`` (the overflow row) where
+    it does not; rows, each expert's buffer rows).
+
+    Under the mesh serve step's ``gspmd`` variant with the batch split
+    over data shards (``shardctx.data_size() > 1``), the capacity and the
+    running count are the whole batch's, as the reference's one program
+    counts them: T is every shard's rows, and each pick's place adds the
+    picks of its expert on the data shards before this one
+    (``shardctx.data_prefix``).  ``rows`` is then the capacity or this
+    shard's T*K picks, whichever is fewer; elsewhere it is the capacity.
+    """
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
     logits = (xt @ p["router"].to(cfg.dtype)).float()            # [T, E]
@@ -151,16 +161,22 @@ def moe_route(p: Dict, cfg: ModelConfig, xt: torch.Tensor):
     weights = torch.softmax(weights, dim=-1)
     # each expert's buffer rows: exact (no pick can drop) while T*K <= 4E,
     # as at decode; else capacity factor 2
-    capacity = T * K if T * K <= 4 * E else max(1, int(2 * T * K // E))
+    shards = data_size()
+    Tc = T * shards
+    capacity = Tc * K if Tc * K <= 4 * E else max(1, int(2 * Tc * K // E))
     flat_expert = experts.reshape(-1)                             # [T*K]
     # each pick's place in its expert's buffer: the exclusive running count
     # of earlier picks of that expert
     onehot = F.one_hot(flat_expert, E)                            # [T*K, E]
-    pos = (onehot.cumsum(0) - onehot).gather(1, flat_expert[:, None])[:, 0]
+    counts = onehot.cumsum(0)
+    pos = (counts - onehot).gather(1, flat_expert[:, None])[:, 0]
     keep = pos < capacity
-    slot = torch.where(keep, flat_expert * capacity + pos,
-                       torch.full_like(pos, E * capacity))
-    return weights, experts, keep, slot, capacity
+    if shards > 1:                  # earlier data shards' picks go first
+        keep = pos + data_prefix(counts[-1])[flat_expert] < capacity
+    rows = min(capacity, T * K)
+    slot = torch.where(keep, flat_expert * rows + pos,
+                       torch.full_like(pos, E * rows))
+    return weights, experts, keep, slot, rows
 
 
 def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -169,21 +185,42 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     do, as in the reference).  Dispatch and combine are index copies and
     gathers; picks past an expert's capacity land in the overflow row,
     whose output is zero, and their combine weight is zero.  The expert
-    products are batched matmuls over [E, capacity, D]."""
+    products are batched matmuls over [E, rows, D].
+
+    On a rank of the mesh serve step (expert parallelism): the router is
+    replicated, so every rank of the model group routes its data shard's
+    rows alike; a rank that holds ``E / model`` whole experts dispatches
+    only the picks of its own experts (the others' go to the overflow
+    row) and combines their weights; a rank whose experts are whole but
+    whose ``"ffn"`` is split (``E`` not divisible) runs every expert on
+    its FFN columns (SwiGLU separates over F).  The shared experts' FFN
+    is split over ``"ffn"``.  One ``model_all_reduce`` sums the routed
+    and shared partials; the activations are replicated over the model
+    group, so no all-to-all is needed."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = cfg.dtype
     T = B * S
     xt = x.reshape(T, D)
-    weights, _, keep, slot, capacity = moe_route(p, cfg, xt)
+    weights, _, keep, slot, rows = moe_route(p, cfg, xt)
+    E_local = p["wi_gate"].shape[0]
+    split = model_split(p["wi_gate"].shape[-1], cfg.moe_d_ff,
+                        "the MoE's expert FFN")
+    if model_split(E_local, E, "the MoE's experts"):
+        first = model_rank() * E_local * rows        # this rank's experts
+        mine = (slot >= first) & (slot < first + E_local * rows)
+        slot = torch.where(mine, slot - first,
+                           torch.full_like(slot, E_local * rows))
+        keep = keep & mine
+        split = True
 
-    buf = torch.zeros((E * capacity + 1, D), dtype=dt, device=x.device)
+    buf = torch.zeros((E_local * rows + 1, D), dtype=dt, device=x.device)
     buf[slot] = xt.repeat_interleave(K, dim=0)   # overflow writes discarded
-    hidden = buf[:E * capacity].reshape(E, capacity, D)
+    hidden = buf[:E_local * rows].reshape(E_local, rows, D)
     h = F.silu(torch.bmm(hidden, p["wi_gate"].to(dt))) \
         * torch.bmm(hidden, p["wi_up"].to(dt))
     out_e = torch.bmm(h, p["wo"].to(dt))
-    out_flat = torch.cat([out_e.reshape(E * capacity, D),
+    out_flat = torch.cat([out_e.reshape(E_local * rows, D),
                           torch.zeros((1, D), dtype=dt, device=x.device)])
 
     gathered = out_flat[slot].reshape(T, K, D)
@@ -193,7 +230,18 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_shared_experts:
         sp = p["shared"]
         h = F.silu(xt @ sp["wi_gate"].to(dt)) * (xt @ sp["wi_up"].to(dt))
-        out = out + h @ sp["wo"].to(dt)
+        shared = h @ sp["wo"].to(dt)
+        if model_split(sp["wo"].shape[0],
+                       cfg.n_shared_experts * cfg.moe_d_ff,
+                       "the MoE's shared experts") != split:
+            # one side whole, the other a partial sum: sum the partial alone
+            if split:
+                out, split = model_all_reduce(out), False
+            else:
+                shared = model_all_reduce(shared)
+        out = out + shared
+    if split:
+        out = model_all_reduce(out)      # every rank's experts' partials
     return out.reshape(B, S, D)
 
 

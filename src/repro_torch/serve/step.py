@@ -7,10 +7,14 @@ The built step is the unified chunked program
 batches in one call), run by every rank of a ("data", "model") mesh
 (``launch.mesh``) on its own shards:
 
-  * "model" (tensor parallelism): each rank holds its block of whole query
-    and KV heads, of the FFN and of the vocabulary
-    (``dist.sharding.serve_rules``), and of each pool's KV heads
-    (``cache_specs``); the model code sums the attention's and the MLP's
+  * "model" (tensor and expert parallelism): each rank holds its block of
+    whole query heads, of whole KV heads (or a copy of the one KV head
+    its query heads read, where the KV heads divide "model"), of whole
+    experts (or of every expert's FFN, where "model" does not divide the
+    experts), of the FFN and of the vocabulary
+    (``dist.sharding.serve_rules``, ``head_specs``), and of each pool's
+    KV heads (``cache_specs``; MLA's one latent head stays whole on every
+    rank); the model code sums the attention's, the MLP's and the MoE's
     partial products and looks the embedding up vocab-parallel
     (``model_all_reduce``), and gathers the logits' vocab blocks
     (``gather_vocab``) over the model group (``models.shardctx``);
@@ -18,19 +22,27 @@ batches in one call), run by every rank of a ("data", "model") mesh
     the batch (``fit_batch_axes``) from its own contiguous block of each
     pool's pages: page ids are made local (``page_table % local_pool``,
     the reference's ``:76-83``), the U-Split-style private staging of the
-    reference's ``shard_map`` variant.  Nothing crosses the data axis.
+    reference's ``shard_map`` variant.
 
-``variant``: the reference builds a ``gspmd`` step (one jit, every gather
-left to the SPMD partitioner) and a ``shard_map`` step (the batch axes
-manual, page ids local).  Eager PyTorch has no partitioner, so both names
-run this page-local program; since each data shard owns a contiguous page
-block (the engine's private chains), both give the reference's logits.
-``donate`` has no meaning here: the step updates the pools in place
-already (a deliberate difference of the port's serve step).
+``variant``: the reference builds a ``gspmd`` step (one jit over the
+whole batch, every gather left to the SPMD partitioner) and a
+``shard_map`` step (the batch axes manual: each data shard runs the
+model on its own rows, page ids local).  Eager PyTorch has no
+partitioner, so both run this page-local program, and each data shard
+owns a contiguous page block (the engine's private chains).  The one
+computation that is not row by row is the MoE's capacity count
+(``layers.moe_route``): under ``gspmd`` its capacity and running count
+are the whole batch's (data shard 0's rows first, the earlier shards'
+picks of each expert gathered over the data group,
+``shardctx.data_prefix``); under ``shard_map`` they are the shard's own.
+So both names give their reference variant's logits, which differ once
+an expert overflows at data > 1.  ``donate`` has no meaning here: the
+step updates the pools in place already (a deliberate difference of the
+port's serve step).
 
-Only the dense family is served: MoE's expert axis, MLA's latent pool,
-SSM and hybrid state and the encoder-decoder's and VLM's caches raise
-``ValueError`` (ROADMAP item 7).  With model=1 and data=1 the step is
+The dense and MoE families are served (GQA and MLA attention); SSM and
+hybrid state (ROADMAP item 7.4) and the encoder-decoder's and VLM's
+caches (7.5) raise ``ValueError``.  With model=1 and data=1 the step is
 ``api.serve_step`` itself.
 """
 
@@ -38,13 +50,16 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from ..dist.sharding import (cache_specs, check_whole_heads, fit_batch_axes,
+from ..dist.sharding import (cache_specs, fit_batch_axes, head_specs,
                              serve_rules)
 from ..models.registry import ModelAPI
-from ..models.shardctx import serving_model_group
+from ..models.shardctx import VARIANTS, serving_mesh
 from ..models.spec import partition_specs
 
-VARIANTS = ("gspmd", "shard_map")
+_WAITS = {"ssm": "SSM state (ROADMAP item 7.4)",
+          "hybrid": "hybrid state (ROADMAP item 7.4)",
+          "encdec": "the encoder-decoder's caches (ROADMAP item 7.5)",
+          "vlm": "the VLM's prefix (ROADMAP item 7.5)"}
 
 
 def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
@@ -64,27 +79,27 @@ def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    if cfg.family != "dense":
+    if cfg.family in _WAITS:
         raise ValueError(
-            f"{cfg.name}: the mesh serve step serves the dense family only; "
-            f"{cfg.family!r} (MoE's expert axis, MLA's latent pool, SSM and "
-            "hybrid state, the encoder-decoder's and VLM's caches) waits on "
-            "ROADMAP item 7")
-    check_whole_heads(cfg, mesh)
-    param_specs = partition_specs(api.init_specs(), serve_rules(mesh), mesh)
-    specs = cache_specs(mesh, caches_like)
+            f"{cfg.name}: the mesh serve step serves the dense and MoE "
+            f"families; {cfg.family!r}: {_WAITS[cfg.family]} waits")
+    specs_like = api.init_specs()
+    param_specs, specs = head_specs(
+        cfg, mesh, partition_specs(specs_like, serve_rules(mesh), mesh),
+        cache_specs(mesh, caches_like), specs_like, caches_like)
     if mesh.size == 1:
         return api.serve_step, param_specs, specs
     batch = int(caches_like["lengths"].shape[0])
     data = [a for a in fit_batch_axes(mesh, batch) if mesh.shape[a] > 1]
-    group = mesh.groups.get("model")
+    model_group = mesh.groups.get("model")
+    data_group = mesh.groups.get("data") if data else None
 
     def serve_step(params, tokens, caches, n_new, impl: Optional[str] = None):
         if data:
             caches = dict(caches)
             caches["page_table"] = caches["page_table"] % _local_pool_pages(
                 caches)
-        with serving_model_group(group):
+        with serving_mesh(model_group, data_group, variant):
             return api.serve_step(params, tokens, caches, n_new, impl=impl)
 
     return serve_step, param_specs, specs
@@ -92,6 +107,6 @@ def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
 
 def _local_pool_pages(caches: Dict) -> int:
     """The local page count: the page dim of a group pool [L, P, T, KV,
-    hd] (a dense model's layers are all in the stacked group)."""
+    hd] (a dense or MoE model's layers are all in the stacked group)."""
     pool = next(iter(caches["group"].values()))[0]
     return int(pool.shape[1])

@@ -5,8 +5,10 @@
 ``train_rules``, ``batch_axes``, ``fit_batch_axes``, every architecture's
 ``partition_specs`` and ``cache_specs`` equal the reference's, a spec
 being the tuple of a ``PartitionSpec``.  The one difference is the
-port's whole-head rule, asserted as such.  ``shard_params`` and
-``gather_params`` round-trip every rank's shards bitwise.
+port's head rule (``head_specs``: replicated KV heads copied whole
+where the reference splits inside a head), asserted as such.
+``shard_params`` and ``gather_params`` round-trip every rank's shards
+bitwise.
 """
 
 import dataclasses
@@ -117,10 +119,29 @@ def test_cache_specs_equal_reference(arch, name):
     assert got == want
 
 
+def port_specs(arch: str, mesh, smoke: bool = False):
+    """The port's serving specs (``head_specs`` over the reference's
+    rules) of ``arch``'s parameters and of its caches (8 slots of 64
+    tokens in pages of 16)."""
+    api = build_model(get_config(arch, smoke=smoke))
+    like = api.init_specs()
+    caches = api.init_caches(8, 64, 16, device="cpu") if smoke else None
+    cspecs = sharding.cache_specs(mesh, caches) if smoke else {}
+    pspecs, cspecs = sharding.head_specs(
+        api.cfg, mesh, partition_specs(like, sharding.serve_rules(mesh),
+                                       mesh), cspecs, like, caches or {})
+    return pspecs, cspecs, caches
+
+
 def test_whole_head_rule_is_the_documented_difference():
     """qwen2-1.5b at model=4: the reference splits its two KV heads of 128
-    into quarters of a 256-wide dim (and 12 heads into 3 a rank); the port
-    splits whole heads only and refuses the mesh (ROADMAP item 7.1)."""
+    into quarters of the 256-wide dim (and 12 heads into 3 a rank) and
+    keeps the whole pool on every rank; the port copies each KV head onto
+    the two ranks whose query heads read it (``Copies``): rank r holds KV
+    head r // 2, in ``wk`` / ``wv`` / ``bk`` / ``bv`` and in its pool.  A
+    model axis that does not divide the query heads, or that neither
+    divides nor is divided by the KV heads, raises (ROADMAP item 7.1);
+    where it divides both, the port takes the reference's specs."""
     mesh = FakeMesh(data=1, model=4)
     japi = jax_build_model(jax_get_config("qwen2-1.5b"))
     ref = ref_partition_specs(japi.init_specs(),
@@ -130,11 +151,74 @@ def test_whole_head_rule_is_the_documented_difference():
     assert cfg.n_kv_heads % 4 and (cfg.n_kv_heads * cfg.head_dim) % 4 == 0
     assert tuple(attn["wk"]) == (None, None, "model")    # inside a head
     assert tuple(attn["wq"]) == (None, None, "model")
-    with pytest.raises(ValueError, match="item 7.1"):
-        sharding.check_whole_heads(cfg, mesh)
-    # where model divides both, the port takes the reference's specs
-    sharding.check_whole_heads(cfg, FakeMesh(data=4, model=2))
-    sharding.check_whole_heads(get_config("qwen2-72b"), mesh)
+    pspecs, _, _ = port_specs("qwen2-1.5b", mesh)
+    mine = pspecs["group"]["b0_attn"]["attn"]
+    copies = sharding.Copies("model", cfg.n_kv_heads)
+    for k in ("wk", "wv", "bk", "bv"):
+        assert mine[k][-1] == copies, k
+    assert mine["wq"] == tuple(attn["wq"]) and mine["wo"] == tuple(
+        attn["wo"])
+    hd = cfg.head_dim
+    for r in range(4):
+        m = Mesh(shape={"data": 1, "model": 4},
+                 coords={"data": 0, "model": r}, groups={})
+        shape, block = sharding.shard_block(
+            (cfg.n_layers, cfg.d_model, cfg.n_kv_heads * hd), mine["wk"], m)
+        assert shape == (cfg.n_layers, cfg.d_model, hd) and block == r // 2
+    # the SMOKE config's pools: [L, P, T, 1, hd] a rank, the same copy rule
+    smoke = FakeMesh(data=1, model=4)
+    _, cspecs, caches = port_specs("qwen2-1.5b", smoke, smoke=True)
+    for spec, pool in zip(cspecs["group"]["b0_attn"],
+                          caches["group"]["b0_attn"]):
+        assert spec[3:] == (copies,), spec
+        m = Mesh(shape={"data": 1, "model": 4},
+                 coords={"data": 0, "model": 3}, groups={})
+        assert sharding.shard_block(pool.shape, spec, m) == (
+            pool.shape[:3] + (1, pool.shape[4]), 1)
+    for arch, axes in (("qwen2-1.5b", dict(data=1, model=8)),
+                       ("qwen2-1.5b", dict(data=1, model=3))):
+        with pytest.raises(ValueError, match="item 7.1"):
+            port_specs(arch, FakeMesh(**axes))
+    for arch, axes in (("qwen2-1.5b", dict(data=4, model=2)),
+                       ("qwen2-72b", dict(data=1, model=4)),
+                       ("deepseek-v2-lite-16b", dict(data=1, model=4))):
+        m = FakeMesh(**axes)
+        got, _, _ = port_specs(arch, m)
+        want = ref_partition_specs(
+            jax_build_model(jax_get_config(arch)).init_specs(),
+            ref_sharding.serve_rules(m), m)
+        assert flat(got) == {k: as_port(v) for k, v in flat(want).items()}
+
+
+def test_replicated_kv_heads_round_trip_and_copies_must_agree():
+    """qwen2-1.5b's SMOKE tree at (1, 4): the shards of every rank gather
+    back to the whole tree bitwise (one copy of each KV head taken), and a
+    rank whose copy differs makes ``gather_params`` raise."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    axes = {"data": 1, "model": 4}
+    pspecs, cspecs, caches = port_specs("qwen2-1.5b", FakeMesh(**axes),
+                                        smoke=True)
+    params = init_params(api.init_specs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    for pool in caches["group"]["b0_attn"]:
+        pool.copy_(torch.randn(pool.shape, generator=torch.Generator()
+                               .manual_seed(pool.numel())))
+    meshes = [Mesh(shape=axes, coords=rank_coords(axes, r), groups={})
+              for r in range(4)]
+    for tree, sp in ((params, pspecs), (caches, cspecs)):
+        shards = [sharding.shard_params(tree, sp, m) for m in meshes]
+        back = sharding.gather_params(shards, sp, meshes[0])
+        a, b = flat(back), flat(tree)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    shards = [sharding.shard_params(caches, cspecs, m) for m in meshes]
+    assert shards[1]["group"]["b0_attn"][0].shape[-2] == 1
+    shards[1]["group"]["b0_attn"][0][0, 1, 0, 0, 0] += 1.0
+    with pytest.raises(ValueError, match="copies of block"):
+        sharding.gather_params(shards, cspecs, meshes[0])
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)],

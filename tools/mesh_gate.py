@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 17 (the mesh serve step) on its own, and what its
-logit gate can tell apart.
+logit gates can tell apart.
 
-    python3 tools/mesh_gate.py [--phase17] [--broken] [--cases] [--phase1]
-                               [--windows]
+    python3 tools/mesh_gate.py [--phase17] [--broken] [--broken-moe]
+                               [--broken-count] [--cases] [--phase1]
+                               [--windows] [--models KEY,...]
 
-``--phase17`` runs ``chip_smoke.phase17`` (qwen2-72b at full width on 4
-layers: (a) unsharded in this process, (b) gloo ranks on the card at
-meshes (1, 4) and (2, 2)), a failing gate logged with its error;
-``--broken`` runs it through a copy whose MLP all_reduce drops rank 1's
-partial sum (patched into the spawned ranks' ``repro_torch.models.layers``)
-and logs, for every rank and lane, the largest logit difference to (a)
-and the greedy tokens that differ where (a)'s top-2 gap exceeds the
-noise; ``--cases`` holds the fused op at a rank's shape (phase 1's two
-qwen2-72b cases); ``--phase1`` runs every phase-1 case and logs its
-seconds; ``--windows`` times 20 CUPTI windows of one small kernel, the
-cost of a window.  With no flag it does ``--phase17``, ``--broken`` and
-``--cases``.  Needs a CUDA card.
+``--phase17`` runs ``chip_smoke.phase17`` on every model of
+``MESH_MODELS`` (or the ``--models`` keys): (a) unsharded in this
+process, (b) gloo ranks on the card at each model's meshes, a failing
+gate logged with its error.  The broken copies are patched into the
+spawned ranks, where the step runs, and each logs, for every rank and
+run, the largest logit difference to its reference and the greedy tokens
+that differ where the reference's top-2 gap exceeds the noise:
+
+  * ``--broken``: the MLP's all_reduce drops rank 1's partial sum (the
+    dense models: qwen2-72b, qwen2-1.5b);
+  * ``--broken-moe``: the MoE's all_reduce drops rank 1's partial sum of
+    its experts (and shared experts) (grok-1-314b, deepseek-v2-lite-16b);
+  * ``--broken-count``: under ``gspmd`` every data shard counts the MoE's
+    capacity over its own rows (deepseek-v2-lite-16b), read with router
+    column 0 of every layer scaled by ``OVERFLOW_SCALE`` (in (a) and in the
+    ranks) so that an expert overflows, beside the correct step on the
+    same weights.
+
+``--cases`` holds the fused op and the latent attention at each rank's
+shape (phase 1's per-rank cases); ``--phase1`` runs every phase-1 case and
+logs its seconds; ``--windows`` times 20 CUPTI windows of one small
+kernel, the cost of a window.  With no flag it does ``--phase17``,
+``--broken`` and ``--cases``.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,7 +48,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.models import layers, shardctx  # noqa: E402
+from repro_torch.models import blocks, layers, shardctx  # noqa: E402
+
+OVERFLOW_SCALE = 16.0                # as tests/test_torch_serve_step_moe.py
+DENSE = ("qwen2-72b", "qwen2-1.5b")
+MOE = ("grok-1-314b bf16", "grok-1-314b float32", "deepseek-v2-lite-16b")
 
 
 def emit(**row) -> None:
@@ -44,31 +60,90 @@ def emit(**row) -> None:
 
 
 def drop_rank_1(x: torch.Tensor) -> torch.Tensor:
-    """The MLP's all_reduce without rank 1's partial sum."""
+    """An all_reduce without rank 1's partial sum."""
     if shardctx.model_rank() == 1:
         x = torch.zeros_like(x)
     return shardctx.model_all_reduce(x)
 
 
-def broken_rank_entry(rank, world, tmp, base):
+def broken_rank_entry(rank, world, tmp, models):
     """``chip_smoke._mesh_rank_entry`` with ``drop_rank_1`` patched into
-    the MLP (in the spawned rank, where the step runs)."""
+    the MLP (and the MoE, which calls the same name)."""
     layers.model_all_reduce = drop_rank_1
-    cs._mesh_rank_entry(rank, world, tmp, base)
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def broken_moe_entry(rank, world, tmp, models):
+    """``drop_rank_1`` patched into the MoE alone: its one all_reduce of
+    the routed and shared experts' partials loses rank 1's."""
+    inner = layers.moe_apply
+
+    def moe_apply(p, cfg, x):
+        layers.model_all_reduce = drop_rank_1
+        try:
+            return inner(p, cfg, x)
+        finally:
+            layers.model_all_reduce = shardctx.model_all_reduce
+
+    blocks.moe_apply = moe_apply
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def broken_count_entry(rank, world, tmp, models):
+    """Under ``gspmd``, every data shard's capacity count over its own
+    rows only (the ``shard_map`` count), on the overflowing router."""
+    layers.data_size = lambda: 1
+    overflow_entry(rank, world, tmp, models)
+
+
+def overflow_entry(rank, world, tmp, models):
+    """``chip_smoke._mesh_rank_entry`` with the router's column 0 scaled
+    (``scaled_init``)."""
+    scaled_init()
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def scaled_init() -> None:
+    """``init_params`` (which phase 17 imports at each call) with every
+    MoE router's column 0 multiplied by OVERFLOW_SCALE: in a whole tree
+    drawn at once ((a)) and in a router leaf drawn alone (a rank's
+    draw: the ``ParamSpec`` whose logical axes end ("embed", None))."""
+    import repro_torch.models as models_pkg
+    from repro_torch.models.spec import is_spec
+
+    inner = models_pkg.init_params
+
+    def init_params(tree, generator, **kw):
+        out = inner(tree, generator, **kw)
+        if is_spec(tree):
+            if tuple(tree.logical[-2:]) == ("embed", None):
+                out[..., 0] *= OVERFLOW_SCALE
+            return out
+
+        def walk(node):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v)
+                elif k == "router":
+                    v[..., 0] *= OVERFLOW_SCALE
+        walk(out)
+        return out
+
+    models_pkg.init_params = init_params
 
 
 def readings(out: dict) -> list:
     rows = []
     for mesh in out["meshes"]:
         for r in mesh["ranks"]:
-            for lane, _ in cs.MESH_LANES:
-                if lane in r:
-                    x = r[lane]
+            for key, x in r.items():
+                if isinstance(x, dict) and "max_abs_err" in x:
                     rows.append({k: x.get(k) for k in (
                         "max_abs_err", "logit_max_abs", "positions",
-                        "tokens_checked", "prefill_ms", "decode_ms_median")}
-                        | {"mesh": mesh["mesh"], "rank": r["rank"],
-                           "lane": lane,
+                        "tokens_checked", "prefill_ms", "decode_ms_median",
+                        "seconds")}
+                        | {"model": mesh["model"], "mesh": mesh["mesh"],
+                           "rank": r["rank"], "run": key,
                            "tokens_wrong": len(x["tokens_wrong"])})
     return rows
 
@@ -92,10 +167,14 @@ def windows(reps: int = 20) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    for flag in ("phase17", "broken", "cases", "phase1", "windows"):
+    for flag in ("phase17", "broken", "broken-moe", "broken-count", "cases",
+                 "phase1", "windows"):
         ap.add_argument(f"--{flag}", action="store_true")
+    ap.add_argument("--models", default=None,
+                    help="comma-separated MESH_MODELS keys (default: all)")
     args = ap.parse_args()
-    every = not (args.phase17 or args.broken or args.cases or args.phase1
+    every = not (args.phase17 or args.broken or args.broken_moe
+                 or args.broken_count or args.cases or args.phase1
                  or args.windows)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
@@ -111,7 +190,12 @@ def main() -> int:
     t0 = time.perf_counter()
     common.library()
     emit(build_s=time.perf_counter() - t0)
+    keys = args.models.split(",") if args.models else None
+    chosen = tuple(m for m in cs.MESH_MODELS if keys is None or m.key in keys)
     failed = []
+
+    def among(names) -> tuple:
+        return tuple(m for m in chosen if m.key in names)
 
     def attempt(name: str, fn) -> None:
         """Run one part, its error logged; the later parts still run."""
@@ -126,9 +210,15 @@ def main() -> int:
     def cases() -> None:
         rng = np.random.default_rng(0)
         for C in (16, 1):
-            emit(case=cs.fused_case(
-                rng, C, f"fused D=128 H=16 KV=2 C={C}", h=16, kv=2, d=128,
-                library=True))
+            for h, kv, cap, tag in ((16, 2, None, "qwen2-72b"),
+                                    (12, 2, 30.0, "grok-1-314b"),
+                                    (3, 1, None, "qwen2-1.5b")):
+                emit(case=cs.fused_case(
+                    rng, C, f"fused D=128 H={h} KV={kv} C={C} ({tag})",
+                    h=h, kv=kv, d=128, softcap=cap, library=True))
+            emit(case=cs.attention_case(
+                rng, C, f"attention D=576 H=4 C={C} (deepseek)", h=4, kv=1,
+                d=576, alias=True))
 
     def phase1() -> None:
         got = cs.phase1_cases()
@@ -138,12 +228,20 @@ def main() -> int:
              timing_s={k: sum(c["timing_s"][k] for c in got)
                        for k in ("events_s", "cupti_s")})
 
-    def phase17() -> None:
-        emit(lane="phase 17", readings=readings(cs.phase17(card)))
-
-    def broken() -> None:
-        emit(lane="MLP all_reduce drops rank 1", readings=readings(
-            cs.phase17(card, entry=broken_rank_entry)))
+    def run(lane: str, models: tuple, entry=None, init=None) -> None:
+        if not models:
+            return
+        inner = None
+        if init is not None:          # (a)'s weights too
+            import repro_torch.models as models_pkg
+            inner = models_pkg.init_params
+            init()
+        try:
+            emit(lane=lane, readings=readings(
+                cs.phase17(card, entry=entry, models=models)))
+        finally:
+            if inner is not None:
+                models_pkg.init_params = inner
 
     if args.windows:
         attempt("windows", lambda: emit(window_s=windows()))
@@ -152,9 +250,22 @@ def main() -> int:
     if args.phase1:
         attempt("phase1", phase1)
     if args.phase17 or every:
-        attempt("phase17", phase17)
+        attempt("phase17", lambda: run("phase 17", chosen))
     if args.broken or every:
-        attempt("broken", broken)
+        attempt("broken", lambda: run("MLP all_reduce drops rank 1",
+                                      among(DENSE), broken_rank_entry))
+    if args.broken_moe:
+        attempt("broken-moe", lambda: run(
+            "MoE all_reduce drops rank 1's experts", among(MOE),
+            broken_moe_entry))
+    if args.broken_count:
+        ds = among(("deepseek-v2-lite-16b",))
+        attempt("overflow", lambda: run(
+            "overflowing router, correct step", ds, overflow_entry,
+            scaled_init))
+        attempt("broken-count", lambda: run(
+            "overflowing router, gspmd counts shard-locally", ds,
+            broken_count_entry, scaled_init))
     return 1 if failed else 0
 
 
