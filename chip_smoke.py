@@ -244,7 +244,19 @@ sm_90a) and then, failing with a non-zero exit on any error:
      one latent attention a layer a step); qwen2-1.5b at full width and
      depth in bf16 at (1, 4) (3 heads over a copy of one KV head); the
      bf16 MoE lanes on their reference's routes (``RouteTape``); phase 1
-     holds each rank's attention shape at C=16 and C=1.
+     holds each rank's attention shape at C=16 and C=1.  The same for
+     every other family (ROADMAP 7.4, 7.5), in float32, each rank's
+     state or pools and cross K/V held too, to (a)'s final caches:
+     mamba2-1.3b on 8 of 48 layers at (1, 4) and (2, 2) under both
+     variants (16 SSD heads a rank, no kernel); recurrentgemma-9b on 5
+     of 38 layers (one (rec, rec, attn) group and the two-layer rec
+     tail) at (1, 4) in chunks of 8 (1024 of the 4096 LRU channels and 4
+     heads over a copy of the one KV head a rank); whisper-large-v3 on 4
+     of 32 decoder layers (and 4 of 32 encoder layers, whose output (a)
+     computes once) at (1, 4) and (2, 2) (5 heads a rank, each rank's
+     cross K/V computed from its own ``wk`` / ``wv``); internvl2-1b at
+     full depth at (2, 2) (7 heads over one KV head a rank, the
+     vocabulary whole).
  18. item 6's smoke sweep (run before phase 11): minitron-8b and
      starcoder2-7b at full width and depth in bf16, each through phase
      3's kernel path against plain path, the fused op launched once a
@@ -261,9 +273,11 @@ their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
 one card and its float32 grads through the host fit the phase's time);
 and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
-bf16 weights need four cards, ``tools/mesh_serve.py``) and
-deepseek-v2-lite-16b (4 of 27 layers, so its float32 run and the ranks'
-shards stay within phase 17's time).
+bf16 weights need four cards, ``tools/mesh_serve.py``),
+deepseek-v2-lite-16b (4 of 27 layers), mamba2-1.3b (8 of 48),
+recurrentgemma-9b (5 of 38) and whisper-large-v3 (4 of 32 decoder and
+encoder layers), so their float32 runs and the ranks' shards stay
+within phase 17's time.
 
 TF32 is switched off for matmuls and cuDNN, so float32 products are full
 float32.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -528,6 +542,32 @@ MESH_NEW_MORE = 8                    # decode steps of the models below
 GROK_TOL = {torch.float32: 1e-2, torch.bfloat16: 1.0}
 DEEPSEEK_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.5}
 QWEN_MESH_TOL = {torch.bfloat16: 0.5}
+# the other families (ROADMAP 7.4, 7.5), float32 at full width,
+# MESH_NEW_MORE decode steps, each rank's logits and its final caches
+# (SSM and RG-LRU state, pools, cross K/V) held to (a)'s: the largest
+# |difference| of every rank's logits / final caches from (a)'s, read by
+# ``python3 tools/mesh_gate.py --phase17 --broken --broken-state-out
+# --broken-norm-gate --broken-cross`` (H100 80GB HBM3, 700 W), against
+# copies that drop rank 1's out_proj partial, its gated norm's (Mamba2)
+# or gates' (RG-LRU) partial, its cross attention's partial (whisper) or
+# its MLP's (internvl2):
+#   mamba2-1.3b 3.16e-5-1.05e-4 / 7.15e-5-4.46e-4; out_proj 5.80-6.47 /
+#     27.6-46.1, norm 1.57-3.98 / 4.23-18.9;
+#   recurrentgemma-9b 1.81e-5 / 3.93e-6-4.17e-6; out_proj 1.51 / 0.70-0.82,
+#     gates 0.38 / 0.64-1.45;
+#   whisper-large-v3 3.58e-6-8.34e-6 / 2.91e-6-4.20e-6; cross 1.32-1.75 /
+#     1.23-2.02;
+#   internvl2-1b 5.25e-6-5.48e-6 / 5.25e-6-5.78e-6; MLP 3.12-3.32 /
+#     4.13-5.15.
+# Each bound (logits, caches) sits near the geometric middle of its
+# lane's correct reading and its nearest broken one
+MAMBA_MESH_TOL = ({torch.float32: 1e-2}, {torch.float32: 4e-2})
+RG_MESH_TOL = ({torch.float32: 3e-3}, {torch.float32: 2e-3})
+WHISPER_MESH_TOL = ({torch.float32: 3e-3}, {torch.float32: 2e-3})
+VLM_MESH_TOL = ({torch.float32: 4e-3}, {torch.float32: 5e-3})
+MAMBA_MESH_LAYERS = 8
+RG_MESH_LAYERS = 5                   # one (rec, rec, attn) group + the tail
+WHISPER_MESH_LAYERS = 4              # decoder and encoder layers
 # phase 1's repetitions a callable: event-timed calls (their median, the
 # ``_call`` times) and traced calls (their device time summed, ``ms``).
 # At 30 and 20 they took 43.6 and 42.9 s of the cases' 122.5 s (H100
@@ -3688,8 +3728,12 @@ class MeshModel:
     layers (None: all), its weights drawn from seed 0 in float32 (a bf16
     lane casts them) or born in ``born``; ``runs``: (mesh shape, lane,
     variant) in the order the ranks run them (a shape's float32 lanes
-    first); ``tol``: each lane dtype's logit bound; ``new``: the greedy
-    decode steps after the prompts."""
+    first); ``tol``: each lane dtype's logit bound; ``cache_tol`` (None:
+    not held): each lane dtype's bound of every rank's final caches
+    against (a)'s; ``new``: the greedy decode steps after the prompts;
+    ``chunk``: the prefill chunk; ``max_seq``: a slot's tokens.  An
+    encoder-decoder's ``layers`` cut its decoder and its encoder
+    alike."""
     key: str
     arch: str
     layers: Optional[int]
@@ -3697,12 +3741,20 @@ class MeshModel:
     runs: tuple
     tol: dict
     new: int = MESH_NEW
+    chunk: int = T
+    max_seq: int = MAX_SEQ
+    cache_tol: Optional[dict] = None
 
     def config(self):
         from repro_torch.configs import get_config
         cfg = get_config(self.arch)
-        return cfg if self.layers is None else dataclasses.replace(
-            cfg, n_layers=self.layers)
+        if self.layers is None:
+            return cfg
+        if cfg.family == "encdec":
+            return dataclasses.replace(cfg, n_layers=self.layers,
+                                       n_enc_layers=self.layers,
+                                       n_dec_layers=self.layers)
+        return dataclasses.replace(cfg, n_layers=self.layers)
 
     def shapes(self) -> list:
         return list(dict.fromkeys(shape for shape, _, _ in self.runs))
@@ -3732,6 +3784,22 @@ MESH_MODELS = (
     MeshModel("qwen2-1.5b", "qwen2-1.5b", None, torch.bfloat16,
               (((1, 4), "bfloat16", "gspmd"),), QWEN_MESH_TOL,
               MESH_NEW_MORE),
+    MeshModel("mamba2-1.3b", "mamba2-1.3b", MAMBA_MESH_LAYERS, None,
+              (((1, 4), "float32", "gspmd"), ((1, 4), "float32", "shard_map"),
+               ((2, 2), "float32", "gspmd"),
+               ((2, 2), "float32", "shard_map")), MAMBA_MESH_TOL[0],
+              MESH_NEW_MORE, cache_tol=MAMBA_MESH_TOL[1]),
+    MeshModel("recurrentgemma-9b", "recurrentgemma-9b", RG_MESH_LAYERS, None,
+              (((1, 4), "float32", "gspmd"),), RG_MESH_TOL[0],
+              MESH_NEW_MORE, chunk=RG_CHUNK, cache_tol=RG_MESH_TOL[1]),
+    MeshModel("whisper-large-v3", "whisper-large-v3", WHISPER_MESH_LAYERS,
+              None, (((1, 4), "float32", "gspmd"),
+                     ((2, 2), "float32", "gspmd")), WHISPER_MESH_TOL[0],
+              MESH_NEW_MORE, max_seq=WHISPER_MAX_SEQ,
+              cache_tol=WHISPER_MESH_TOL[1]),
+    MeshModel("internvl2-1b", "internvl2-1b", None, None,
+              (((2, 2), "float32", "gspmd"),), VLM_MESH_TOL[0],
+              MESH_NEW_MORE, cache_tol=VLM_MESH_TOL[1]),
 )
 
 
@@ -3753,26 +3821,27 @@ def mesh_prompts(vocab: int, span=MESH_PROMPTS) -> tuple:
 
 
 def mesh_drive(step, params, caches, prompts, lengths, *,
-               rows=slice(None), forced=None, new=MESH_NEW) -> list:
-    """Phase 17's requests through ``step``: the prompts in chunks of T
-    (a slot whose prompt is done takes n_new 0), then ``new`` greedy
-    decode steps.  ``rows``: this rank's batch rows.  ``forced``: the
+               rows=slice(None), forced=None, new=MESH_NEW,
+               chunk=T) -> list:
+    """Phase 17's requests through ``step``: the prompts in chunks of
+    ``chunk`` (a slot whose prompt is done takes n_new 0), then ``new``
+    greedy decode steps.  ``rows``: this rank's batch rows.  ``forced``: the
     records of another run, whose tokens are fed (teacher forcing).  Each
     record: the tokens and n_new fed (every row of ``prompts``), the
     step's logits (this rank's rows, float32 on the card) and its host ms
     (synchronized)."""
     batch, longest = prompts.shape
-    chunks = -(-longest // T)
+    chunks = -(-longest // chunk)
     records = []
     nxt = np.zeros(batch, np.int64)
     for s in range(chunks + new):
         if forced is not None:
             tok, n_new = forced[s]["tokens"], forced[s]["n_new"]
         elif s < chunks:
-            tok = np.zeros((batch, T), np.int32)
-            part = prompts[:, s * T:(s + 1) * T]
+            tok = np.zeros((batch, chunk), np.int32)
+            part = prompts[:, s * chunk:(s + 1) * chunk]
             tok[:, :part.shape[1]] = part
-            n_new = np.clip(lengths - s * T, 0, T).astype(np.int32)
+            n_new = np.clip(lengths - s * chunk, 0, chunk).astype(np.int32)
         else:
             tok = nxt.astype(np.int32)[:, None]
             n_new = np.ones(batch, np.int32)
@@ -3790,7 +3859,7 @@ def mesh_drive(step, params, caches, prompts, lengths, *,
             last = torch.from_numpy(np.maximum(n_new - 1, 0)).long().cuda()
             pick = logits[torch.arange(batch, device="cuda"), last]
             pick = pick.argmax(-1).cpu().numpy()
-            done = (s >= chunks) | (np.minimum(lengths, (s + 1) * T)
+            done = (s >= chunks) | (np.minimum(lengths, (s + 1) * chunk)
                                     == lengths) & (n_new > 0)
             nxt = np.where(done, pick, nxt)
     return records
@@ -3803,6 +3872,48 @@ def leaf_sum(x: torch.Tensor) -> float:
     return float(x.sum(dtype=torch.float32))
 
 
+def merged_caches(parts: list):
+    """One cache tree from the final caches of runs over consecutive row
+    blocks (a data shard's rows each): each leaf's parts concatenated on
+    the dim a data split cuts (a pool's pages, a state's or the cross
+    K/V's rows: the dim after a stacked leaf's layer dim), so that a
+    rank's ``shard_params`` block of it is what the rank's run should
+    hold.  The page table stays part 0's (page ids local to a part)."""
+    from repro_torch.tree import map_with_path
+
+    def one(path, *xs):
+        name = "/".join(map(str, path))
+        if len(xs) == 1 or name == "page_table":
+            return xs[0]
+        return torch.cat(xs, dim=1 if name.startswith(
+            ("group", "pools", "cross")) else 0)
+
+    return map_with_path(one, *parts)
+
+
+def caches_compare(caches, ref, cspecs, mesh) -> dict:
+    """This rank's final caches against its block of (a)'s
+    (``merged_caches``): the largest |difference| of each leaf but the
+    page table (a layout, not a result), and of all of them."""
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.tree import map_with_path
+
+    want = shard_params(ref, cspecs, mesh)
+    errs = {}
+
+    def one(path, got, w):
+        name = "/".join(map(str, path))
+        if name == "page_table":
+            return
+        assert tuple(got.shape) == tuple(w.shape), (name, got.shape, w.shape)
+        errs[name] = float((got.float().cpu() - w.float()).abs().max()) \
+            if got.numel() else 0.0
+
+    map_with_path(one, caches, want)
+    return {"cache_max_abs_err": max(errs.values()),
+            "cache_max_abs_err_by_leaf": errs}
+
+
 def mesh_reference(tmp: str, model: MeshModel) -> dict:
     """Phase 17 (a) for one model: the unsharded run in this process.  Its
     weights (seed 0, as ``init_params`` draws them, in float32 or born in
@@ -3810,10 +3921,16 @@ def mesh_reference(tmp: str, model: MeshModel) -> dict:
     must equal it; then each of ``model.refs()``: a lane (the float32
     weights cast for a bf16 one) over the whole batch, or over each data
     shard's rows alone, its records saved for the ranks (tokens, n_new,
-    logits on the host; the parts' rows side by side)."""
+    logits on the host; the parts' rows side by side) and, where
+    ``model.cache_tol`` holds them, its final caches (``merged_caches``).
+    An encoder-decoder's frames (numpy seed 3) are encoded once a lane
+    (``encode``, saved for the ranks, which compute their own heads'
+    cross K/V from it) and each part's cross K/V written into its
+    caches."""
     from repro_torch.convert import cast_params
     from repro_torch.kernels import common
     from repro_torch.models import build_model, init_params
+    from repro_torch.models.encdec import encdec_prefill_cross, encode
     from repro_torch.tree import leaves, map_with_path
 
     t_model = time.perf_counter()
@@ -3839,19 +3956,34 @@ def mesh_reference(tmp: str, model: MeshModel) -> dict:
         api = build_model(cfg)
         weights = params if model.born is not None or \
             dtype == torch.float32 else cast_params(params, cfg)
+        enc = None
+        if cfg.family == "encdec":
+            frames = torch.from_numpy(np.random.default_rng(3)
+                                      .standard_normal((B, cfg.enc_frames,
+                                                        cfg.d_model))
+                                      .astype(np.float32)).cuda()
+            with torch.no_grad():
+                enc = encode(weights, cfg, frames)
+            torch.save(enc.cpu(), Path(tmp, f"enc-{model.key}-{lane}.pt"))
+            del frames
         common.reset_launch_counts()
-        runs, tapes = [], []
+        runs, tapes, finals = [], [], []
         pin = pinned(cfg)
         per = B // parts
         for part in range(parts):
             rows = slice(part * per, (part + 1) * per)
-            caches = api.init_caches(per, MAX_SEQ, T)
+            caches = api.init_caches(per, model.max_seq, T)
+            if enc is not None:
+                caches["cross_k"], caches["cross_v"] = encdec_prefill_cross(
+                    weights, cfg, enc[rows])
             with RouteTape() if pin else contextlib.nullcontext() as tape:
                 runs.append(mesh_drive(api.serve_step, weights, caches,
                                        prompts[rows], lengths[rows],
-                                       new=model.new))
+                                       new=model.new, chunk=model.chunk))
             if pin:
                 tapes.append(tape.picks)
+            if model.cache_tol:
+                finals.append(map_with_path(lambda _, x: x.cpu(), caches))
             del caches
         launches = dict(common.LAUNCHES)
         recs = [{"tokens": np.concatenate([r[s]["tokens"] for r in runs]),
@@ -3863,17 +3995,21 @@ def mesh_reference(tmp: str, model: MeshModel) -> dict:
         assert all(torch.isfinite(x).all() for x in logits), lane
         assert all(x.shape[-1] == cfg.vocab for x in logits), lane
         assert launches == step_launches(
-            cfg, launches, base.n_layers * len(recs) * parts), \
+            cfg, launches, attn_layers(cfg) * len(recs) * parts), \
             (lane, parts, launches)
         torch.save([{"tokens": r["tokens"], "n_new": r["n_new"],
                      "logits": r["logits"].cpu()} for r in recs],
                    Path(tmp, f"ref-{model.key}-{lane}-{parts}.pt"))
+        if model.cache_tol:
+            torch.save(merged_caches(finals),
+                       Path(tmp, f"caches-{model.key}-{lane}-{parts}.pt"))
         if pin:            # each call's picks, the parts' rows side by side
             torch.save([torch.cat(calls) for calls in zip(*tapes)],
                        Path(tmp, f"picks-{model.key}-{lane}-{parts}.pt"))
         out[lane if parts == 1 else f"{lane} rows of {parts}"] = {
-            **step_ms(recs, prompts.shape[1]), "launches": launches}
-        del weights, recs, logits, runs, tapes
+            **step_ms(recs, prompts.shape[1], model.chunk),
+            "launches": launches}
+        del weights, recs, logits, runs, tapes, finals, enc
         release()
     del params
     release()
@@ -3930,13 +4066,17 @@ class RouteTape:
 
 
 def step_launches(cfg, launches: dict, n: int) -> dict:
-    """The counts ``n`` layer steps of ``cfg``'s serve step give: one
-    fused launch (GQA), or one latent append and one latent attention
-    (MLA), a layer a step, each in float32 its float32 instantiation's
-    where it counts one; no other kernel."""
+    """The counts ``n`` attention-layer steps of ``cfg``'s serve step
+    give: one fused launch (GQA; and an encoder-decoder's cross attention
+    through the flash forward), or one latent append and one latent
+    attention (MLA), a layer a step, each in float32 its float32
+    instantiation's where it counts one; no other kernel (Mamba2 and the
+    RG-LRU launch none)."""
     want = {k: 0 for k in launches}
     ops = ("kv_append_chunk", "paged_attention_chunk") if cfg.mla else \
         ("paged_attention_append_chunk",)
+    if cfg.family == "encdec":
+        ops += ("flash_attention",)
     for op in ops:
         want[op] = n
         if cfg.dtype == torch.float32 and f"{op}:float32" in want:
@@ -3944,8 +4084,8 @@ def step_launches(cfg, launches: dict, n: int) -> dict:
     return want
 
 
-def step_ms(recs: list, longest: int) -> dict:
-    chunks = -(-longest // T)
+def step_ms(recs: list, longest: int, chunk: int = T) -> dict:
+    chunks = -(-longest // chunk)
     pre = [r["ms"] for r in recs[:chunks]]
     dec = [r["ms"] for r in recs[chunks:]]
     return {"steps": len(recs), "prefill_steps": len(pre),
@@ -4011,6 +4151,15 @@ def gloo_probe(rank: int, world: int) -> dict:
     return probe
 
 
+def cache_leaves(caches) -> list:
+    """(path, leaf) of every leaf of a cache tree but the page table and
+    the lengths."""
+    from repro_torch.tree import map_with_path
+    out = []
+    map_with_path(lambda path, x: out.append((path, x)), caches)
+    return [(p, x) for p, x in out if p[0] not in ("page_table", "lengths")]
+
+
 def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
               out_path: str) -> None:
     """Phase 17 (b), one rank of every model's meshes in turn: a gloo
@@ -4022,7 +4171,11 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
     time, so one whole leaf is on the card), then each of the mesh's runs
     through ``make_serve_step`` with its variant, teacher-forced with its
     reference's tokens, its logits held to the reference's
-    (``mesh_compare``), its launches counted."""
+    (``mesh_compare``) and, where ``model.cache_tol`` holds them, its
+    final caches to its block of the reference's (``caches_compare``),
+    its launches counted.  An encoder-decoder's rank computes its own KV
+    heads' cross K/V from (a)'s encoder output of its rows
+    (``encdec_prefill_cross`` over its shards)."""
     import datetime
     import torch.distributed as dist
     from repro_torch.convert import cast_params
@@ -4030,6 +4183,7 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
     from repro_torch.kernels import common
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model, init_params
+    from repro_torch.models.encdec import encdec_prefill_cross
     from repro_torch.models.spec import stays_float32
     from repro_torch.serve.step import make_serve_step
     from repro_torch.tree import leaves, map_with_path
@@ -4057,7 +4211,7 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
             out = {"model": model.key, "rank": rank, "mesh": list(shape),
                    "coords": mesh.coords, "gloo_probe": probe}
             api = build_model(base)
-            caches = api.init_caches(B, MAX_SEQ, T)
+            caches = api.init_caches(B, model.max_seq, T)
             _, pspecs, cspecs = make_serve_step(api, mesh, caches)
             del caches
             torch.cuda.reset_peak_memory_stats()
@@ -4106,10 +4260,15 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
                 if model.born is None and dtype != torch.float32:
                     params = cast_params(params, cfg)
                 release()
-                caches = api.init_caches(B, MAX_SEQ, T)
+                caches = api.init_caches(B, model.max_seq, T)
                 step, _, cspecs = make_serve_step(api, mesh, caches,
                                                   variant=variant)
                 caches = shard_params(caches, cspecs, mesh)
+                if cfg.family == "encdec":        # this rank's KV heads
+                    enc = torch.load(Path(tmp, f"enc-{model.key}-{lane}.pt"))
+                    caches["cross_k"], caches["cross_v"] = \
+                        encdec_prefill_cross(params, cfg, enc[rows].cuda())
+                    del enc
                 parts = shape[0] if variant == "shard_map" else 1
                 ref = torch.load(Path(tmp, f"ref-{model.key}-{lane}-"
                                       f"{parts}.pt"), weights_only=False)
@@ -4122,9 +4281,13 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
                 with tape:
                     recs = mesh_drive(step, params, caches, prompts,
                                       lengths, rows=rows, forced=ref,
-                                      new=model.new)
+                                      new=model.new, chunk=model.chunk)
                 launches = dict(common.LAUNCHES)
                 res = mesh_compare(recs, ref, rows, lane)
+                if model.cache_tol:
+                    res.update(caches_compare(caches, torch.load(Path(
+                        tmp, f"caches-{model.key}-{lane}-{parts}.pt"),
+                        mmap=True), cspecs, mesh))
                 if pin:
                     res.update(routes_pinned=True, moe_calls=tape.calls,
                                route_flips=tape.flips)
@@ -4132,13 +4295,14 @@ def mesh_rank(rank: int, world: int, tmp: str, models: tuple,
                                     for r in recs)
                 res["logit_sums"] = [float(r["logits"].double().sum())
                                      for r in recs]
-                res["pool_shape"] = list(
-                    next(iter(caches["group"].values()))[0].shape)
+                res["cache_shapes"] = {
+                    "/".join(map(str, path)): list(x.shape)
+                    for path, x in cache_leaves(caches)}
                 res["variant"] = variant
                 res["held_to"] = "the whole batch" if parts == 1 else \
                     f"each of {parts} data shards' rows alone"
                 out[lane_key(lane, variant)] = {
-                    **step_ms(recs, prompts.shape[1]), **res,
+                    **step_ms(recs, prompts.shape[1], model.chunk), **res,
                     "launches": launches,
                     "seconds": time.perf_counter() - t_lane}
                 del caches, recs, ref
@@ -4198,9 +4362,10 @@ def check_mesh(res: dict, model: MeshModel) -> None:
     """Phase 17 (b)'s gates on every rank of one (model, mesh): finite
     logits within the model's bound of its reference's at every step; in
     float32 every greedy token equal to the reference's where its top-2
-    gap exceeds the noise; the attention's kernels launched once a layer
-    a step (``step_launches``) and no other kernel; the ranks of a data
-    shard with the same logits."""
+    gap exceeds the noise; with ``cache_tol``, its final caches within
+    their bound of its block of the reference's; the attention's kernels
+    launched once a layer a step (``step_launches``) and no other
+    kernel; the ranks of a data shard with the same logits."""
     base = model.config()
     keys = []
     for shape, lane, variant in model.runs:
@@ -4214,13 +4379,17 @@ def check_mesh(res: dict, model: MeshModel) -> None:
             assert x["finite"], (model.key, key, r["rank"])
             assert x["max_abs_err"] <= model.tol[dtype], \
                 (model.key, key, r["rank"], x["max_abs_err_by_step"])
+            if model.cache_tol:
+                assert x["cache_max_abs_err"] <= model.cache_tol[dtype], \
+                    (model.key, key, r["rank"],
+                     x["cache_max_abs_err_by_leaf"])
             assert not x["tokens_wrong"], (model.key, key, r["rank"],
                                            x["tokens_wrong"])
             if dtype == torch.float32:
                 assert x["tokens_checked"] > 0, (model.key, key, r["rank"])
             cfg = dataclasses.replace(base, dtype=dtype)
             assert x["launches"] == step_launches(
-                cfg, x["launches"], base.n_layers * x["steps"]), \
+                cfg, x["launches"], attn_layers(cfg) * x["steps"]), \
                 (model.key, key, r["rank"], x["launches"])
     m = res["mesh"][1]
     for key in keys:
@@ -4459,6 +4628,39 @@ def phase1_cases() -> list:
         *(fused_case(rng, C, f"fused D=128 H=36 KV=4 C={C} window=4096 "
                      "(starcoder2-7b)", h=36, kv=4, d=128, window=4096,
                      library=True)
+          for C in (16, 1)),
+        *state_mesh_cases(rng),
+    ]
+
+
+def state_mesh_cases(rng) -> list:
+    """Phase 17's ranks of the other families, each at a rank's shape:
+    recurrentgemma-9b's attention at model=4 (4 heads over a copy of the
+    one KV head of 256, window 2048, the served chunk of 8 and decode,
+    past the window), whisper-large-v3's self attention (5 heads over 5
+    of 64) and cross attention (5 heads against 1500 frames, B=8, C=16
+    and 1) at model=4, and internvl2-1b's attention at model=2 (7 heads
+    over 1 of 64)."""
+    past = lambda r, C: r.integers(RG_WINDOW - 8, RG_SEQ - C + 1, B)
+    return [
+        *(fused_case(rng, C, f"fused D=256 H=4 KV=1 C={C} window=2048 "
+                     "(recurrentgemma-9b, a rank of model=4)", h=4, kv=1,
+                     d=256, window=RG_WINDOW, seq=RG_SEQ,
+                     starts=lambda r, C=C: past(r, C), library=True)
+          for C in (RG_CHUNK, 1)),
+        *(fused_case(rng, C, f"fused D=64 H=KV=5 C={C} (whisper-large-v3, "
+                     "a rank of model=4)", h=5, kv=5, d=64,
+                     seq=WHISPER_MAX_SEQ,
+                     starts=lambda r, C=C: r.integers(64, 417 - C, B),
+                     library=True)
+          for C in (16, 1)),
+        *(flash_case(rng, f"flash Sq={C} Sk={WHISPER_FRAMES} B={B} H=KV=5 "
+                     "D=64 non-causal (whisper-large-v3 cross, a rank of "
+                     "model=4)", C, Sk=WHISPER_FRAMES, B=B, h=5, kv=5, D=64,
+                     causal=False)
+          for C in (16, 1)),
+        *(fused_case(rng, C, f"fused D=64 H=7 KV=1 C={C} (internvl2-1b, a "
+                     "rank of model=2)", h=7, kv=1, d=64, library=True)
           for C in (16, 1)),
     ]
 
@@ -4973,7 +5175,22 @@ def main() -> int:
              "of model=4)", "(deepseek-v2-lite-16b, a rank",
              "D=576, MLA, 4 heads"),
             ("deepseek-v2-lite-16b", "kv_append_chunk", "kv_append D=576 "
-             "C=16", "kv_append D=576", "D=576, MLA, the replicated latent")):
+             "C=16", "kv_append D=576", "D=576, MLA, the replicated latent"),
+            ("recurrentgemma-9b", "paged_attention_append_chunk",
+             "fused D=256 H=4 KV=1 C=8 window=2048 (recurrentgemma-9b, a "
+             "rank of model=4)", "(recurrentgemma-9b, a rank",
+             "D=256, 4 heads over a copied KV head, window 2048"),
+            ("whisper-large-v3", "paged_attention_append_chunk",
+             "fused D=64 H=KV=5 C=16 (whisper-large-v3, a rank of model=4)",
+             "(whisper-large-v3, a rank", "5 heads over 5"),
+            ("whisper-large-v3", "flash_attention",
+             f"flash Sq=16 Sk={WHISPER_FRAMES} B={B} H=KV=5 D=64 non-causal "
+             "(whisper-large-v3 cross, a rank of model=4)",
+             "(whisper-large-v3 cross, a rank",
+             "cross attention, 5 heads against 1500 frames"),
+            ("internvl2-1b", "paged_attention_append_chunk",
+             "fused D=64 H=7 KV=1 C=16 (internvl2-1b, a rank of model=2)",
+             "(internvl2-1b, a rank", "7 heads over 1")):
         c = by[case]
         units = [u for u in meshes["meshes"]
                  if u["model"].startswith(key)]
@@ -4985,10 +5202,13 @@ def main() -> int:
         kernels.append({
             "name": f"{op} ({key}, {tag}, a rank of phase 17's meshes)",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + (
-                "kv_append.cu" if op == "kv_append_chunk"
-                else "paged_attention.cu"),
+            "source": "src/repro_torch/kernels/csrc/" + {
+                "kv_append_chunk": "kv_append.cu",
+                "flash_attention": "flash_attention.cu"}.get(
+                    op, "paged_attention.cu"),
             "replaces": {
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:92",
                 "kv_append_chunk": "src/repro/kernels/kv_append/kernel.py:38",
                 "paged_attention_chunk":
                     "src/repro/kernels/paged_attention/kernel.py:96",

@@ -27,6 +27,7 @@ holds exactly the KV heads its query heads read.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, Sequence, Tuple
 
@@ -179,10 +180,101 @@ def head_specs(cfg, mesh: Any, param_specs: Any, caches_specs: Any,
             map_with_path(cache, caches_like, caches_specs))
 
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec's entry for a dim made of consecutive segments: ``parts``
+    holds each segment's width and whether it is split over ``axis``.  A
+    rank holds its block of every split segment and the whole of every
+    other, concatenated in order.  Mamba2's ``in_proj`` columns z | x | B
+    | C | dt: z, x and dt by whole SSD heads, the one group's B and C
+    (read by every head) whole on every rank."""
+    axis: str
+    parts: Tuple[Tuple[int, bool], ...]
+
+
+def state_specs(cfg, mesh: Any, param_specs: Any, caches_specs: Any,
+                params_like: Any, caches_like: Any) -> Tuple[Any, Any]:
+    """The port's state rule over the reference's specs (after
+    ``head_specs``): the recurrent layers split by whole SSD heads
+    (Mamba2) and by LRU channels (the RG-LRU), their state with them.
+
+      * Mamba2: ``in_proj``'s z, x and dt columns, x's conv channels,
+        ``norm_w``, ``A_log``, ``D_skip`` and ``dt_bias`` by heads
+        (``Segments`` where a dim holds B and C too, which stay whole),
+        ``out_proj`` by rows; the ``ssd`` state on its head dim and the
+        ``conv`` state's x channels.
+      * RG-LRU: ``proj_x`` / ``proj_gate`` columns, ``conv_*``,
+        ``a_param``, ``b_i``, ``b_r``, ``w_i`` / ``w_r`` rows (their
+        columns whole, the reference's layout) and ``out_proj`` rows by
+        channels; the ``h`` and ``conv`` state on their channel dim.
+
+    The reference keeps the state whole over "model" and cuts
+    ``in_proj`` into column blocks that cross its segments, leaving the
+    partitioner to reshard; a rank that runs its own program cannot, so
+    this is a deliberate difference (ROADMAP queue 3).  A model axis that
+    does not divide the heads or the channels raises ``ValueError``."""
+    m = mesh.shape.get("model", 1)
+    kinds = set(cfg.block_pattern or ())
+    if m == 1 or not kinds & {"ssm", "rec"}:
+        return param_specs, caches_specs
+    model = "model"
+    rules: Dict[str, Dict[str, Tuple[int, Any]]] = {"ssm": {}, "rec": {}}
+    state: Dict[str, Dict[str, Tuple[int, Any]]] = {"ssm": {}, "rec": {}}
+    if "ssm" in kinds:
+        di = cfg.ssm_expand * cfg.d_model
+        nh, n = di // cfg.ssm_head_dim, cfg.ssm_state
+        if nh % m:
+            raise ValueError(f"{cfg.name}: model={m} does not divide its "
+                             f"{nh} SSD heads; the port splits whole heads "
+                             "only")
+        xbc = Segments(model, ((di, True), (n, False), (n, False)))
+        rules["ssm"] = {    # key -> (dim from the end, entry)
+            "in_proj": (1, Segments(model, ((di, True), (di, True),
+                                            (n, False), (n, False),
+                                            (nh, True)))),
+            "conv_w": (2, xbc), "conv_b": (1, xbc),
+            "A_log": (1, model), "D_skip": (1, model),
+            "dt_bias": (1, model), "norm_w": (1, model),
+            "out_proj": (2, model)}
+        state["ssm"] = {"ssd": (3, model), "conv": (1, xbc)}
+    if "rec" in kinds:
+        lru = cfg.lru_width or cfg.d_model
+        if lru % m:
+            raise ValueError(f"{cfg.name}: model={m} does not divide its "
+                             f"{lru} LRU channels")
+        rules["rec"] = {k: (d, model) for k, d in (
+            ("proj_x", 1), ("proj_gate", 1), ("conv_w", 2), ("conv_b", 1),
+            ("a_param", 1), ("b_i", 1), ("b_r", 1), ("w_i", 2), ("w_r", 2),
+            ("out_proj", 2))}
+        state["rec"] = {"h": (1, model), "conv": (1, model)}
+
+    def entry(table: Dict, path: tuple, leaf, spec: Spec) -> Spec:
+        """The rule for a leaf of a block ``b{i}_{kind}`` / ``t{i}_{kind}``
+        (its ``kind`` a key of ``table``) named in it, else ``spec``."""
+        kind = next((k.rsplit("_", 1)[-1] for k in path if isinstance(k, str)
+                     and k.rsplit("_", 1)[-1] in table), None)
+        rule = table[kind].get(path[-1]) if kind else None
+        if rule is None:
+            return spec
+        ndim = len(leaf.shape)
+        dim, new = rule
+        # the reference's split of the dim (if any) gives way to the rule
+        out = [None if d == ndim - dim else e for d, e in enumerate(spec)]
+        return _with(tuple(out), ndim - dim, new)
+
+    return (map_with_path(lambda *a: entry(rules, *a), params_like,
+                          param_specs),
+            map_with_path(lambda *a: entry(state, *a), caches_like,
+                          caches_specs))
+
+
 def _with(spec: Spec, dim: int, entry) -> Spec:
-    """``spec`` with ``entry`` at ``dim`` (Nones padded)."""
+    """``spec`` with ``entry`` at ``dim`` (Nones padded, trailing Nones
+    dropped)."""
     out = list(spec) + [None] * (dim + 1 - len(spec))
     out[dim] = entry
+    while out and out[-1] is None:
+        out.pop()
     return tuple(out)
 
 
@@ -191,33 +283,57 @@ def _axes(entry) -> Tuple[str, ...]:
         tuple(entry) if isinstance(entry, (tuple, list)) else (entry,))
 
 
-def _block(spec: Spec, shape: Dict[str, int], coords: Dict[str, int],
-           dims: int):
-    """Per dim: (number of blocks, this rank's block index)."""
-    out = []
-    for d in range(dims):
-        entry = spec[d] if d < len(spec) else None
-        if isinstance(entry, Copies):
-            out.append((entry.blocks, coords[entry.axis]
-                        // (shape[entry.axis] // entry.blocks)))
-            continue
-        axes = _axes(entry)
+def _pieces(entry, size: int, shape: Dict[str, int],
+            coords: Dict[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """A rank's part of a dim of ``size`` under a spec's ``entry``: the
+    (start, width) of each piece of the global dim it holds, in the
+    order it holds them (one piece, but for ``Segments``)."""
+    if isinstance(entry, Segments):
+        n, i = shape[entry.axis], coords[entry.axis]
+        out, start = [], 0
+        for width, split in entry.parts:
+            out.append((start + i * (width // n), width // n) if split
+                       else (start, width))
+            start += width
+        if start != size:
+            raise ValueError(f"segments {entry.parts} do not make up a dim "
+                             f"of {size}")
+        return tuple(out)
+    if isinstance(entry, Copies):
+        n = entry.blocks
+        i = coords[entry.axis] // (shape[entry.axis] // entry.blocks)
+    else:
         n, i = 1, 0
-        for a in axes:                      # the first axis is the major one
+        for a in _axes(entry):              # the first axis is the major one
             n, i = n * shape[a], i * shape[a] + coords[a]
-        out.append((n, i))
-    return out
+    if size % n:
+        raise ValueError(f"a dim of {size} does not split into {n} blocks")
+    return ((i * (size // n), size // n),)
+
+
+def _layout(spec: Spec, full: Sequence[int], shape: Dict[str, int],
+            coords: Dict[str, int]):
+    """Per dim of a leaf of shape ``full``, the rank's ``_pieces``."""
+    return [_pieces(spec[d] if d < len(spec) else None, size, shape, coords)
+            for d, size in enumerate(full)]
 
 
 def shard_block(shape: Sequence[int], spec: Spec,
                 mesh: Any) -> Tuple[Tuple[int, ...], int]:
     """The calling rank's block of a leaf of ``shape`` under ``spec``: its
     shape, and its index among the leaf's blocks (row-major over the
-    split dims)."""
+    split dims; a ``Segments`` dim counts by the blocks of its split
+    segments)."""
     local, index = [], 0
-    for size, (n, i) in zip(shape, _block(spec, mesh.shape, mesh.coords,
-                                          len(shape))):
-        local.append(size // n)
+    for d, pieces in enumerate(_layout(spec, shape, mesh.shape,
+                                       mesh.coords)):
+        entry = spec[d] if d < len(spec) else None
+        local.append(sum(w for _, w in pieces))
+        if isinstance(entry, Segments):
+            n, i = mesh.shape[entry.axis], mesh.coords[entry.axis]
+        else:
+            n = shape[d] // pieces[0][1]
+            i = pieces[0][0] // pieces[0][1]
         index = index * n + i
     return tuple(local), index
 
@@ -230,14 +346,12 @@ def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
         if not isinstance(leaf, torch.Tensor):
             return leaf
         out = leaf
-        for d, (n, i) in enumerate(_block(spec, mesh.shape, mesh.coords,
-                                          leaf.ndim)):
-            if n > 1:
-                if leaf.shape[d] % n:
-                    raise ValueError(f"dim {d} of {tuple(leaf.shape)} does "
-                                     f"not split into {n} blocks")
-                w = leaf.shape[d] // n
-                out = out.narrow(d, i * w, w)
+        for d, pieces in enumerate(_layout(spec, leaf.shape, mesh.shape,
+                                           mesh.coords)):
+            if pieces != ((0, leaf.shape[d]),):
+                out = torch.cat([out.narrow(d, s, w) for s, w in pieces],
+                                dim=d) if len(pieces) > 1 \
+                    else out.narrow(d, *pieces[0])
         return out.clone(memory_format=torch.contiguous_format)
 
     return map_with_path(one, params, specs)
@@ -246,9 +360,9 @@ def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
 def gather_params(shards: Sequence[Any], specs: Any, mesh: Any) -> Any:
     """The global tree from ``shards[r]``, rank ``r``'s ``shard_params``
     output for every rank of the mesh (row-major over ``mesh.shape``).
-    A block that several ranks hold (a replicated leaf, a ``Copies``
-    block) is taken once; the other copies must equal it bitwise, else
-    ``ValueError``."""
+    A piece that several ranks hold (a replicated leaf, a ``Copies``
+    block, a whole segment of a ``Segments`` dim) is taken once; the
+    other copies must equal it bitwise, else ``ValueError``."""
     if len(shards) != math.prod(mesh.shape.values()):
         raise ValueError(f"{len(shards)} shards for a mesh of {mesh.shape}")
     coords = [rank_coords(dict(mesh.shape), r) for r in range(len(shards))]
@@ -259,21 +373,45 @@ def gather_params(shards: Sequence[Any], specs: Any, mesh: Any) -> Any:
         blocks = [next(it) for it in per_rank]
         if not isinstance(leaf0, torch.Tensor):
             return leaf0
-        split = [_block(spec, mesh.shape, c, leaf0.ndim) for c in coords]
-        full = leaf0.new_empty(tuple(s * n for s, (n, _) in
-                                     zip(leaf0.shape, split[0])))
+        full_shape = _global_shape(leaf0.shape, spec, mesh.shape)
+        full = leaf0.new_empty(full_shape)
         taken = set()
-        for blk, sp in zip(blocks, split):
-            view = full
-            for d, (n, i) in enumerate(sp):
-                view = view.narrow(d, i * blk.shape[d], blk.shape[d])
-            key = tuple(i for _, i in sp)
-            if key not in taken:
-                taken.add(key)
-                view.copy_(blk)
-            elif not torch.equal(view, blk):
-                raise ValueError(f"{'/'.join(map(str, path))}: two ranks' "
-                                 f"copies of block {key} differ")
+        for blk, c in zip(blocks, coords):
+            layout = _layout(spec, full_shape, mesh.shape, c)
+            # each combination of one piece a dim: its place in the
+            # global leaf and in the rank's block
+            offsets = [list(itertools.accumulate((w for _, w in pieces),
+                                                 initial=0))
+                       for pieces in layout]
+            for combo in itertools.product(*(range(len(p))
+                                             for p in layout)):
+                src, dst = blk, full
+                for d, k in enumerate(combo):
+                    start, width = layout[d][k]
+                    src = src.narrow(d, offsets[d][k], width)
+                    dst = dst.narrow(d, start, width)
+                key = tuple(layout[d][k][0] for d, k in enumerate(combo))
+                if key not in taken:
+                    taken.add(key)
+                    dst.copy_(src)
+                elif not torch.equal(dst, src):
+                    raise ValueError(f"{'/'.join(map(str, path))}: two "
+                                     f"ranks' copies of block {key} differ")
         return full
 
     return map_with_path(one, shards[0], specs)
+
+
+def _global_shape(local: Sequence[int], spec: Spec,
+                  shape: Dict[str, int]) -> Tuple[int, ...]:
+    """The whole leaf's shape from a rank's block of ``local``."""
+    out = []
+    for d, size in enumerate(local):
+        entry = spec[d] if d < len(spec) else None
+        if isinstance(entry, Segments):
+            out.append(sum(w for w, _ in entry.parts))
+        elif isinstance(entry, Copies):
+            out.append(size * entry.blocks)
+        else:
+            out.append(size * math.prod(shape[a] for a in _axes(entry)))
+    return tuple(out)

@@ -132,9 +132,13 @@ def gqa_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               impl: Optional[str] = None) -> torch.Tensor:
     """Cross attention: queries from x [B, S, D], K/V [B, Senc, KV, hd]
     precomputed from the encoder.  Only q and the output projection are
-    evaluated here (no self-K/V products)."""
+    evaluated here (no self-K/V products).  The heads are read from
+    ``wq`` (a rank of the mesh serve step holds its block of them, and of
+    the cross K/V), and ``wo``'s partial products are summed over the
+    model group."""
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H = p["wq"].shape[-1] // hd
     dt = cfg.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
     if cfg.qkv_bias:
@@ -142,14 +146,19 @@ def gqa_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
                        causal=False, softcap=cfg.attn_logit_softcap,
                        impl=impl)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(dt)
+    out = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
+    if model_split(p["wo"].shape[0], cfg.q_dim, "the cross attention's wo"):
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
+    return out
 
 
 def cross_kv(p: Dict, cfg: ModelConfig, enc_out: torch.Tensor):
     """Per-layer cross K/V [B, Senc, KV, hd] from the encoder output
-    (computed once per request)."""
+    (computed once per request), the KV heads read from ``wk``: on a rank
+    of the mesh serve step, its own heads'."""
     B, Se, _ = enc_out.shape
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    kv = p["wk"].shape[-1] // hd
     dt = cfg.dtype
     k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, kv, hd)
     v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, kv, hd)

@@ -16,8 +16,13 @@ Where JAX scans over the stacked layers, the port runs a Python loop, as
 (``lm._unbind``) and checkpoints each layer by ``cfg.remat``
 (``lm._remat``); the serve step hands each layer ``[l]`` views of the
 pools (``lm._index``), which the fused op updates in place, and returns
-the same cache tensors with a new ``lengths``.  The reference's
-``constrain_batch`` is a sharding hint; the port shards nothing.
+the same cache tensors with a new ``lengths``.  On a rank of the mesh
+serve step (``serve.step``) the decoder holds its block of whole heads,
+of the FFN and of the vocabulary, its self-attention pools and its cross
+K/V hold its KV heads (``encdec_prefill_cross`` computes a rank's own
+from its ``wk`` / ``wv``), and the serve step looks its tokens up
+vocab-parallel (``lm.embed_tokens``); the reference's ``constrain_batch``
+is a sharding hint with no counterpart.
 """
 
 from __future__ import annotations
@@ -179,7 +184,7 @@ def encdec_serve_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     C = tokens.shape[1]
     pos = lengths[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=lengths.device)[None, :]
-    x = params["embed"].to(cfg.dtype)[tokens.long()] + \
+    x = lm.embed_tokens(params, cfg, tokens) + \
         _sinusoid(pos.float(), cfg.d_model).to(cfg.dtype)
     for layer in range(cfg.n_dec_layers):
         p = lm._index(params["decoder"], layer)

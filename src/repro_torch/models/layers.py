@@ -48,10 +48,17 @@ def norm_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_gated(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
-                  dtype) -> torch.Tensor:
-    """Mamba2's gated RMSNorm: norm(x * silu(gate)) * w, in float32."""
+                  dtype, full: Optional[int] = None) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(gate)) * w, in float32.
+    ``full``: the whole width, where ``x`` may hold a rank's block of it
+    (the mesh serve step's heads): each rank's sum of squares is then
+    summed over the model group before the mean."""
     xf = (x * F.silu(gate.float())).float()
-    var = (xf ** 2).mean(-1, keepdim=True)
+    if full is not None and model_split(xf.shape[-1], full,
+                                        "Mamba2's gated norm"):
+        var = model_all_reduce((xf ** 2).sum(-1, keepdim=True)) / full
+    else:
+        var = (xf ** 2).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * w.float()).to(dtype)
 
 

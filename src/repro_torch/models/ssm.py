@@ -7,7 +7,12 @@ kernel on a CUDA tensor, its plain version on the CPU), where the
 reference builds the same contraction inline; the O(S/chunk) inter-chunk
 recurrence is a Python loop over the chunks, where the reference scans.
 Serving (``mamba2_serve``) runs the single-token recurrence over the C
-tokens of a chunk, committing the state only for tokens ``c < n_new``.
+tokens of a chunk, committing the state only for tokens ``c < n_new``:
+only the recurrence itself runs token by token; the projections, the
+causal conv (``conv_chunk``) and the gated norm run on the whole chunk,
+so that on a rank of the mesh serve step, which holds its block of
+whole SSD heads (``dist.sharding.state_specs``), the products that need
+every head are summed once a layer a step, whatever the chunk.
 
 The depthwise causal convolution stays a shifted sum, as in the
 reference: ``F.conv1d`` would go through cuDNN, which runs float32
@@ -19,8 +24,10 @@ The RG-LRU keeps the reference's cast points: its products run in
 (``rglru_train``) runs the linear recurrence ``h_t = a_t h_{t-1} + b_t``
 as a doubling scan over S where the reference runs
 ``jax.lax.associative_scan``; serving (``rglru_serve``) is the masked
-per-token recurrence, as Mamba2's.  Neither has a kernel: the reference
-has no Pallas kernel for them either.
+per-token recurrence, as Mamba2's, its gates computed on the whole chunk
+(on a rank that holds its block of the LRU channels, one sum of both
+gates' partial pre-activations a layer a step).  Neither has a kernel:
+the reference has no Pallas kernel for them either.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_chunk import ssd_chunk
 from .config import ModelConfig
 from .layers import rmsnorm_gated
+from .shardctx import model_all_reduce, model_rank, model_split
 from .spec import ParamSpec
 
 
@@ -51,13 +59,27 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-token conv: x_new [B, C]; conv_state [B, W-1, C].
-    Returns (out [B, C], new_state)."""
-    window = torch.cat([conv_state, x_new[:, None, :]], dim=1)   # [B, W, C]
-    out = torch.einsum("bwc,cw->bc", window, w) + b
-    return F.silu(out), window[:, 1:]
+def conv_chunk(x: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor, n_new: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal conv of a serve chunk as the single-token steps give it
+    when only tokens ``c < n_new[b]`` commit: token c's window is the
+    last W-1 committed inputs before it (``conv_state``, then the chunk's
+    first ``min(c, n_new)`` tokens) and its own input.  x: [B, C, ch];
+    conv_state: [B, W-1, ch].  Returns (silu(out) [B, C, ch], the state
+    after the first n_new tokens)."""
+    B_, C, _ = x.shape
+    W1 = conv_state.shape[1]
+    xs = torch.cat([conv_state, x], dim=1)                    # [B, W-1+C, ch]
+    rows = torch.arange(B_, device=x.device)
+    taps = torch.arange(W1, device=x.device)
+    n = n_new.long()
+    done = torch.minimum(torch.arange(C, device=x.device)[None, :],
+                         n[:, None])                          # [B, C]
+    prev = xs[rows[:, None, None], done[..., None] + taps]    # [B,C,W-1,ch]
+    window = torch.cat([prev, x[:, :, None, :]], dim=2)       # [B, C, W, ch]
+    out = torch.einsum("bcwk,kw->bck", window, w) + b
+    return F.silu(out), xs[rows[:, None], n[:, None] + taps]
 
 
 # ---------------------------------------------------------------------------
@@ -92,19 +114,19 @@ def mamba2_init(cfg: ModelConfig) -> Dict:
     }
 
 
-def _mamba2_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    d = mamba2_dims(cfg)
-    di = d["d_inner"]
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + d["conv_dim"]]
-    dt = zxbcdt[..., di + d["conv_dim"]:]
-    return z, xbc, dt
+def _mamba2_split(p: Dict, zxbcdt: torch.Tensor):
+    """z | xBC | dt at the widths of ``p`` (a rank of the mesh serve step
+    holds its heads' z, x and dt and the whole B and C)."""
+    di, nh = p["norm_w"].shape[-1], p["A_log"].shape[-1]
+    return zxbcdt[..., :di], zxbcdt[..., di:-nh], zxbcdt[..., -nh:]
 
 
-def _mamba2_xbc_split(cfg: ModelConfig, xbc: torch.Tensor):
-    d = mamba2_dims(cfg)
-    di, ng, st = d["d_inner"], d["ngroups"], d["state"]
-    return xbc[..., :di], xbc[..., di:di + ng * st], xbc[..., di + ng * st:]
+def _mamba2_xbc_split(p: Dict, xbc: torch.Tensor):
+    """x | B | C of the conv's output (one group: B and C of ``state``
+    each)."""
+    di = p["norm_w"].shape[-1]
+    st = (xbc.shape[-1] - di) // 2
+    return xbc[..., :di], xbc[..., di:di + st], xbc[..., di + st:]
 
 
 def mamba2_train(p: Dict, cfg: ModelConfig, u: torch.Tensor, *,
@@ -120,9 +142,9 @@ def mamba2_train(p: Dict, cfg: ModelConfig, u: torch.Tensor, *,
     nc = S // cl
 
     zxbcdt = u @ p["in_proj"].to(dt_)
-    z, xbc, dtr = _mamba2_split(cfg, zxbcdt)
+    z, xbc, dtr = _mamba2_split(p, zxbcdt)
     xbc = causal_conv1d(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
-    x, Bm, Cm = _mamba2_xbc_split(cfg, xbc)
+    x, Bm, Cm = _mamba2_xbc_split(p, xbc)
 
     x = x.reshape(B_, S, nh, hd).float()
     Bm = Bm.float()                                     # [B, S, st], ngroups=1
@@ -189,58 +211,51 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, *, device: torch.device,
     }
 
 
-def _masked_state_scan(decode_fn: Callable, u: torch.Tensor,
-                       state: Dict[str, torch.Tensor], n_new: torch.Tensor):
-    """Run a single-token recurrent ``decode_fn`` over the C tokens of a
-    serve chunk, committing the state only for tokens ``c < n_new[b]``:
-    pad tokens (and idle slots with n_new == 0) produce garbage outputs
-    but never advance the recurrence.  Returns (outputs [B, C, D], final
-    state)."""
+def _masked_recurrence(step: Callable, h: torch.Tensor, n_new: torch.Tensor,
+                       C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``new = step(c, h)`` for the C tokens of a serve chunk, committing
+    ``new`` only for tokens ``c < n_new[b]``: pad tokens (and idle slots
+    with n_new == 0) produce garbage outputs but never advance the
+    recurrence.  Returns (every token's new state, stacked on dim 1; the
+    committed state)."""
+    keep = n_new.reshape((-1,) + (1,) * (h.dim() - 1))
     outs = []
-    for c in range(u.shape[1]):
-        out, new = decode_fn(u[:, c:c + 1], state)
-        keep = c < n_new                                          # [B]
-        state = {k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)),
-                                v, state[k])
-                 for k, v in new.items()}
-        outs.append(out[:, 0])
-    return torch.stack(outs, dim=1), state
+    for c in range(C):
+        new = step(c, h)
+        outs.append(new)
+        h = torch.where(c < keep, new, h)
+    return torch.stack(outs, dim=1), h
 
 
 def mamba2_serve(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                  state: Dict[str, torch.Tensor], n_new: torch.Tensor):
-    """Chunked serve step: C masked single-token updates.  u: [B, C, D]."""
-    return _masked_state_scan(
-        lambda u_c, st: mamba2_decode(p, cfg, u_c, st), u, state, n_new)
-
-
-def mamba2_decode(p: Dict, cfg: ModelConfig, u: torch.Tensor,
-                  state: Dict[str, torch.Tensor]):
-    """Single-token recurrent step. u: [B, 1, D]."""
-    d = mamba2_dims(cfg)
-    B_ = u.shape[0]
-    nh, hd, st = d["nheads"], d["hd"], d["state"]
+    """Chunked serve step: C masked single-token updates of the SSD state.
+    u: [B, C, D].  The heads are those of ``p`` (all, or a rank's block);
+    the gated norm's mean of squares and ``out_proj``'s partial products
+    are each summed over the model group once (``model_all_reduce``)."""
+    B_, C, _ = u.shape
+    nh, hd = p["A_log"].shape[-1], cfg.ssm_head_dim
+    d_inner = mamba2_dims(cfg)["d_inner"]
     dt_ = cfg.dtype
-
-    zxbcdt = u[:, 0] @ p["in_proj"].to(dt_)
-    z, xbc, dtr = _mamba2_split(cfg, zxbcdt)
-    xbc, conv_state = conv_step(xbc, state["conv"], p["conv_w"].to(dt_),
-                                p["conv_b"].to(dt_))
-    x, Bm, Cm = _mamba2_xbc_split(cfg, xbc)
-    x = x.reshape(B_, nh, hd).float()
-    Bm = Bm.reshape(B_, st).float()
-    Cm = Cm.reshape(B_, st).float()
-    dt = F.softplus(dtr.float() + p["dt_bias"].float())          # [B, nh]
-    A = -torch.exp(p["A_log"].float())
-    dec = torch.exp(dt * A)                                      # [B, nh]
-    # h: [B, nh, st, hd]
-    h = state["ssd"] * dec[..., None, None] \
-        + Bm[:, None, :, None] * (x * dt[..., None])[:, :, None, :]
-    y = torch.einsum("bs,bhsd->bhd", Cm, h)
-    y = y + x * p["D_skip"].float()[None, :, None]
-    y = y.reshape(B_, d["d_inner"])
-    y = rmsnorm_gated(y, z, p["norm_w"], dt_)
-    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    z, xbc, dtr = _mamba2_split(p, u @ p["in_proj"].to(dt_))
+    xbc, conv_state = conv_chunk(xbc, state["conv"], p["conv_w"].to(dt_),
+                                 p["conv_b"].to(dt_), n_new)
+    x, Bm, Cm = _mamba2_xbc_split(p, xbc)
+    x = x.reshape(B_, C, nh, hd).float()
+    Bm, Cm = Bm.float(), Cm.float()                              # [B, C, st]
+    dt = F.softplus(dtr.float() + p["dt_bias"].float())          # [B, C, nh]
+    dec = torch.exp(dt * -torch.exp(p["A_log"].float()))         # [B, C, nh]
+    inp = Bm[:, :, None, :, None] * (x * dt[..., None])[:, :, :, None, :]
+    hs, h = _masked_recurrence(                         # h: [B, nh, st, hd]
+        lambda c, h: h * dec[:, c, :, None, None] + inp[:, c],
+        state["ssd"], n_new, C)
+    y = torch.einsum("bcs,bchsd->bchd", Cm, hs)
+    y = y + x * p["D_skip"].float()[None, None, :, None]
+    y = rmsnorm_gated(y.reshape(B_, C, nh * hd), z, p["norm_w"], dt_,
+                      full=d_inner)
+    out = y @ p["out_proj"].to(dt_)
+    if model_split(p["out_proj"].shape[0], d_inner, "Mamba2's out_proj"):
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
     return out, {"conv": conv_state, "ssd": h}
 
 
@@ -270,10 +285,21 @@ def rglru_init(cfg: ModelConfig) -> Dict:
 
 
 def _rglru_coeffs(p: Dict, cfg: ModelConfig, xc: torch.Tensor):
-    """xc: [..., L] post-conv activations -> (a, gated_x) float32."""
+    """xc: [..., L] post-conv activations -> (a, gated_x) float32.  On a
+    rank that holds its block of the channels (``w_r`` / ``w_i`` rows,
+    their columns whole), both gates' partial pre-activations are summed
+    over the model group in one ``model_all_reduce`` and the rank takes
+    its own channels' columns."""
     dt = cfg.dtype
-    r = torch.sigmoid((xc @ p["w_r"].to(dt) + p["b_r"].to(dt)).float())
-    i = torch.sigmoid((xc @ p["w_i"].to(dt) + p["b_i"].to(dt)).float())
+    local, full = xc.shape[-1], cfg.lru_width or cfg.d_model
+    pre_r, pre_i = xc @ p["w_r"].to(dt), xc @ p["w_i"].to(dt)
+    if model_split(local, full, "the RG-LRU's channels"):
+        pre = model_all_reduce(torch.cat([pre_r, pre_i], dim=-1))
+        lo = model_rank() * local
+        pre_r = pre[..., lo:lo + local]
+        pre_i = pre[..., full + lo:full + lo + local]
+    r = torch.sigmoid((pre_r + p["b_r"].to(dt)).float())
+    i = torch.sigmoid((pre_i + p["b_i"].to(dt)).float())
     log_a = -_RG_C * F.softplus(p["a_param"].float()) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -331,22 +357,27 @@ def rglru_init_state(cfg: ModelConfig, batch: int, *, device: torch.device,
 
 def rglru_serve(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                 state: Dict[str, torch.Tensor], n_new: torch.Tensor):
-    """Chunked serve step: C masked single-token updates.  u: [B, C, D]."""
-    return _masked_state_scan(
-        lambda u_c, st: rglru_decode(p, cfg, u_c, st), u, state, n_new)
+    """Chunked serve step: C masked single-token updates of ``h``.
+    u: [B, C, D].  The channels are those of ``p`` (all, or a rank's
+    block): the gates' pre-activations and ``out_proj``'s partial
+    products are each summed over the model group once."""
+    dt = cfg.dtype
+    C = u.shape[1]
+    gate = F.gelu((u @ p["proj_gate"].to(dt)).float(), approximate="tanh")
+    xc, conv_state = conv_chunk(u @ p["proj_x"].to(dt), state["conv"],
+                                p["conv_w"].to(dt), p["conv_b"].to(dt), n_new)
+    a, gated = _rglru_coeffs(p, cfg, xc)                         # [B, C, L]
+    hs, h = _masked_recurrence(lambda c, h: a[:, c] * h + gated[:, c],
+                               state["h"], n_new, C)
+    out = (gate * hs).to(dt) @ p["out_proj"].to(dt)
+    if model_split(p["out_proj"].shape[0], cfg.lru_width or cfg.d_model,
+                   "the RG-LRU's out_proj"):
+        out = model_all_reduce(out)      # this rank's channels: a partial sum
+    return out, {"conv": conv_state, "h": h}
 
 
 def rglru_decode(p: Dict, cfg: ModelConfig, u: torch.Tensor,
                  state: Dict[str, torch.Tensor]):
-    """Single-token recurrent step. u: [B, 1, D]."""
-    dt = cfg.dtype
-    gate = F.gelu((u[:, 0] @ p["proj_gate"].to(dt)).float(),
-                  approximate="tanh")
-    x = u[:, 0] @ p["proj_x"].to(dt)
-    xc, conv_state = conv_step(x, state["conv"], p["conv_w"].to(dt),
-                               p["conv_b"].to(dt))
-    a, gated = _rglru_coeffs(p, cfg, xc)
-    h = a * state["h"] + gated
-    y = (gate * h).to(dt)
-    out = (y @ p["out_proj"].to(dt))[:, None, :]
-    return out, {"conv": conv_state, "h": h}
+    """Single-token recurrent step (u: [B, 1, D]): the C=1 serve step."""
+    return rglru_serve(p, cfg, u, state, torch.ones(
+        u.shape[0], dtype=torch.int32, device=u.device))

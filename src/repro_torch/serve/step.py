@@ -40,10 +40,17 @@ an expert overflows at data > 1.  ``donate`` has no meaning here: the
 step updates the pools in place already (a deliberate difference of the
 port's serve step).
 
-The dense and MoE families are served (GQA and MLA attention); SSM and
-hybrid state (ROADMAP item 7.4) and the encoder-decoder's and VLM's
-caches (7.5) raise ``ValueError``.  With model=1 and data=1 the step is
-``api.serve_step`` itself.
+Every family is served: the dense and MoE families (GQA and MLA
+attention), Mamba2's and the RG-LRU's state split with their whole SSD
+heads and LRU channels (``dist.sharding.state_specs``: the recurrences
+run on each rank's own heads and channels, and the products that need
+the whole model axis, the gated norm's mean of squares, the RG-LRU's
+gates and the output projections, are summed once a layer a step, so a
+step's collectives do not depend on its chunk), the encoder-decoder
+(its self-attention pools and its cross K/V split by KV heads over
+"model" and by rows over "data") and the VLM, whose serve step is the
+dense one (neither package's serve step takes the patch embeddings).
+With model=1 and data=1 the step is ``api.serve_step`` itself.
 """
 
 from __future__ import annotations
@@ -51,15 +58,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from ..dist.sharding import (cache_specs, fit_batch_axes, head_specs,
-                             serve_rules)
+                             serve_rules, state_specs)
 from ..models.registry import ModelAPI
 from ..models.shardctx import VARIANTS, serving_mesh
 from ..models.spec import partition_specs
-
-_WAITS = {"ssm": "SSM state (ROADMAP item 7.4)",
-          "hybrid": "hybrid state (ROADMAP item 7.4)",
-          "encdec": "the encoder-decoder's caches (ROADMAP item 7.5)",
-          "vlm": "the VLM's prefix (ROADMAP item 7.5)"}
+from ..tree import map_with_path
 
 
 def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
@@ -79,14 +82,12 @@ def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    if cfg.family in _WAITS:
-        raise ValueError(
-            f"{cfg.name}: the mesh serve step serves the dense and MoE "
-            f"families; {cfg.family!r}: {_WAITS[cfg.family]} waits")
     specs_like = api.init_specs()
     param_specs, specs = head_specs(
         cfg, mesh, partition_specs(specs_like, serve_rules(mesh), mesh),
         cache_specs(mesh, caches_like), specs_like, caches_like)
+    param_specs, specs = state_specs(cfg, mesh, param_specs, specs,
+                                     specs_like, caches_like)
     if mesh.size == 1:
         return api.serve_step, param_specs, specs
     batch = int(caches_like["lengths"].shape[0])
@@ -95,18 +96,29 @@ def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
     data_group = mesh.groups.get("data") if data else None
 
     def serve_step(params, tokens, caches, n_new, impl: Optional[str] = None):
-        if data:
+        pages = _local_pool_pages(caches) if data else None
+        if pages is not None:
             caches = dict(caches)
-            caches["page_table"] = caches["page_table"] % _local_pool_pages(
-                caches)
+            caches["page_table"] = caches["page_table"] % pages
         with serving_mesh(model_group, data_group, variant):
             return api.serve_step(params, tokens, caches, n_new, impl=impl)
 
     return serve_step, param_specs, specs
 
 
-def _local_pool_pages(caches: Dict) -> int:
-    """The local page count: the page dim of a group pool [L, P, T, KV,
-    hd] (a dense or MoE model's layers are all in the stacked group)."""
-    pool = next(iter(caches["group"].values()))[0]
-    return int(pool.shape[1])
+def _local_pool_pages(caches: Dict) -> Optional[int]:
+    """The local page count: the page dim of the first pool, the
+    reference's ``_local_pool_pages``: an ``*_attn`` leaf of the lm layout
+    (``[L, P, T, KV, hd]`` under ``group``, ``[P, T, KV, hd]`` under
+    ``tail``) or the encoder-decoder's ``pools``.  None where the model
+    has no pool (Mamba2: its state carries no page ids)."""
+    found = []
+
+    def visit(path: tuple, leaf) -> None:
+        name = "/".join(map(str, path))
+        if ("_attn" in name or "pools" in name) and leaf.ndim in (4, 5):
+            found.append(int(leaf.shape[leaf.ndim - 4]))
+
+    for key in ("group", "tail", "pools"):
+        map_with_path(visit, caches.get(key, {}), path=(key,))
+    return found[0] if found else None

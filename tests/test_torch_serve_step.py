@@ -398,21 +398,6 @@ def test_model_not_dividing_the_kv_heads_raises():
             make_serve_step(api, shape_mesh(1, 3), caches)
 
 
-WAITS = {"mamba2-1.3b": "7.4", "whisper-large-v3": "7.5",
-         "recurrentgemma-9b": "7.4", "internvl2-1b": "7.5"}
-
-
-@pytest.mark.parametrize("arch", list(WAITS))
-def test_non_dense_family_raises(arch):
-    """SSM and hybrid state (item 7.4) and the encoder-decoder's and VLM's
-    caches (7.5) wait; the MoE family serves (tests/
-    test_torch_serve_step_moe.py)."""
-    api = build_model(get_config(arch, smoke=True))
-    caches = api.init_caches(2, MAX_SEQ, PAGE, device="cpu")
-    with pytest.raises(ValueError, match=f"item {WAITS[arch]}"):
-        make_serve_step(api, shape_mesh(1, 2), caches)
-
-
 def test_world_size_not_the_mesh_product_raises(tmp_path):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh

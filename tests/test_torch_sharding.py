@@ -46,8 +46,10 @@ MESHES = {
 
 
 def is_spec(t) -> bool:
-    """A port spec: per dim None, an axis name or a tuple of names."""
-    return all(x is None or isinstance(x, str) or (
+    """A port spec: per dim None, an axis name, a tuple of names or one
+    of the port's own entries (``Copies``, ``Segments``)."""
+    return all(x is None or isinstance(x, (str, sharding.Copies,
+                                           sharding.Segments)) or (
         isinstance(x, tuple) and all(isinstance(y, str) for y in x))
         for x in t)
 
@@ -264,3 +266,152 @@ def test_rank_coords_are_row_major():
     want = np.arange(6).reshape(2, 3)
     for r, c in enumerate(got):
         assert want[c["data"], c["model"]] == r
+
+
+def segment_meshes(axes: dict) -> list:
+    return [Mesh(shape=axes, coords=rank_coords(axes, r), groups={})
+            for r in range(axes["data"] * axes["model"])]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_state_rule_round_trip_bitwise(arch):
+    """The SMOKE tree and caches (random state) of each recurrent family
+    at (2, 2): every rank's shards, ``Segments`` entries included, gather
+    back to the whole tree bitwise, B and C of Mamba2 taken once; a
+    rank's in_proj holds its heads' z, x and dt and the whole B and C."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    axes = {"data": 2, "model": 2}
+    pspecs, cspecs, caches = state_port_specs(arch, FakeMesh(**axes))
+    params = init_params(api.init_specs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for leaf in flat(caches).values():
+        if leaf.is_floating_point():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    meshes = segment_meshes(axes)
+    for tree, sp in ((params, pspecs), (caches, cspecs)):
+        shards = [sharding.shard_params(tree, sp, m) for m in meshes]
+        back = sharding.gather_params(shards, sp, meshes[0])
+        a, b = flat(back), flat(tree)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    if arch == "mamba2-1.3b":
+        di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        nh = di // cfg.ssm_head_dim
+        w = params["group"]["b0_ssm"]["ssm"]["in_proj"]
+        mine = sharding.shard_params(params, pspecs, meshes[3])
+        got = mine["group"]["b0_ssm"]["ssm"]["in_proj"]
+        h = di // 2                     # rank (1, 1): model block 1
+        want = torch.cat([w[..., h:di], w[..., di + h:2 * di],
+                          w[..., 2 * di:2 * di + 2 * n],
+                          w[..., 2 * di + 2 * n + nh // 2:]], dim=-1)
+        assert torch.equal(got, want)
+        assert sharding.shard_block(w.shape, pspecs["group"]["b0_ssm"]["ssm"]
+                                    ["in_proj"], meshes[3])[0] == \
+            tuple(w.shape[:-1]) + (di + 2 * n + nh // 2,)
+
+
+def test_unequal_copies_of_a_whole_segment_raise():
+    """Mamba2's B columns of in_proj (and the conv state's B channels)
+    are whole on every rank: a rank whose copy differs makes
+    ``gather_params`` raise."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                              dtype=torch.float32)
+    api = build_model(cfg)
+    axes = {"data": 1, "model": 2}
+    pspecs, cspecs, caches = state_port_specs("mamba2-1.3b",
+                                              FakeMesh(**axes))
+    params = init_params(api.init_specs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    meshes = segment_meshes(axes)
+    di = cfg.ssm_expand * cfg.d_model
+    shards = [sharding.shard_params(params, pspecs, m) for m in meshes]
+    # rank 1's in_proj: z | x of its heads (di/2 each), then B
+    shards[1]["group"]["b0_ssm"]["ssm"]["in_proj"][0, 0, di] += 1.0
+    with pytest.raises(ValueError, match="copies of block"):
+        sharding.gather_params(shards, pspecs, meshes[0])
+    shards = [sharding.shard_params(caches, cspecs, m) for m in meshes]
+    shards[1]["group"]["b0_ssm"]["conv"][0, 0, 0, di // 2] += 1.0
+    with pytest.raises(ValueError, match="copies of block"):
+        sharding.gather_params(shards, cspecs, meshes[0])
+
+
+def state_port_specs(arch: str, mesh, smoke: bool = True):
+    """The port's serving specs of ``arch`` (the head rule, then the
+    state rule, over the reference's) and its caches (8 slots of 64
+    tokens in pages of 16)."""
+    api = build_model(get_config(arch, smoke=smoke))
+    like = api.init_specs()
+    caches = api.init_caches(8, 64, 16, device="cpu")
+    pspecs, cspecs = sharding.head_specs(
+        api.cfg, mesh, partition_specs(like, sharding.serve_rules(mesh),
+                                       mesh),
+        sharding.cache_specs(mesh, caches), like, caches)
+    pspecs, cspecs = sharding.state_specs(api.cfg, mesh, pspecs, cspecs,
+                                          like, caches)
+    return pspecs, cspecs, caches
+
+
+def test_state_rule_is_the_documented_difference():
+    """At model=4 the reference cuts Mamba2's in_proj (z | x | B | C |
+    dt) into contiguous column blocks that cross the segments, keeps
+    conv_w, A_log, D_skip, dt_bias and the ssd and conv state whole and
+    lets the partitioner reshard; the port splits whole SSD heads
+    (``Segments``: z, x and dt by heads, B and C whole; the state on its
+    head dim and x channels).  The RG-LRU's parameters are the
+    reference's own layout (w_i / w_r rows split, columns whole); its h
+    and conv state, whole in the reference, split by channels.  Every
+    other leaf is the reference's.  A model axis that does not divide
+    the SSD heads or the LRU channels raises."""
+    mesh = FakeMesh(data=1, model=4)
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = get_config(arch)
+        japi = jax_build_model(jax_get_config(arch))
+        ref = flat(ref_partition_specs(japi.init_specs(),
+                                       ref_sharding.serve_rules(mesh), mesh))
+        pspecs, cspecs, caches = state_port_specs(arch, mesh, smoke=False)
+        got = flat(pspecs)
+        ref_caches = flat(sharding.cache_specs(mesh, caches))
+        if arch == "mamba2-1.3b":
+            di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+            nh = di // cfg.ssm_head_dim
+            ssm = ("group", "b0_ssm", "ssm")
+            xbc = sharding.Segments("model", ((di, True), (n, False),
+                                              (n, False)))
+            want = {
+                "in_proj": (None, None, sharding.Segments(
+                    "model", ((di, True), (di, True), (n, False),
+                              (n, False), (nh, True)))),
+                "conv_w": (None, xbc), "conv_b": (None, xbc),
+                "A_log": (None, "model"), "D_skip": (None, "model"),
+                "dt_bias": (None, "model"), "norm_w": (None, "model"),
+                "out_proj": (None, "model")}
+            assert tuple(ref[ssm + ("in_proj",)]) == (None, None, "model")
+            for k in ("conv_w", "A_log", "D_skip", "dt_bias"):
+                assert tuple(ref[ssm + (k,)]) in ((), (None, "model")), k
+            diff = {p[-1]: s for p, s in got.items()
+                    if s != tuple(ref[p])}
+            assert {p[-1]: got[p] for p in got if p[:3] == ssm} == want
+            assert set(diff) <= set(want)
+            state = {"ssd": (None, "data", "model"),
+                     "conv": (None, "data", None, xbc)}
+            kind = ("group", "b0_ssm")
+        else:
+            rec = ("group", "b0_rec", "rec")
+            assert tuple(ref[rec + ("w_i",)]) == (None, "model")
+            assert {p: s for p, s in got.items()    # attn: the head rule
+                    if s != tuple(ref[p]) and "attn" not in p} == {}
+            state = {"h": (None, "data", "model"),
+                     "conv": (None, "data", None, "model")}
+            kind = ("group", "b0_rec")
+        for k, spec in state.items():
+            assert ref_caches[kind + (k,)] == (None, "data")  # model: whole
+            assert flat(cspecs)[kind + (k,)] == spec, k
+        assert {p: s for p, s in flat(cspecs).items() if s != ref_caches[p]
+                and p[-1] not in state and not p[1].endswith("attn")} == {}
+    for arch, m in (("mamba2-1.3b", 3), ("recurrentgemma-9b", 3)):
+        with pytest.raises(ValueError, match="does not divide"):
+            state_port_specs(arch, FakeMesh(data=1, model=m), smoke=False)

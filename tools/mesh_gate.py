@@ -3,8 +3,10 @@
 logit gates can tell apart.
 
     python3 tools/mesh_gate.py [--phase17] [--broken] [--broken-moe]
-                               [--broken-count] [--cases] [--phase1]
-                               [--windows] [--models KEY,...]
+                               [--broken-count] [--broken-state-out]
+                               [--broken-norm-gate] [--broken-cross]
+                               [--cases] [--phase1] [--windows]
+                               [--models KEY,...]
 
 ``--phase17`` runs ``chip_smoke.phase17`` on every model of
 ``MESH_MODELS`` (or the ``--models`` keys): (a) unsharded in this
@@ -15,7 +17,15 @@ run, the largest logit difference to its reference and the greedy tokens
 that differ where the reference's top-2 gap exceeds the noise:
 
   * ``--broken``: the MLP's all_reduce drops rank 1's partial sum (the
-    dense models: qwen2-72b, qwen2-1.5b);
+    dense models: qwen2-72b, qwen2-1.5b, internvl2-1b);
+  * ``--broken-state-out``: Mamba2's and the RG-LRU's ``out_proj``
+    all_reduce drops rank 1's partial sum (mamba2-1.3b,
+    recurrentgemma-9b);
+  * ``--broken-norm-gate``: Mamba2's gated norm's sum of squares and the
+    RG-LRU's gate pre-activations lose rank 1's partials (mamba2-1.3b,
+    recurrentgemma-9b);
+  * ``--broken-cross``: the cross attention's all_reduce drops rank 1's
+    partial sum (whisper-large-v3);
   * ``--broken-moe``: the MoE's all_reduce drops rank 1's partial sum of
     its experts (and shared experts) (grok-1-314b, deepseek-v2-lite-16b);
   * ``--broken-count``: under ``gspmd`` every data shard counts the MoE's
@@ -24,11 +34,11 @@ that differ where the reference's top-2 gap exceeds the noise:
     ranks) so that an expert overflows, beside the correct step on the
     same weights.
 
-``--cases`` holds the fused op and the latent attention at each rank's
-shape (phase 1's per-rank cases); ``--phase1`` runs every phase-1 case and
-logs its seconds; ``--windows`` times 20 CUPTI windows of one small
-kernel, the cost of a window.  With no flag it does ``--phase17``,
-``--broken`` and ``--cases``.  Needs a CUDA card.
+``--cases`` holds the fused op, the latent attention and the flash cross
+attention at each rank's shape (phase 1's per-rank cases); ``--phase1``
+runs every phase-1 case and logs its seconds; ``--windows`` times 20
+CUPTI windows of one small kernel, the cost of a window. With no flag it
+does ``--phase17``, ``--broken`` and ``--cases``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,11 +58,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.models import blocks, layers, shardctx  # noqa: E402
+from repro_torch.models import (blocks, encdec, layers, shardctx,  # noqa: E402
+                                ssm)
 
 OVERFLOW_SCALE = 16.0                # as tests/test_torch_serve_step_moe.py
-DENSE = ("qwen2-72b", "qwen2-1.5b")
+DENSE = ("qwen2-72b", "qwen2-1.5b", "internvl2-1b")
 MOE = ("grok-1-314b bf16", "grok-1-314b float32", "deepseek-v2-lite-16b")
+STATE = ("mamba2-1.3b", "recurrentgemma-9b")
+CROSS = ("whisper-large-v3",)
 
 
 def emit(**row) -> None:
@@ -86,6 +99,56 @@ def broken_moe_entry(rank, world, tmp, models):
             layers.model_all_reduce = shardctx.model_all_reduce
 
     blocks.moe_apply = moe_apply
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def dropping_in(fn, module) -> callable:
+    """``fn`` with ``module.model_all_reduce`` dropping rank 1's partial
+    sum while it runs (and summing whole after)."""
+    def inner(*a, **k):
+        module.model_all_reduce = drop_rank_1
+        try:
+            return fn(*a, **k)
+        finally:
+            module.model_all_reduce = shardctx.model_all_reduce
+    return inner
+
+
+def broken_state_out_entry(rank, world, tmp, models):
+    """``drop_rank_1`` patched into Mamba2's and the RG-LRU's
+    ``out_proj`` sums (the serve functions' own all_reduces; the
+    RG-LRU's gates, summed in ``_rglru_coeffs``, stay whole)."""
+    ssm.mamba2_serve = blocks.mamba2_serve = dropping_in(ssm.mamba2_serve,
+                                                         ssm)
+    serve = dropping_in(ssm.rglru_serve, ssm)
+    inner = ssm._rglru_coeffs
+
+    def coeffs(*a, **k):
+        ssm.model_all_reduce = shardctx.model_all_reduce
+        try:
+            return inner(*a, **k)
+        finally:
+            ssm.model_all_reduce = drop_rank_1
+
+    ssm._rglru_coeffs = coeffs
+    ssm.rglru_serve = blocks.rglru_serve = serve
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def broken_norm_gate_entry(rank, world, tmp, models):
+    """Mamba2's gated norm's sum of squares and the RG-LRU's gate
+    pre-activations without rank 1's partials; the output projections
+    and the MLP summed whole."""
+    ssm.rmsnorm_gated = dropping_in(ssm.rmsnorm_gated, layers)
+    ssm._rglru_coeffs = dropping_in(ssm._rglru_coeffs, ssm)
+    cs._mesh_rank_entry(rank, world, tmp, models)
+
+
+def broken_cross_entry(rank, world, tmp, models):
+    """``drop_rank_1`` patched into the cross attention alone: its
+    all_reduce of the heads' ``wo`` partials loses rank 1's."""
+    from repro_torch.models import attention
+    encdec.gqa_cross = dropping_in(encdec.gqa_cross, attention)
     cs._mesh_rank_entry(rank, world, tmp, models)
 
 
@@ -139,9 +202,9 @@ def readings(out: dict) -> list:
             for key, x in r.items():
                 if isinstance(x, dict) and "max_abs_err" in x:
                     rows.append({k: x.get(k) for k in (
-                        "max_abs_err", "logit_max_abs", "positions",
-                        "tokens_checked", "prefill_ms", "decode_ms_median",
-                        "seconds")}
+                        "max_abs_err", "cache_max_abs_err",
+                        "logit_max_abs", "positions", "tokens_checked",
+                        "prefill_ms", "decode_ms_median", "seconds")}
                         | {"model": mesh["model"], "mesh": mesh["mesh"],
                            "rank": r["rank"], "run": key,
                            "tokens_wrong": len(x["tokens_wrong"])})
@@ -167,15 +230,17 @@ def windows(reps: int = 20) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    for flag in ("phase17", "broken", "broken-moe", "broken-count", "cases",
-                 "phase1", "windows"):
+    for flag in ("phase17", "broken", "broken-moe", "broken-count",
+                 "broken-state-out", "broken-norm-gate", "broken-cross",
+                 "cases", "phase1", "windows"):
         ap.add_argument(f"--{flag}", action="store_true")
     ap.add_argument("--models", default=None,
                     help="comma-separated MESH_MODELS keys (default: all)")
     args = ap.parse_args()
     every = not (args.phase17 or args.broken or args.broken_moe
-                 or args.broken_count or args.cases or args.phase1
-                 or args.windows)
+                 or args.broken_count or args.broken_state_out
+                 or args.broken_norm_gate or args.broken_cross
+                 or args.cases or args.phase1 or args.windows)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -219,6 +284,8 @@ def main() -> int:
             emit(case=cs.attention_case(
                 rng, C, f"attention D=576 H=4 C={C} (deepseek)", h=4, kv=1,
                 d=576, alias=True))
+        for case in cs.state_mesh_cases(rng):
+            emit(case=case)
 
     def phase1() -> None:
         got = cs.phase1_cases()
@@ -258,6 +325,18 @@ def main() -> int:
         attempt("broken-moe", lambda: run(
             "MoE all_reduce drops rank 1's experts", among(MOE),
             broken_moe_entry))
+    if args.broken_state_out:
+        attempt("broken-state-out", lambda: run(
+            "out_proj all_reduce drops rank 1", among(STATE),
+            broken_state_out_entry))
+    if args.broken_norm_gate:
+        attempt("broken-norm-gate", lambda: run(
+            "norm / gate all_reduce drops rank 1", among(STATE),
+            broken_norm_gate_entry))
+    if args.broken_cross:
+        attempt("broken-cross", lambda: run(
+            "cross attention all_reduce drops rank 1", among(CROSS),
+            broken_cross_entry))
     if args.broken_count:
         ds = among(("deepseek-v2-lite-16b",))
         attempt("overflow", lambda: run(

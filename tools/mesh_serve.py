@@ -10,15 +10,22 @@ Each rank holds its shard of the model's bf16 weights (at model=4:
 qwen2-72b's quarter of the heads, KV heads, FFN and vocabulary, 36.4 GB
 of its 145.4 GB; grok-1-314b's 12 heads over 2 KV heads and 2 of its 8
 experts, ~2.46 GB a layer; deepseek-v2-lite-16b's 4 heads, the whole
-latent, 16 of its 64 experts and a quarter of the shared experts),
-drawn on its own card from a seed a leaf, a block and a layer (a block
-the mesh leaves whole, or copies, is drawn alike on every rank that
-holds it; a stacked leaf is drawn a layer at a time, so no float32 copy
-of a whole leaf is made), and serves ``chip_smoke.py`` phase 2's
-geometry through ``repro_torch.serve.step.make_serve_step`` on a
-("data", "model") mesh of ``--mesh`` (default ``1 x world``): 8 prompts
-of 64-480 tokens in chunks of 16 (each data shard its own rows), then
-``--new`` greedy decode steps.  Logged: each card's name and power limit
+latent, 16 of its 64 experts and a quarter of the shared experts;
+mamba2-1.3b's 16 SSD heads with the whole B and C; recurrentgemma-9b's
+1024 LRU channels and 4 heads over a copy of the KV head;
+whisper-large-v3's 5 heads of the decoder), drawn on its own card from
+a seed a leaf, a block and a layer (a block the mesh leaves whole, or
+copies, is drawn alike on every rank that holds it; a stacked leaf is
+drawn a layer at a time, so no float32 copy of a whole leaf is made; a
+leaf with whole segments beside split ones, Mamba2's ``in_proj`` and
+conv, is drawn whole from its seed on every rank and sliced), and
+serves ``chip_smoke.py`` phase 2's geometry through
+``repro_torch.serve.step.make_serve_step`` on a ("data", "model") mesh
+of ``--mesh`` (default ``1 x world``): 8 prompts of 64-480 tokens
+(whisper: 64-384 in slots of 448, after each rank writes its own heads'
+cross K/V of random encoder states of its rows, 1500 frames) in chunks
+of 16 (each data shard its own rows), then ``--new`` greedy decode
+steps.  Logged: each card's name and power limit
 (``nvidia-smi``), the init's seconds, prefill and decode step times
 (host clock, synchronized), output tokens/s, each rank's peak memory and
 kernel launches (the attention's, once a layer a step), whether the
@@ -50,7 +57,8 @@ import torch.distributed as dist  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.dist.sharding import shard_block, shard_params  # noqa: E402
+from repro_torch.dist.sharding import (Segments, shard_block,  # noqa: E402
+                                       shard_params)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import build_model, init_params  # noqa: E402
@@ -75,6 +83,10 @@ def local_params(api, pspecs, mesh, dtype, seed: int = 0) -> dict:
         shape, block = shard_block(spec.shape, pspec, mesh)
         base = seed + 1000 * next(index) + block
         out = spec.dtype if stays_float32(path) else dtype
+        if any(isinstance(e, Segments) for e in pspec):
+            gen.manual_seed(base - block)       # the same on every rank
+            return shard_params(init_params(spec, gen, dtype=out), pspec,
+                                mesh)
         if spec.logical[0] != "layers" or spec.init != "normal":
             gen.manual_seed(base)
             local = dataclasses.replace(spec, shape=shape,
@@ -138,7 +150,10 @@ def main() -> int:
     shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh \
         else (1, world)
     mesh = make_mesh(shape)
-    caches = api.init_caches(cs.B, cs.MAX_SEQ, cs.T, device="cuda")
+    encdec = cfg.family == "encdec"
+    max_seq, span = (cs.WHISPER_MAX_SEQ, cs.WHISPER_PROMPTS) if encdec \
+        else (cs.MAX_SEQ, cs.PROMPTS)
+    caches = api.init_caches(cs.B, max_seq, cs.T, device="cuda")
     step, pspecs, cspecs = make_serve_step(api, mesh, caches,
                                            variant=args.variant)
     caches = shard_params(caches, cspecs, mesh)
@@ -149,11 +164,19 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     shard_gb = sum(x.numel() * x.element_size()
                    for x in leaves(params)) / 1e9
-    prompts, lengths = cs.mesh_prompts(cfg.vocab, cs.PROMPTS)
+    prompts, lengths = cs.mesh_prompts(cfg.vocab, span)
     split = "data" in cspecs["lengths"]
     per = cs.B // (mesh.shape["data"] if split else 1)
     d = mesh.coords["data"] if split else 0
     rows = slice(d * per, (d + 1) * per)
+    if encdec:                      # this rank's heads' cross K/V
+        from repro_torch.models.encdec import encdec_prefill_cross
+        enc = torch.randn((cs.B, cfg.enc_frames, cfg.d_model),
+                          generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            caches["cross_k"], caches["cross_v"] = encdec_prefill_cross(
+                params, cfg, enc[rows].to("cuda", cfg.dtype))
+        del enc
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     common.reset_launch_counts()
@@ -171,7 +194,10 @@ def main() -> int:
     launches = dict(common.LAUNCHES)
     ops = {"paged_attention_chunk": ["paged_latent"],
            "kv_append_chunk": ["kv_append"]} if cfg.mla else {
-        "paged_attention_append_chunk": ["paged_attention"]}
+        "paged_attention_append_chunk": ["paged_attention"]} \
+        if cs.attn_layers(cfg) else {}
+    if encdec:
+        ops["flash_attention"] = ["flash"]
     profile = profile_decode(step, params, last, PROFILE_STEPS, ops)
     picks = torch.stack([r["logits"][:, -1].argmax(-1) for r in recs])
     finite = all(bool(torch.isfinite(r["logits"]).all()) for r in recs)
@@ -181,7 +207,7 @@ def main() -> int:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, "finite": finite,
             "launches_ok": launches == cs.step_launches(
-                cfg, launches, cfg.n_layers * steps),
+                cfg, launches, cs.attn_layers(cfg) * steps),
             "decode_profile": profile,
             "picks": picks.flatten().tolist(),
             **cs.step_ms(recs, prompts.shape[1])}
