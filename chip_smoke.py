@@ -262,6 +262,21 @@ sm_90a) and then, failing with a non-zero exit on any error:
      3's kernel path against plain path, the fused op launched once a
      layer a kernel step; phase 1 holds starcoder2's 36 heads over 4
      (a group of 9) at C=16 and C=1.
+ 19. the mesh train step (run before phase 11; ROADMAP 7.6): qwen2-1.5b
+     at full width on 4 of its 28 layers, (a) unsharded in this process,
+     three AdamW steps of 2 microbatches of 2 sequences of 1024 tokens in
+     float32 (``make_train_step``) and in bf16 (``run_training``); (b)
+     four gloo ranks spawned on the one card, their collectives probed
+     first (``gloo_probe``: the FSDP pair ``all_gather_into_tensor`` and
+     ``reduce_scatter_tensor`` too), each taking its shards of the same
+     seed-0 params and its data rank's rows of the same batches: float32
+     at (2, 2) (FSDP over "data", 6 heads over 1 KV head a rank) and at
+     (1, 4) (3 heads over a copied KV head), held to (a) by their
+     losses, grad norms and every param gathered from the ranks' shards
+     after step 3 (``TRAIN_MESH_TOL``; copies bitwise equal), every rank
+     launching 16 flash forwards and 8 flash backwards a step; bf16 at
+     (2, 2) through ``run_training(mesh=...)``, its step time, peak
+     memory a rank and loss gap to (a)'s logged.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB; 2 and 1 in phase 17), phase 11
@@ -271,7 +286,9 @@ full-depth state took 462-598 s of the script's 1200 s) and phase 15's
 deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
 their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
-one card and its float32 grads through the host fit the phase's time);
+one card and its float32 grads through the host fit the phase's time)
+and phase 19's qwen2-1.5b (4 of 28 layers, so (a) and four ranks' FSDP
+gathers through the host fit the ~280 s left of the script's 1200 s);
 and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
 bf16 weights need four cards, ``tools/mesh_serve.py``),
 deepseek-v2-lite-16b (4 of 27 layers), mamba2-1.3b (8 of 48),
@@ -2964,7 +2981,7 @@ def checkpointed_trainer(cfg, device="cuda", layers=None,
     gc.collect()
 
     # (5) on a state one step past its init
-    step, init_state = make_train_step(api, opt, microbatches=microbatches)
+    step, init_state, _ = make_train_step(api, opt, microbatches=microbatches)
     gen = torch.Generator(device=device).manual_seed(1)
     state = init_state(init_params(api.init_specs(), gen, device=device),
                        device=device)
@@ -3137,7 +3154,7 @@ def train_profile(api, cfg, expected: dict, ops: dict,
     from repro_torch.kernels import common
     from repro_torch.train import AdamWConfig, make_train_step
 
-    step, init_state = make_train_step(
+    step, init_state, _ = make_train_step(
         api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
         microbatches=TRAIN_MB)
     box = {"state": init_state(fresh_params(api))}
@@ -4130,12 +4147,28 @@ def mesh_compare(recs: list, ref: list, rows, lane: str) -> dict:
 
 
 def gloo_probe(rank: int, world: int) -> dict:
-    """The step's collectives on this device's tensors: all_reduce and
-    all_gather in float32 and bf16, and all_gather of int64 (the MoE's
-    expert counts), each result checked."""
+    """The mesh steps' collectives on this device's tensors: all_reduce
+    and all_gather in float32 and bf16, all_gather of int64 (the MoE's
+    expert counts), and the train step's FSDP pair, all_gather_into_tensor
+    and reduce_scatter_tensor, in float32 and bf16, each result checked
+    (torch's backend table lists several gloo collectives as CPU-only)."""
     import torch.distributed as dist
 
     probe = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(2 * world, device="cuda", dtype=dtype) + 10 * rank
+        got = torch.empty(2 * world * world, device="cuda", dtype=dtype)
+        dist.all_gather_into_tensor(got, x)
+        want = torch.cat([torch.arange(2 * world, device="cuda") + 10 * r
+                          for r in range(world)])
+        probe[f"all_gather_into_tensor {dtype}"] = torch.equal(
+            got.float(), want.float())
+        out = torch.empty(2, device="cuda", dtype=dtype)
+        dist.reduce_scatter_tensor(out, x)
+        total = sum(torch.arange(2 * world, device="cuda") + 10 * r
+                    for r in range(world))
+        probe[f"reduce_scatter_tensor {dtype}"] = torch.equal(
+            out.float(), total[2 * rank:2 * rank + 2].float())
     for dtype in (torch.float32, torch.bfloat16, torch.int64):
         if dtype != torch.int64:
             x = torch.full((4,), float(rank + 1), device="cuda", dtype=dtype)
@@ -4464,6 +4497,315 @@ def smoke_sweep(arch: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the mesh train step (train/step.py over a ("data", "model")
+# mesh: FSDP and tensor parallelism) on gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_ARCH = "qwen2-1.5b"
+TRAIN_MESH_LAYERS = 4                # of 28: phase 19 fits its ~280 s
+TRAIN_MESH_S = 1024
+TRAIN_MESH_BATCH, TRAIN_MESH_MB, TRAIN_MESH_STEPS = 4, 2, 3
+TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+TRAIN_MESH_LANES = (((2, 2), "float32"), ((1, 4), "float32"),
+                    ((2, 2), "bfloat16"))
+TRAIN_MESH_RANKS = 4
+TRAIN_MESH_TIMEOUT = 420             # seconds for the ranks, from the spawn
+# float32 lanes against the unsharded float32 step on the same card, over
+# three steps: the largest relative loss and grad-norm gaps and the largest
+# param gap.  Near the geometric middle of the correct readings (loss
+# 2.8e-7, grad norm 2.5e-6, params 4.6e-5) and the nearest broken copy's,
+# ``python3 tools/mesh_gate.py --phase19 --broken-copies
+# --broken-data-mean``: without the copied KV heads' grad sum, loss
+# 6.8e-3, grad norm 3.9e-2, params 5.5e-3 at (1, 4); without the division
+# by the data size, grad norm 1.0 at (2, 2), where Adam and the clip
+# leave loss and params as they were (PERF.md §6)
+TRAIN_MESH_TOL = {"loss_rel_gap": 5e-5, "grad_norm_rel_gap": 3e-4,
+                  "param_abs_gap": 5e-4}
+
+
+def train_mesh_config(dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_MESH_ARCH),
+                               n_layers=TRAIN_MESH_LAYERS, dtype=dtype)
+
+
+def train_mesh_batches(cfg) -> list:
+    """The global batches of the three steps (numpy, from seed 0)."""
+    from repro_torch.data import TokenPipeline
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_MESH_BATCH,
+                         seq_len=TRAIN_MESH_S, seed=0)
+    return [pipe.batch_at(i) for i in range(TRAIN_MESH_STEPS)]
+
+
+def train_mesh_expected() -> dict:
+    """Flash launches of one rank's step: under remat "full" each layer's
+    forward twice and its backward once, a microbatch."""
+    return {"flash_attention": 2 * TRAIN_MESH_LAYERS * TRAIN_MESH_MB,
+            "flash_attention_bwd": TRAIN_MESH_LAYERS * TRAIN_MESH_MB}
+
+
+def train_mesh_reference(tmp: str) -> dict:
+    """Phase 19 (a): the unsharded steps in this process, from the same
+    seed-0 params the ranks draw: float32 through ``make_train_step``
+    (losses and grad norms saved for the comparison, the final params
+    kept on the host) and bf16 through ``run_training`` (its losses)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = train_mesh_config(torch.float32)
+    api = build_model(cfg)
+    step, init_state, _ = make_train_step(
+        api, AdamWConfig(**TRAIN_MESH_OPT), microbatches=TRAIN_MESH_MB)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(init_params(api.init_specs(), gen, device="cuda"))
+    out = {"float32": {"loss": [], "grad_norm": []}}
+    for b in train_mesh_batches(cfg):
+        state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                for k, v in b.items()})
+        out["float32"]["loss"].append(float(m["loss"]))
+        out["float32"]["grad_norm"].append(float(m["grad_norm"]))
+    final = [p.cpu() for p in leaves(state["params"])]
+    del state
+    release()
+    cfg16 = train_mesh_config(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    res = run_training(
+        build_model(cfg16), TokenPipeline(
+            cfg16, global_batch=TRAIN_MESH_BATCH, seq_len=TRAIN_MESH_S,
+            seed=0),
+        LoopConfig(steps=TRAIN_MESH_STEPS, microbatches=TRAIN_MESH_MB),
+        AdamWConfig(**TRAIN_MESH_OPT), device="cuda")
+    out["bfloat16"] = {"loss": res.losses, "step_s": res.step_seconds,
+                       "peak_mem_gb":
+                           torch.cuda.max_memory_allocated() / 2**30}
+    release()
+    Path(tmp, "train-refs.json").write_text(json.dumps(out))
+    out["seconds"] = time.perf_counter() - t0
+    return out, final
+
+
+def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str) -> None:
+    """Phase 19 (b), one rank: a gloo group over a FileStore on the one
+    card, its collectives probed on the card's tensors while (a) runs;
+    then each lane of ``TRAIN_MESH_LANES`` on its mesh: float32 through
+    ``make_train_step(mesh=...)`` from the seed-0 global params (its
+    shards kept), this data rank's rows of each global batch
+    (``mesh_rows``), its flash launches counted step by step and its
+    param shards saved for (a)'s comparison; bf16 through
+    ``run_training(mesh=...)``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+    from repro_torch.train.step import make_train_step, mesh_rows
+    from repro_torch.tree import leaves
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    probe = gloo_probe(rank, world)
+    assert all(probe.values()), probe
+    meshes = {shape: make_mesh(shape)          # in one order on every rank
+              for shape in dict.fromkeys(s for s, _ in TRAIN_MESH_LANES)}
+    while not Path(tmp, "refs-done").exists():
+        time.sleep(0.2)                 # the spawner's deadline bounds it
+    out = {"rank": rank, "gloo_probe": probe, "lanes": {}}
+    opt = AdamWConfig(**TRAIN_MESH_OPT)
+    for shape, lane in TRAIN_MESH_LANES:
+        t_lane = time.perf_counter()
+        mesh = meshes[shape]
+        key = f"{lane} {shape[0]}x{shape[1]}"
+        cfg = train_mesh_config(dict(MESH_LANES)[lane])
+        api = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"coords": mesh.coords}
+        if lane == "bfloat16":
+            common.reset_launch_counts()
+            res = run_training(
+                api, TokenPipeline(cfg, global_batch=TRAIN_MESH_BATCH,
+                                   seq_len=TRAIN_MESH_S, seed=0),
+                LoopConfig(steps=TRAIN_MESH_STEPS,
+                           microbatches=TRAIN_MESH_MB), opt,
+                device="cuda", mesh=mesh)
+            rec.update(loss=res.losses, step_s=res.step_seconds,
+                       launches=dict(common.LAUNCHES))
+        else:
+            step, init_state, _ = make_train_step(
+                api, opt, microbatches=TRAIN_MESH_MB, mesh=mesh)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            state = init_state(init_params(api.init_specs(), gen,
+                                           device="cuda"))
+            release()
+            take = mesh_rows(TRAIN_MESH_BATCH, TRAIN_MESH_MB,
+                             mesh.shape["data"], mesh.coords["data"])
+            rec.update(loss=[], grad_norm=[], step_s=[], launches=[])
+            for b in train_mesh_batches(cfg):
+                batch = {k: torch.from_numpy(v[take]).cuda()
+                         for k, v in b.items()}
+                common.reset_launch_counts()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                rec["loss"].append(float(m["loss"]))
+                rec["step_s"].append(time.perf_counter() - t0)
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                rec["launches"].append(dict(common.LAUNCHES))
+            torch.save([p.cpu() for p in leaves(state["params"])],
+                       Path(tmp, f"shards-{key}-{rank}.pt"))
+            del state
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        release()
+        rec["seconds"] = time.perf_counter() - t_lane
+        out["lanes"][key] = rec
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def _train_mesh_rank_entry(rank, world, tmp):
+    train_mesh_rank(rank, world, tmp, os.path.join(tmp, f"rank-{rank}.json"))
+
+
+def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
+    """(a) against the ranks of each lane: float32 losses and grad norms
+    (relative gaps), every rank's param shards against (a)'s params'
+    same blocks, and every param gathered from the ranks' shards
+    (``gather_params``: the copies of a replicated leaf or of a copied
+    KV head must be bitwise equal; the leaves where they differ are
+    listed); bf16 losses."""
+    from repro_torch.dist.sharding import (gather_params, shard_params,
+                                           train_specs)
+    from repro_torch.launch.mesh import Mesh, rank_coords
+    from repro_torch.models import build_model
+    from repro_torch.tree import map_with_path
+
+    ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
+             for r in range(TRAIN_MESH_RANKS)]
+    out = {}
+    for shape, lane in TRAIN_MESH_LANES:
+        key = f"{lane} {shape[0]}x{shape[1]}"
+        recs = [r["lanes"][key] for r in ranks]
+        ref = refs[lane]
+        res = {"mesh": list(shape), "lane": lane,
+               "loss": recs[0]["loss"], "reference_loss": ref["loss"],
+               "loss_rel_gap": max(abs(a / b - 1) for a, b in
+                                   zip(recs[0]["loss"], ref["loss"])),
+               "losses_equal_on_every_rank": all(
+                   r["loss"] == recs[0]["loss"] for r in recs),
+               "finite": all(math.isfinite(x) for r in recs
+                             for x in r["loss"]),
+               "step_s": [r["step_s"] for r in recs],
+               "step_s_median_2_3": statistics.median(
+                   recs[0]["step_s"][1:]),
+               "tokens_per_s": TRAIN_MESH_BATCH * TRAIN_MESH_S
+               / statistics.median(recs[0]["step_s"][1:]),
+               "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in recs],
+               "seconds_by_rank": [r["seconds"] for r in recs]}
+        if lane == "bfloat16":
+            res["reference_step_s"] = ref["step_s"]
+            res["reference_peak_mem_gb"] = ref["peak_mem_gb"]
+            res["launches_by_rank"] = [r["launches"] for r in recs]
+            out[key] = res
+            continue
+        res["grad_norm"] = recs[0]["grad_norm"]
+        res["reference_grad_norm"] = ref["grad_norm"]
+        res["grad_norm_rel_gap"] = max(abs(a / b - 1) for a, b in zip(
+            recs[0]["grad_norm"], ref["grad_norm"]))
+        res["launches_by_step"] = [r["launches"] for r in recs]
+        cfg = train_mesh_config(torch.float32)
+        mesh = Mesh(shape={"data": shape[0], "model": shape[1]},
+                    coords={"data": 0, "model": 0}, groups={})
+        like = build_model(cfg).init_specs()
+        flat_specs = []
+        map_with_path(lambda _, __, s: flat_specs.append(s), like,
+                      train_specs(cfg, mesh, like))
+        shards = [torch.load(Path(tmp, f"shards-{key}-{r}.pt"))
+                  for r in range(TRAIN_MESH_RANKS)]
+        gap, differ = 0.0, []
+        for i, spec in enumerate(flat_specs):
+            try:
+                whole = gather_params([s[i] for s in shards], spec, mesh)
+            except ValueError:           # two holders of a piece differ
+                differ.append(i)
+                whole = None
+            for r, s in enumerate(shards):   # each rank's own shard
+                mine = dataclasses.replace(mesh, coords=rank_coords(
+                    mesh.shape, r))
+                gap = max(gap, float((s[i] - shard_params(
+                    final[i], spec, mine)).abs().max()))
+            del whole
+        res["param_abs_gap"] = gap
+        res["params_compared"] = len(flat_specs)
+        res["leaves_whose_copies_differ"] = differ
+        out[key] = res
+    return out
+
+
+def check_train_mesh(res: dict) -> None:
+    """Phase 19's gates: every lane finite, the same losses on every
+    rank; each float32 lane within ``TRAIN_MESH_TOL`` of the unsharded
+    step, the copies of every piece bitwise equal; every rank's flash
+    launches a float32 step the expected ones."""
+    want = train_mesh_expected()
+    for key, r in res.items():
+        assert r["finite"] and r["losses_equal_on_every_rank"], (key, r)
+        if r["lane"] != "float32":
+            continue
+        for k, bound in TRAIN_MESH_TOL.items():
+            assert r[k] <= bound, (key, k, r[k], bound)
+        assert not r["leaves_whose_copies_differ"], (key, r)
+        for per_rank in r["launches_by_step"]:
+            for launches in per_rank:
+                assert {k: launches.get(k, 0) for k in want} == want, \
+                    (key, launches)
+
+
+def phase19(card: str, entry=None) -> dict:
+    """Phase 19: the ranks spawned first (their start-up and gloo probe
+    beside (a)), then (a), then the comparison, logged, then gated (not
+    with ``entry``: ``tools/mesh_gate.py``'s broken copies)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(entry or _train_mesh_rank_entry,
+                                 args=(TRAIN_MESH_RANKS, tmp),
+                                 nprocs=TRAIN_MESH_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            refs, final = train_mesh_reference(tmp)
+            log("phase19 (a)", json.dumps({"card": card, **refs}))
+            Path(tmp, "refs-done").write_text("")
+            deadline = t0 + TRAIN_MESH_TIMEOUT
+            while not ctx.join(timeout=2):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(f"phase 19 (b): the ranks ran past "
+                                       f"{TRAIN_MESH_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        log(f"phase19 (b) seconds {time.perf_counter() - t0:.1f} "
+            "(from the spawn)")
+        res = train_mesh_compare(tmp, refs, final)
+    for key, r in res.items():
+        log(f"phase19 (b) {key}", json.dumps({"card": card, **r}))
+    if entry is None:
+        check_train_mesh(res)
+    return {"reference": refs, "lanes": res}
+
+
 def phase1_cases() -> list:
     """Phase 1: every case, each kernel against its plain version, drawn
     in this order from one generator (seed 0)."""
@@ -4630,7 +4972,31 @@ def phase1_cases() -> list:
                      library=True)
           for C in (16, 1)),
         *state_mesh_cases(rng),
+        *train_mesh_flash_cases(rng),
     ]
+
+
+def train_mesh_flash_cases(rng) -> list:
+    """Phase 19's flash shapes, forward and backward, each against its
+    plain version: a rank of qwen2-1.5b's (2, 2) mesh (6 heads over 1 KV
+    head, one sequence of 1024 a microbatch) in float32 and bf16 and of
+    its (1, 4) mesh (3 heads over a copied KV head, two sequences) in
+    float32; and a rank of minitron-8b's (1, 4) mesh in
+    ``tools/mesh_train.py`` (8 heads over 2, S=4096, bf16)."""
+    s = TRAIN_MESH_S
+    cases = []
+    for case, tag in ((flash_case, "flash"), (flash_bwd_case, "flash bwd")):
+        cases += [
+            case(rng, f"{tag} S={s} D=128 H=6 KV=1 float32 (qwen2-1.5b, a "
+                 "rank of (2, 2))", s, h=6, kv=1, dtype=torch.float32),
+            case(rng, f"{tag} S={s} D=128 H=6 KV=1 (qwen2-1.5b, a rank of "
+                 "(2, 2))", s, h=6, kv=1),
+            case(rng, f"{tag} S={s} B=2 D=128 H=3 KV=1 float32 (qwen2-1.5b, "
+                 "a rank of (1, 4))", s, B=2, h=3, kv=1,
+                 dtype=torch.float32),
+            case(rng, f"{tag} S={TRAIN_S} D=128 H=8 KV=2 (minitron-8b, a "
+                 "rank of (1, 4))", TRAIN_S, h=8, kv=2)]
+    return cases
 
 
 def state_mesh_cases(rng) -> list:
@@ -4881,6 +5247,11 @@ def main() -> int:
         sweep[arch] = smoke_sweep(arch)
         log(f"phase18 {arch}", json.dumps({"card": card, **sweep[arch]}))
     log(f"phase18 seconds {time.perf_counter() - t18:.1f}")
+
+    t19 = time.perf_counter()
+    log(f"phase19 starts at {t19 - t_script:.1f} s")
+    phase19(card)
+    log(f"phase19 seconds {time.perf_counter() - t19:.1f}")
 
     t11 = time.perf_counter()
     log(f"phase11 starts at {t11 - t_script:.1f} s")

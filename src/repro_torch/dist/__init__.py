@@ -12,11 +12,15 @@ codec and the mesh partition rules.
     each rank's shard of a parameter or cache tree, which
     ``serve.step.make_serve_step`` serves from (tensor parallelism over
     "model", expert parallelism over it too, request parallelism over
-    "data").
+    "data") and ``train.step.make_train_step(mesh=...)`` trains the dense
+    family on (``train_specs``: FSDP over "data" on the contraction dim,
+    tensor parallelism over "model", the optimizer moments sharded as
+    their params, the batch's rows split over "data").
 
 Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
-The trainer's ranks hold whole, replicated parameters (``train_rules``
-in the trainer: ROADMAP item 7.6).
+Not yet: the MoE and MLA trained over a mesh (ROADMAP item 7.6b),
+Mamba2, the RG-LRU, the encoder-decoder and the VLM (7.6c), a pod group
+beside a mesh and ``launch.train`` over a mesh (7.6d).
 """
 
 from . import compression, fault, sharding
@@ -27,7 +31,8 @@ from .compression import (BucketPlan, bucketed_compressed_psum,
 from .fault import (FaultPolicy, HeartbeatMonitor, RemeshPlan, StealPlan,
                     plan_remesh, plan_steal)
 from .sharding import (batch_axes, cache_specs, fit_batch_axes,
-                       gather_params, serve_rules, shard_params, train_rules)
+                       gather_params, serve_rules, shard_params, train_rules,
+                       train_specs)
 
 __all__ = [
     "batch_axes", "BucketPlan", "bucketed_compressed_psum", "cache_specs",
@@ -36,5 +41,5 @@ __all__ = [
     "init_residuals", "plan_buckets", "plan_remesh", "plan_steal",
     "quantize_int8", "quantize_with_feedback", "RemeshPlan", "serve_rules",
     "shard_params", "sharding", "StealPlan", "topk_psum", "topk_sparsify",
-    "train_rules",
+    "train_rules", "train_specs",
 ]

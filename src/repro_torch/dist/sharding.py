@@ -34,7 +34,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from ..launch.mesh import rank_coords
-from ..models.spec import Spec
+from ..models.spec import Spec, partition_specs
 from ..tree import leaves, map_with_path
 
 # Order matters: "pod" is the outermost (slowest) axis, so it comes first
@@ -57,6 +57,63 @@ def train_rules(mesh: Any, *, include_pod_in_fsdp: bool = True) -> Dict:
     rules: Dict = {"embed": fsdp_rule, "embed_tbl": fsdp_rule}
     rules.update({ax: model for ax in _TP_AXES})
     return rules
+
+
+def train_specs(cfg, mesh: Any, params_like: Any) -> Any:
+    """The specs every rank of the mesh train step shards its parameters
+    and optimizer moments with (``shard_params``) and gathers them with
+    (``gather_params``): the reference's ``train_rules`` through
+    ``partition_specs`` (FSDP over "data" on the contraction dim, tensor
+    parallelism over "model"), then the parameter half of
+    ``head_specs`` (whole query heads; whole or copied KV heads).
+    ``params_like``: the model's ``ParamSpec`` tree.  The dense family
+    only: the others raise ``ValueError`` naming their ROADMAP item."""
+    if cfg.n_experts or cfg.mla:
+        raise ValueError(f"{cfg.name}: the mesh train step covers the dense "
+                         "family; MoE and MLA wait for ROADMAP item 7.6b")
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the mesh train step covers the dense "
+                         f"family; the {cfg.family} family waits for ROADMAP "
+                         "item 7.6c")
+    specs = partition_specs(params_like, train_rules(mesh), mesh)
+    return head_specs(cfg, mesh, specs, {}, params_like, {})[0]
+
+
+def axis_dim(spec: Spec, axis: str):
+    """The dim of a spec split over ``axis`` (alone or among others), or
+    None."""
+    for d, entry in enumerate(spec):
+        if not isinstance(entry, (Copies, Segments)) and axis in _axes(entry):
+            return d
+    return None
+
+
+def copies_of(spec: Spec, mesh: Any) -> int:
+    """The number of model ranks that hold each block of a spec's
+    ``Copies`` dim (1 where it has none)."""
+    for entry in spec:
+        if isinstance(entry, Copies):
+            return mesh.shape[entry.axis] // entry.blocks
+    return 1
+
+
+def first_holder(spec: Spec, mesh: Any) -> bool:
+    """Whether the calling rank is the first of the ranks that hold its
+    block of a leaf: its index is 0 on every mesh axis the spec does not
+    split, and first among the ranks of a ``Copies`` block.  Summing
+    over the first holders counts each piece of the leaf once."""
+    split = {a for e in spec if not isinstance(e, Copies) for a in _axes(e)}
+    for axis, size in mesh.shape.items():
+        copies = [e for e in spec if isinstance(e, Copies) and e.axis == axis]
+        if copies:
+            holders = size // copies[0].blocks   # ranks a copied block
+        elif axis in split:
+            continue
+        else:
+            holders = size                       # the whole axis
+        if mesh.coords[axis] % holders:
+            return False
+    return True
 
 
 def serve_rules(mesh: Any) -> Dict:

@@ -28,7 +28,7 @@ from ..kernels import attention as attention_op
 from ..kernels import (kv_append_chunk, paged_attention_append_chunk,
                        paged_attention_chunk)
 from .config import ModelConfig
-from .shardctx import model_all_reduce, model_split
+from .shardctx import model_all_reduce, model_entry, model_split
 from .spec import ParamSpec
 
 
@@ -109,9 +109,15 @@ def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               return_kv: bool = False, impl: Optional[str] = None):
     """Full-sequence attention.  ``kv_override`` supplies external K/V
-    (cross-attention).  Returns (out, (k, v) if return_kv)."""
+    (cross-attention).  Returns (out, (k, v) if return_kv).  A rank of
+    the mesh train step holds its block of whole heads (or a copy of the
+    KV head they read): ``x`` enters through the column-parallel entry
+    and ``wo``'s partial product is summed over the model group."""
     if cfg.mla:
         raise ValueError("gqa_train: an MLA config trains through mla_train")
+    split = model_split(p["wo"].shape[0], cfg.q_dim, "the attention's wo")
+    if split:
+        x = model_entry(x)
     q, k, v = _qkv(p, cfg, x, positions if use_rope else None, use_rope)
     if kv_override is not None:
         k, v = kv_override
@@ -120,8 +126,10 @@ def gqa_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                        causal=causal, window=window,
                        softcap=cfg.attn_logit_softcap, impl=impl)
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, S, q.shape[2] * cfg.head_dim)
     out = out @ p["wo"].to(cfg.dtype)
+    if split:
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
     if return_kv:
         return out, (k, v)
     return out

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .shardctx import (data_prefix, data_size, model_all_reduce,
-                       model_rank, model_split)
+                       model_entry, model_rank, model_split)
 from .spec import ParamSpec
 
 
@@ -88,7 +88,13 @@ def mlp_init(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
 
 
 def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense MLP; a rank's block of FFN columns enters ``x`` through
+    the column-parallel entry and sums ``wo``'s partial products over the
+    model group, then adds ``bo`` once."""
     dt = cfg.dtype
+    split = model_split(p["wo"].shape[0], cfg.d_ff, "the MLP's wo")
+    if split:
+        x = model_entry(x)
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wi_gate"].to(dt)) * (x @ p["wi_up"].to(dt))
@@ -105,7 +111,7 @@ def mlp_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(cfg.mlp)
     out = h @ p["wo"].to(dt)
-    if model_split(p["wo"].shape[0], cfg.d_ff, "the MLP's wo"):
+    if split:
         out = model_all_reduce(out)      # partial sums, before the bias
     if "bo" in p:
         out = out + p["bo"].to(dt)

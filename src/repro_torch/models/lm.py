@@ -40,7 +40,8 @@ from ..kernels.common import resolve_device
 from .blocks import block_cache_init, block_init, block_serve, block_train
 from .config import ModelConfig
 from .layers import norm_apply, norm_init
-from .shardctx import gather_vocab, model_all_reduce, model_rank, model_split
+from .shardctx import (bind, fsdp_params, gather_vocab, model_all_reduce,
+                       model_entry, model_rank, model_split)
 from .spec import ParamSpec, tree_map_specs
 
 
@@ -89,8 +90,9 @@ def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     (its patch embeddings) go before them, cast to ``cfg.dtype``.  A
     table split over the model group (the mesh serve step) is looked up
     vocab-parallel: a token outside this rank's rows reads zeros, and the
-    sum over the group leaves each token its one row."""
-    table = params["embed"].to(cfg.dtype)
+    sum over the group leaves each token its one row.  Under the mesh
+    train step the table's FSDP shards are gathered first."""
+    table = fsdp_params(params["embed"], ("embed",)).to(cfg.dtype)
     rows = table.shape[0]
     if not model_split(rows, cfg.vocab, "the embedding"):
         x = table[tokens.long()]
@@ -110,12 +112,18 @@ def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits [.., V]; a head split over the model group gives this rank's
-    vocab block, gathered over the group."""
+    vocab block (``x`` through the column-parallel entry), gathered over
+    the group.  Under the mesh train step the head's FSDP shards are
+    gathered first: a tied head's grad then reaches the table twice."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    head = fsdp_params(params[key], (key,)).to(cfg.dtype)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(cfg.dtype).T
-    else:
-        logits = x @ params["lm_head"].to(cfg.dtype)
-    if model_split(logits.shape[-1], cfg.vocab, "the output head"):
+        head = head.T
+    split = model_split(head.shape[-1], cfg.vocab, "the output head")
+    if split:
+        x = model_entry(x)
+    logits = x @ head
+    if split:
         logits = gather_vocab(logits)
     return logits
 
@@ -153,7 +161,9 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               prefix_embeds: Optional[torch.Tensor] = None, *,
               impl: Optional[str] = None) -> torch.Tensor:
     """The final-normed hidden states [B, Np + S, D] of the full groups,
-    then the tail; ``prefix_embeds`` as ``embed_tokens``."""
+    then the tail; ``prefix_embeds`` as ``embed_tokens``.  Under the mesh
+    train step each layer's FSDP shards are gathered inside its remat'd
+    group (``shardctx.fsdp_params``), ``final_norm``'s where it is used."""
     pattern, n_full, tail = _pattern_groups(cfg)
     x = embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
@@ -162,10 +172,11 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     def group_fn(h, *gps):
         for i, kind in enumerate(pattern):
-            h = block_train(gps[i], cfg, kind, h, positions, impl=impl)
+            gp = fsdp_params(gps[i], ("group", f"b{i}_{kind}"), stacked=True)
+            h = block_train(gp, cfg, kind, h, positions, impl=impl)
         return h
 
-    group_fn = _remat(group_fn, cfg.remat)
+    group_fn = _remat(bind(group_fn), cfg.remat)
     per_layer = [_unbind(params["group"][f"b{i}_{kind}"], n_full)
                  for i, kind in enumerate(pattern)]
     for layer in range(n_full):
@@ -173,7 +184,8 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     for i, kind in enumerate(tail):
         x = block_train(params["tail"][f"t{i}_{kind}"], cfg, kind, x,
                         positions, impl=impl)
-    return norm_apply(params["final_norm"], cfg, x)
+    return norm_apply(fsdp_params(params["final_norm"], ("final_norm",)),
+                      cfg, x)
 
 
 def lm_logits(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The serve step's collective points over the mesh's groups: the
-port's counterpart of ``repro/models/shardctx.py``.
+"""The serve and train steps' collective points over the mesh's groups:
+the port's counterpart of ``repro/models/shardctx.py``.
 
 ``serving_mesh(model=..., data=..., variant=...)`` installs, for one
 step, the ``torch.distributed`` group of the ranks that split one
@@ -20,6 +20,32 @@ variant; the model code calls
     ``counts`` over the data shards before this one (an ``all_gather``
     over the data group); the MoE's capacity count
     (``layers.moe_route``) reads it with ``data_size()``.
+
+``training_mesh(model=..., data=..., dims=...)`` installs the same
+model group for the train step (``train.step``), the group of the ranks
+that split the parameters' contraction dim (FSDP over "data") and, in
+the parameters' structure, the dim of each leaf that is split over it.
+Under it the model code calls, besides the above (each of which
+autograd differentiates as Megatron's pair does),
+
+  * ``model_entry(x)``: the column-parallel entry before a split
+    ``wq`` / ``wk`` / ``wv``, MLP ``wi`` or output head: ``x`` itself
+    forward, the sum over the model group of ``x``'s grad backward (each
+    rank's heads, columns or vocab rows give a partial grad);
+  * ``fsdp_params(tree, path)``: each leaf of the parameter subtree at
+    ``path`` all-gathered over the data group on its FSDP dim; backward,
+    the grad reduce-scattered (summed over the data ranks) back onto the
+    rank's shard.  ``lm_hidden`` calls it inside the remat'd layer group,
+    so remat "full" gathers again in the recompute and no layer's
+    gathered weights outlive it; ``bind(fn)`` carries the installed groups
+    into that recompute, which autograd runs on its device thread.
+
+The backward of ``model_all_reduce`` is the identity and that of
+``gather_vocab`` this rank's vocab block of the grad: every rank of the
+model group runs the same replicated computation after either.  Never
+``torch.distributed.nn``'s all_reduce, whose backward is an all-reduce
+too: after a row-parallel sum it would multiply every replicated grad
+by the model size.
 
 Outside a context (or in a group of one rank) the model collectives
 return ``x`` unchanged and ``model_rank()`` is 0, as the reference's
@@ -53,7 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,6 +92,9 @@ _DATA_GROUP: contextvars.ContextVar[Optional[Any]] = \
     contextvars.ContextVar("serving_data_group", default=None)
 _VARIANT: contextvars.ContextVar[str] = \
     contextvars.ContextVar("serving_variant", default="gspmd")
+# the train step's FSDP: (the data group, its size, the dims tree)
+_FSDP: contextvars.ContextVar[Optional[Tuple[Any, int, Any]]] = \
+    contextvars.ContextVar("training_fsdp", default=None)
 
 
 @contextlib.contextmanager
@@ -87,6 +116,40 @@ def serving_mesh(model: Optional[Any] = None, data: Optional[Any] = None,
         for var, token in zip((_MODEL_GROUP, _DATA_GROUP, _VARIANT),
                               tokens):
             var.reset(token)
+
+
+@contextlib.contextmanager
+def training_mesh(model: Optional[Any] = None, data: Optional[Any] = None,
+                  dims: Any = None):
+    """Installs, for the train step's forward and backward, ``model`` (the
+    group of the ranks that split the heads, FFN and vocabulary, or None)
+    and ``data`` (the group of the ranks that split the parameters'
+    contraction dim and the batch's rows, or None) with ``dims``: a tree
+    in the parameters' structure holding, at each leaf, the dim that
+    ``data`` splits (None where the leaf is whole over it).  The MoE's
+    capacity count sees no data group (the MoE does not train over a
+    mesh yet)."""
+    size = dist.get_world_size(data) if data is not None else 1
+    tokens = (_MODEL_GROUP.set(model), _DATA_GROUP.set(None),
+              _VARIANT.set("gspmd"),
+              _FSDP.set((data, size, dims) if size > 1 else None))
+    try:
+        yield
+    finally:
+        for var, token in zip((_MODEL_GROUP, _DATA_GROUP, _VARIANT, _FSDP),
+                              tokens):
+            var.reset(token)
+
+
+def bind(fn: Callable) -> Callable:
+    """``fn`` run under the groups installed now, wherever it is called:
+    a remat'd layer's recompute runs on autograd's device thread, which
+    does not see this thread's context.  ``fn`` itself outside a
+    context."""
+    if _MODEL_GROUP.get() is None and _FSDP.get() is None:
+        return fn
+    ctx = contextvars.copy_context()
+    return lambda *args: ctx.run(fn, *args)
 
 
 def _group():
@@ -136,15 +199,109 @@ def model_rank() -> int:
     return dist.get_rank(group)
 
 
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ModelSum(torch.autograd.Function):
+    """The row-parallel sum: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ModelEntry(torch.autograd.Function):
+    """The column-parallel entry: identity forward, all-reduce of the
+    input's grad backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherVocab(torch.autograd.Function):
+    """All-gather of the vocab blocks forward, the rank's own block of the
+    grad backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.rank, ctx.width = dist.get_rank(group), x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.rank * ctx.width, ctx.width), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A leaf's shards all-gathered on ``dim`` over the data group
+    forward, the grad reduce-scattered (summed) back onto the shard
+    backward."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        buf = shard.new_empty((size * shard.shape[0],) + shard.shape[1:])
+        dist.all_gather_into_tensor(buf, shard.contiguous(), group=group)
+        return _unstack(buf.view((size,) + shard.shape), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        size, dim = ctx.size, ctx.dim
+        shape = list(grad.shape)
+        shape[dim:dim + 1] = [size, shape[dim] // size]
+        stacked = grad.reshape(shape).movedim(dim, 0).contiguous()
+        out = grad.new_empty(stacked.shape[1:])
+        dist.reduce_scatter_tensor(out, stacked.flatten(0, 1),
+                                   group=ctx.group)
+        return out, None, None, None
+
+
+def _unstack(buf: torch.Tensor, dim: int) -> torch.Tensor:
+    """[size, *shard] -> the shards concatenated on ``dim``."""
+    shape = list(buf.shape[1:])
+    shape[dim] *= buf.shape[0]
+    return buf.movedim(0, dim).reshape(shape)
+
+
 def model_all_reduce(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the model group (in place on a contiguous
-    ``x``, which is returned)."""
+    ``x``, which is returned, where autograd does not record it; the
+    row-parallel sum, whose backward is the identity, where it does)."""
     group, _ = _group()
     if group is None:
         return x
+    if _differentiated(x):
+        return _ModelSum.apply(x, group)
     x = x.contiguous()
     dist.all_reduce(x, group=group)
     return x
+
+
+def model_entry(x: torch.Tensor) -> torch.Tensor:
+    """The column-parallel entry before a weight split over the model
+    group: ``x`` forward, the sum of its grad over the group backward.
+    ``x`` itself where autograd does not record it."""
+    group, _ = _group()
+    if group is None or not _differentiated(x):
+        return x
+    return _ModelEntry.apply(x, group)
 
 
 def gather_vocab(x: torch.Tensor) -> torch.Tensor:
@@ -152,9 +309,45 @@ def gather_vocab(x: torch.Tensor) -> torch.Tensor:
     group, size = _group()
     if group is None:
         return x
+    if _differentiated(x):
+        return _GatherVocab.apply(x, group, size)
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=-1)
+
+
+def fsdp_gather(shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """``shard`` all-gathered on ``dim`` over the installed data group
+    (differentiable: the grad is reduce-scattered back); ``shard`` itself
+    where ``dim`` is None or no data group splits the parameters."""
+    fsdp = _FSDP.get()
+    if fsdp is None or dim is None:
+        return shard
+    group, size, _ = fsdp
+    return _FsdpGather.apply(shard, dim, group, size)
+
+
+def fsdp_params(tree: Any, path: Tuple[str, ...],
+                stacked: bool = False) -> Any:
+    """The parameter subtree ``tree``, found at ``path`` of the parameter
+    tree, with each leaf FSDP-gathered (``fsdp_gather``) on its dim from
+    the installed dims; ``stacked``: ``tree``'s leaves are one layer of
+    leaves stacked over layers, whose dims count the layer dim.  ``tree``
+    itself outside a training context."""
+    fsdp = _FSDP.get()
+    if fsdp is None:
+        return tree
+    dims = fsdp[2]
+    for key in path:
+        dims = dims[key]
+    shift = 1 if stacked else 0
+
+    def walk(node, d):
+        if isinstance(node, dict):
+            return {k: walk(node[k], d[k]) for k in node}
+        return fsdp_gather(node, None if d is None else d - shift)
+
+    return walk(tree, dims)
 
 
 def data_size() -> int:

@@ -28,11 +28,19 @@ split on dim 0; every rank draws the same parameters from the seed.  Rank
 residual rows into the reference's global ``[W * n]`` layout, rank-major;
 a restore on rank 0 broadcasts the params, the optimizer state and the
 pipeline's position, and hands each rank its own residual row.  The
-fault path (``monitor``, ``policy``) does not run over a group.  The
-reference's mesh and its shardings (``dist/sharding.py``,
-``models/shardctx.py``, ``serve/step.py``'s ``gspmd`` / ``shard_map``
-variants, ``train.step.pod_err_struct``) have no port: a rank holds whole
-parameters.
+fault path (``monitor``, ``policy``) does not run over a group.
+
+With ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh; the
+dense family, ``train.step``) every rank draws the same global batch and
+keeps its data rank's rows (``train.step.mesh_rows``), and draws the same
+global parameters from the seed and keeps its shards of them.  Rank 0
+alone holds the ``CheckpointManager`` and saves the gathered global state
+(every leaf all-gathered, assembled by ``dist.sharding.gather_params``),
+in the leaves and layout of an unsharded run; a restore on rank 0
+broadcasts each global leaf and every rank keeps its shards.  So a
+checkpoint written on one mesh shape resumes on another, or unsharded.
+The fault path does not run over a mesh either; a pod group beside a
+mesh and ``launch.train`` over a mesh wait for ROADMAP item 7.6d.
 """
 
 from __future__ import annotations
@@ -48,12 +56,13 @@ import torch.distributed as dist
 from ..checkpoint.manager import CheckpointManager
 from ..data.pipeline import TokenPipeline
 from ..dist.fault import FaultPolicy, HeartbeatMonitor, RemeshPlan, StealPlan
+from ..dist.sharding import gather_params, shard_params
 from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
 from ..models.spec import init_params
-from ..tree import leaves, unflatten
+from ..tree import leaves, map_with_path, unflatten
 from .optimizer import AdamWConfig
-from .step import make_train_step
+from .step import make_train_step, mesh_rows
 
 
 @dataclass
@@ -119,6 +128,48 @@ def _broadcast_state(state: Dict, restored: Optional[Dict], group) -> Dict:
     return out
 
 
+def _state_specs(param_specs: Any) -> Dict:
+    """The specs of a mesh train state: the moments' are the params'."""
+    return {"params": param_specs,
+            "opt": {"mu": param_specs, "nu": param_specs, "step": ()}}
+
+
+def gather_state(state: Dict, specs: Dict, mesh: Any) -> Optional[Dict]:
+    """The global train state from every rank's shards, on rank 0 (None
+    on the others): each leaf all-gathered over the mesh, then assembled
+    (``gather_params``; copies of a replicated piece must be bitwise
+    equal).  A collective: every rank calls it."""
+    rank = dist.get_rank()
+    out = []
+
+    def one(_, leaf, spec):
+        parts = [torch.empty_like(leaf) for _ in range(mesh.size)]
+        dist.all_gather(parts, leaf.contiguous())
+        out.append(gather_params(parts, spec, mesh) if rank == 0 else None)
+        del parts
+
+    map_with_path(one, state, specs)
+    return unflatten(state, out) if rank == 0 else None
+
+
+def _scatter_state(state: Dict, restored: Optional[Dict], specs: Dict,
+                   mesh: Any, global_like: Dict) -> Dict:
+    """Rank 0's restored global state (``restored``), each leaf
+    broadcast and kept as this rank's shard; ``global_like`` gives every
+    leaf's global shape.  A collective."""
+    out = []
+    flat = leaves(restored) if restored is not None else None
+
+    def one(_, leaf, spec, like):
+        full = flat[len(out)] if flat is not None else torch.empty(
+            tuple(like.shape), dtype=leaf.dtype, device=leaf.device)
+        dist.broadcast(full, src=0)
+        out.append(shard_params(full, spec, mesh))
+
+    map_with_path(one, state, specs, global_like)
+    return unflatten(state, out)
+
+
 def run_training(api: ModelAPI, pipeline: TokenPipeline,
                  loop_cfg: LoopConfig, opt_cfg: AdamWConfig, *,
                  ckpt: Optional[CheckpointManager] = None,
@@ -126,17 +177,24 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
                  worker: int = 0,
                  policy: Optional[FaultPolicy] = None,
                  device="cuda", crash_at: Optional[int] = None,
-                 pod_group=None) -> LoopResult:
+                 pod_group=None, mesh: Any = None) -> LoopResult:
     """Run (or resume) training.  ``crash_at`` raises after that step's
     checkpointable state exists — tests use it to exercise restart.
-    ``pod_group``: reduce the grads across this group's ranks (module
-    docstring); ``ckpt`` then belongs to rank 0 alone, and ``monitor``
-    and ``policy`` are refused (each rank would plan on its own)."""
+    ``pod_group``: reduce the grads across this group's ranks; ``mesh``:
+    train the dense family over a ("data", "model") mesh (module
+    docstring).  Over either, ``ckpt`` belongs to rank 0 alone, and
+    ``monitor`` and ``policy`` are refused (each rank would plan on its
+    own)."""
     dev = resolve_device(device)
     rank = world = None
-    if pod_group is not None:
-        rank = dist.get_rank(pod_group)
-        world = dist.get_world_size(pod_group)
+    if mesh is not None and pod_group is not None:
+        raise ValueError("a pod group beside a mesh waits for ROADMAP "
+                         "item 7.6d")
+    sharded = mesh is not None and mesh.size > 1
+    group = dist.group.WORLD if sharded else pod_group
+    if group is not None:
+        rank = dist.get_rank(group)
+        world = dist.get_world_size(group)
         if ckpt is not None and rank != 0:
             raise ValueError(f"rank {rank} was given a CheckpointManager: "
                              "rank 0 alone saves and restores")
@@ -145,7 +203,8 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
             # out, or stops for a remesh, would leave the others blocked
             # in the group's next collective
             raise ValueError("a HeartbeatMonitor or FaultPolicy does not "
-                             "run over a pod_group")
+                             "run over a pod_group or a mesh")
+    if pod_group is not None:
         if pipeline.local_batch % world:
             raise ValueError(f"a batch of {pipeline.local_batch} rows does "
                              f"not split over {world} ranks")
@@ -154,28 +213,40 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
     step_kwargs = {}
     if loop_cfg.bucket_elems is not None:
         step_kwargs["bucket_elems"] = loop_cfg.bucket_elems
-    train_step, init_state = make_train_step(
+    train_step, init_state, specs = make_train_step(
         api, opt_cfg, microbatches=loop_cfg.microbatches,
-        pod_group=pod_group, codec=loop_cfg.codec, **step_kwargs)
+        pod_group=pod_group, codec=loop_cfg.codec, mesh=mesh, **step_kwargs)
+    if sharded:
+        take = mesh_rows(pipeline.local_batch, loop_cfg.microbatches,
+                         mesh.shape["data"], mesh.coords["data"])
     gen = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
     state = init_state(init_params(api.init_specs(), gen, device=dev),
                        device=dev)
+    if sharded:
+        state_specs = _state_specs(specs)
+        shapes = api.init_specs()       # each leaf's global shape
+        global_like = {"params": shapes, "opt": {
+            "mu": shapes, "nu": shapes, "step": state["opt"]["step"]}}
     result = LoopResult()
     start = 0
     restored = ckpt.restore(state) if ckpt is not None else None
     has_ckpt = ckpt is not None
-    if pod_group is not None:
+    if group is not None:
         # rank 0 tells the group whether it checkpoints and what it restored
         head = torch.tensor(
             [has_ckpt, restored is not None,
              restored[0] if restored else 0,
              restored[2].get("pipeline_step", restored[0]) if restored
              else 0], dtype=torch.int64, device=dev)
-        dist.broadcast(head, group=pod_group, group_src=0)
+        dist.broadcast(head, group=group, group_src=0)
         has_ckpt, found, start, pipe_step = (int(x) for x in head.tolist())
-        if found:
+        if found and sharded:
+            state = _scatter_state(state, restored[1] if restored else None,
+                                   state_specs, mesh, global_like)
+        elif found:
             state = _broadcast_state(
-                state, restored[1] if restored else None, pod_group)
+                state, restored[1] if restored else None, group)
+        if found:
             pipeline.restore(pipe_step)
             result.restored_from = start
     elif restored is not None:
@@ -188,6 +259,8 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
         batch = next(pipeline)
         if pod_group is not None:          # this rank's rows of the batch
             batch = {k: v[lo:hi] for k, v in batch.items()}
+        elif sharded:
+            batch = {k: v[take] for k, v in batch.items()}
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         state, metrics = train_step(state, batch)
         loss = float(metrics["loss"])
@@ -224,6 +297,8 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
             if "err" in state and pod_group is not None:
                 tree = {**state,
                         "err": gather_residuals(state["err"], pod_group)}
+            elif sharded:
+                tree = gather_state(state, state_specs, mesh)
             if ckpt is not None:
                 ckpt.save(step + 1, tree,
                           extra={"pipeline_step": pipeline.snapshot()})

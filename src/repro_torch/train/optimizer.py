@@ -8,15 +8,19 @@ step donates the old ones), ``adamw_update`` updates params, mu and nu IN
 PLACE under ``torch.no_grad()`` and returns the same tensors: at full
 width the state is tens of GB, and a second copy would not fit beside it.
 The schedule, the bias corrections and the clip scale are float32 tensors
-on the state's device, as in the reference."""
+on the state's device, as in the reference.  Over a mesh each rank holds
+its shards of params, mu and nu, and the clip reads the whole model's
+norm (``sharded_norm``), so every rank scales by the reference's
+factor."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..tree import leaves, unflatten
 
@@ -55,13 +59,32 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
+def sharded_norm(tree: Any, owned: Sequence[bool]) -> torch.Tensor:
+    """The global norm of a tree sharded over the ranks of the default
+    group (the whole mesh): each rank sums the squares of the leaves it is
+    the first holder of (``owned``, in ``leaves`` order; a piece held by
+    several ranks counts once), one all-reduce sums the ranks' sums, then
+    the square root."""
+    flat = leaves(tree)
+    sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for x, own in zip(flat, owned, strict=True):
+        if own:
+            sq = sq + torch.sum(torch.square(x.float()))
+    sq = sq.reshape(1)
+    dist.all_reduce(sq)
+    return torch.sqrt(sq[0])
+
+
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: Dict) -> Tuple[Any, Dict, Dict]:
+                 state: Dict, *, norm: Callable[[Any], torch.Tensor] =
+                 global_norm) -> Tuple[Any, Dict, Dict]:
     """Returns (params, state, metrics); params, ``state["mu"]`` and
-    ``state["nu"]`` are the given tensors, updated in place."""
+    ``state["nu"]`` are the given tensors, updated in place.  ``norm``
+    gives the grads' global norm, which the clip reads (``sharded_norm``
+    over a mesh)."""
     with torch.no_grad():
         step = state["step"]
-        gnorm = global_norm(grads)
+        gnorm = norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         lr = schedule(cfg, step)

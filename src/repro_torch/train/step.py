@@ -1,8 +1,10 @@
 """The train_step builder (port of ``repro/train/step.py``): microbatch
 gradient accumulation into float32 buffers, the optional compressed
-reduction across ranks, and the AdamW update.
+reduction across ranks, the mesh's FSDP and tensor parallelism, and the
+AdamW update.
 
-    train_step, init_state = make_train_step(api, opt_cfg, microbatches=4)
+    train_step, init_state, specs = make_train_step(api, opt_cfg,
+                                                    microbatches=4)
     state = init_state(params, device="cuda")
     state, metrics = train_step(state, batch)      # metrics: loss, grad_norm, lr
 
@@ -22,15 +24,29 @@ the replicated parameters stay bitwise equal.  ``codec="none"`` takes the
 exact float32 mean instead (the reference's uncompressed pod reduction),
 and so does an encoder-decoder, as in the reference.
 
-Not ported: the mesh, the shardings (FSDP / TP over ``dist.sharding``
-rules, ``models/shardctx.py``'s activation hints, the ``gspmd`` /
-``shard_map`` variants of ``serve/step.py``) and ``pod_err_struct`` (the
-residuals' shapes for the dry run's lowering): each rank holds whole
-parameters.
+Given ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh), the
+dense family trains as the reference's GSPMD step does, every collective
+explicit (``models.shardctx``): each rank holds its shards of the params
+and of both moments (``dist.sharding.train_specs``: the reference's
+``train_rules``, FSDP over "data" on the contraction dim and tensor
+parallelism over "model", then whole query heads and whole or copied KV
+heads), all-gathers each layer's shards over "data" inside its remat'd
+group and reduce-scatters their grads, sums the row-parallel products and
+enters the column-parallel ones over "model", and runs AdamW on its
+shards with the whole model's clip norm.  It takes this data rank's rows
+of the global batch (each leaf indexed by ``mesh_rows``).  ``specs`` is
+then the parameters' (and each moment's) specs; None without a mesh.
+
+Not ported: the MoE and MLA over a mesh (ROADMAP 7.6b), Mamba2, the
+RG-LRU, the encoder-decoder and the VLM over a mesh (7.6c), a pod group
+beside a mesh (7.6d), ``models/shardctx.py``'s activation hints (layout
+hints to XLA's partitioner; eager PyTorch has none) and
+``pod_err_struct`` (the residuals' shapes for the dry run's lowering).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional
 
@@ -38,15 +54,36 @@ import torch
 import torch.distributed as dist
 
 from ..dist import compression
+from ..dist.sharding import (axis_dim, copies_of, first_holder,
+                             shard_params, train_specs)
 from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
-from ..tree import leaves, unflatten
-from .optimizer import AdamWConfig, adamw_init, adamw_update
+from ..models.shardctx import training_mesh
+from ..tree import leaves, map_with_path, unflatten
+from .optimizer import AdamWConfig, adamw_init, adamw_update, sharded_norm
 
 
 def _split_microbatch(batch: Dict, n: int, i: int) -> Dict:
     return {k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
             for k, x in batch.items()}
+
+
+def mesh_rows(n: int, microbatches: int, data: int, index: int) -> list:
+    """The indices of data rank ``index``'s rows of a global batch of
+    ``n`` rows on a mesh of ``data`` data ranks: microbatch ``i`` is the
+    global rows ``[i*mb, (i+1)*mb)`` (the reference's
+    ``_split_microbatch``), and the rank holds the ``index``-th of its
+    ``data`` blocks of ``mb / data`` rows, microbatch after microbatch,
+    so the step's own split gives it its block of each.  A microbatch
+    that does not split raises ``ValueError``."""
+    if n % microbatches or (n // microbatches) % data:
+        raise ValueError(f"a batch of {n} rows does not split into "
+                         f"{microbatches} microbatches over {data} data "
+                         "ranks")
+    mb = n // microbatches
+    rows = mb // data
+    return [i * mb + index * rows + j for i in range(microbatches)
+            for j in range(rows)]
 
 
 def make_loss_and_grad(api: ModelAPI, microbatches: int, *,
@@ -102,15 +139,29 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, impl: Optional[str] = None,
                     pod_group=None, codec: str = "int8",
                     bucket_elems: int = compression.DEFAULT_BUCKET_ELEMS,
-                    topk_frac: float = 0.01):
-    """Returns (train_step, init_state).
+                    topk_frac: float = 0.01, mesh: Any = None):
+    """Returns (train_step, init_state, param_specs).
 
     train_step(state, batch) -> (state, metrics), state = {params, opt}
     and, when the group's reduction is compressed, ``err``;
-    init_state(params, device=...) -> the state, every leaf on ``device``.
-    ``batch`` holds this rank's rows.  ``codec`` is one of
-    ``compression.CODECS`` or ``"none"``.
+    init_state(params, device=...) -> the state, every leaf on ``device``
+    (over a mesh: this rank's shards of the global ``params``, and
+    moments made on them).  ``batch`` holds this rank's rows
+    (``mesh_rows`` over a mesh).  ``codec`` is one of
+    ``compression.CODECS`` or ``"none"``.  ``param_specs``: the specs
+    of the mesh's shards (``dist.sharding.train_specs``), None without a
+    mesh; a mesh of one rank trains as no mesh does.
     """
+    if mesh is not None:
+        if pod_group is not None:
+            raise ValueError("a pod group beside a mesh waits for ROADMAP "
+                             "item 7.6d")
+        specs = train_specs(api.cfg, mesh, api.init_specs())
+        if mesh.size > 1:
+            return _mesh_train_step(api, opt_cfg, mesh, specs,
+                                    microbatches, impl) + (specs,)
+        return make_train_step(api, opt_cfg, microbatches=microbatches,
+                               impl=impl)[:2] + (specs,)
     if codec not in compression.CODECS + ("none",):
         raise ValueError(f"unknown codec {codec!r}; expected one of "
                          f"{compression.CODECS + ('none',)}")
@@ -133,9 +184,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *,
         elif pod_group is not None:
             grads = exact_mean(grads, pod_group)
         if pod_group is not None:
-            loss = loss.reshape(1).clone()
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=pod_group)
-            loss = loss[0] / dist.get_world_size(pod_group)
+            loss = group_mean(loss, pod_group)
         params, opt, metrics = adamw_update(opt_cfg, state["params"], grads,
                                             state["opt"])
         del grads
@@ -149,5 +198,93 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *,
         if compress:
             state["err"] = compression.init_residuals(plan, device=dev)
         return state
+
+    return train_step, init_state, None
+
+
+def group_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of the scalar ``x`` over ``group``."""
+    x = x.reshape(1).clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x[0] / dist.get_world_size(group)
+
+
+def make_mesh_loss_and_grad(api: ModelAPI, mesh: Any, specs: Any,
+                            microbatches: int, *,
+                            impl: Optional[str] = None) -> Callable:
+    """(shards, batch) -> (loss, grads) on a rank of ``mesh``: the mean
+    loss of the whole batch (each data rank holding its ``mesh_rows``)
+    and this rank's shards of its grads.  Each grad leaves the backward
+    summed over "data" where its leaf is split over it (the FSDP
+    gather's reduce-scatter); ``reduce_mesh_grads`` then sums the others
+    over "data" (``bq`` / ``bk`` / ``bv``, a dim that does not divide),
+    sums a copied KV head's over its copy group (each copy saw its own
+    query heads only: what GSPMD does for the reference's split inside a
+    head) and divides every grad by the data size.  A leaf replicated
+    over "model" needs no model reduction: the column-parallel entries
+    give it the same grad on every model rank."""
+    like = api.init_specs()
+    flat_specs = []
+    map_with_path(lambda _, __, spec: flat_specs.append(spec), like, specs)
+    dims = map_with_path(lambda _, __, spec: axis_dim(spec, "data"), like,
+                         specs)
+    model_group = mesh.groups.get("model")
+    data_group = mesh.groups.get("data")
+    data = mesh.shape["data"]
+    # per leaf: (all-reduce over data, its copy group or None)
+    plan = [(data > 1 and axis_dim(spec, "data") is None,
+             mesh.copy_groups.get(copies_of(spec, mesh), model_group)
+             if copies_of(spec, mesh) > 1 else None)
+            for spec in flat_specs]
+    loss_and_grad = make_loss_and_grad(api, microbatches, impl=impl)
+
+    def mesh_loss_and_grad(params: Any, batch: Dict):
+        with training_mesh(model_group, data_group, dims):
+            loss, grads = loss_and_grad(params, batch)
+        reduce_mesh_grads(grads, plan, data_group, data)
+        if data > 1:
+            loss = group_mean(loss, data_group)
+        return loss, grads
+
+    return mesh_loss_and_grad
+
+
+def reduce_mesh_grads(grads: Any, plan: list, data_group, data: int) -> None:
+    """In place, each leaf of ``grads`` by its ``plan`` entry (all-reduce
+    over ``data_group``, all-reduce over a copy group), then divided by
+    the data size ``data``."""
+    with torch.no_grad():
+        for g, (over_data, copies) in zip(leaves(grads), plan, strict=True):
+            if over_data:
+                dist.all_reduce(g, group=data_group)
+            if copies is not None:
+                dist.all_reduce(g, group=copies)
+            if data > 1:
+                g.div_(data)
+
+
+def _mesh_train_step(api: ModelAPI, opt_cfg: AdamWConfig, mesh: Any,
+                     specs: Any, microbatches: int, impl: Optional[str]):
+    """(train_step, init_state) of the mesh (module docstring)."""
+    owned = []
+    map_with_path(lambda _, __, spec: owned.append(first_holder(spec, mesh)),
+                  api.init_specs(), specs)
+    norm = functools.partial(sharded_norm, owned=owned)
+    loss_and_grad = make_mesh_loss_and_grad(api, mesh, specs, microbatches,
+                                            impl=impl)
+
+    def train_step(state: Dict, batch: Dict):
+        loss, grads = loss_and_grad(state["params"], batch)
+        params, opt, metrics = adamw_update(opt_cfg, state["params"], grads,
+                                            state["opt"], norm=norm)
+        del grads
+        metrics["loss"] = loss
+        return {"params": params, "opt": opt}, metrics
+
+    def init_state(params: Any, device="cuda") -> Dict:
+        dev = resolve_device(device)
+        shards = shard_params(params, specs, mesh)
+        shards = unflatten(shards, [p.to(dev) for p in leaves(shards)])
+        return {"params": shards, "opt": adamw_init(shards)}
 
     return train_step, init_state

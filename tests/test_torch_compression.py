@@ -335,7 +335,7 @@ def test_one_rank_compressed_step_matches_reference(group):
             want_loss.append(float(m["loss"]))
         want_err = [np.asarray(e) for e in state["err"]]
 
-    tstep, tinit = make_train_step(
+    tstep, tinit, _ = make_train_step(
         tapi, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
         pod_group=group, bucket_elems=1 << 14)
     tstate = tinit(convert.params_from_numpy(np_params, device="cpu"),

@@ -928,7 +928,7 @@ def test_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
     for impl in (None, "ref"):
         gen = torch.Generator(device=cuda).manual_seed(0)
         params = init_params(api.init_specs(), gen, device=cuda)
-        step, init_state = make_train_step(
+        step, init_state, _ = make_train_step(
             api, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
             microbatches=2, impl=impl)
         state = init_state(params, device=cuda)
@@ -1120,7 +1120,7 @@ def test_mamba2_smoke_train_step_kernel_path_matches_plain_path(cuda, dtype):
     for impl in (None, "ref"):
         gen = torch.Generator(device=cuda).manual_seed(0)
         params = init_params(api.init_specs(), gen, device=cuda)
-        step, init_state = make_train_step(
+        step, init_state, _ = make_train_step(
             api, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
             microbatches=2, impl=impl)
         state = init_state(params, device=cuda)

@@ -271,7 +271,7 @@ _RANK_SCRIPT = textwrap.dedent("""
     batch = {"tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
              "targets": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
     for codec in ("none", "int8", "topk"):
-        step, init_state = make_train_step(
+        step, init_state, _ = make_train_step(
             api, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=5),
             pod_group=group, codec=codec, bucket_elems=1 << 14)
         # fresh arrays: the step updates the params in place, and
@@ -318,7 +318,7 @@ _RANK_SCRIPT = textwrap.dedent("""
                    "restored_from": resumed.restored_from,
                    "steps_run": resumed.steps_run}
     if rank == 0:
-        _, init_state = make_train_step(api, opt, pod_group=group,
+        _, init_state, _ = make_train_step(api, opt, pod_group=group,
                                         bucket_elems=1 << 14)
         like = init_state(convert.params_from_numpy(
             nest("train/params/"), device="cpu"), device="cpu")

@@ -369,7 +369,7 @@ def test_train_step_matches_jax(microbatches):
                                        for k, v in b.items()})
             jlosses.append(float(m["loss"]))
         jfinal = flat_np(jstate["params"])
-    tstep, tinit = make_train_step(build_model(tcfg), AdamWConfig(**opt),
+    tstep, tinit, _ = make_train_step(build_model(tcfg), AdamWConfig(**opt),
                                    microbatches=microbatches)
     tstate = tinit(tparams, device="cpu")
     tlosses = []

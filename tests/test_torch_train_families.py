@@ -123,7 +123,7 @@ def test_train_step_matches_jax(arch):
                                        for k, v in b.items()})
             jlosses.append(float(m["loss"]))
         jfinal = [f32(x) for x in jax.tree.leaves(jstate["params"])]
-    tstep, tinit = make_train_step(build_model(tcfg), AdamWConfig(**opt),
+    tstep, tinit, _ = make_train_step(build_model(tcfg), AdamWConfig(**opt),
                                    microbatches=2)
     tstate = tinit(tparams, device="cpu")
     tlosses = []

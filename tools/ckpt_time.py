@@ -47,7 +47,7 @@ def save_restore(layers=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     api = build_model(cfg)
     nbytes = state_bytes(api)
-    step, init_state = make_train_step(
+    step, init_state, _ = make_train_step(
         api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=4),
         microbatches=cs.TRAIN_MB)
     state = init_state(cs.fresh_params(api))

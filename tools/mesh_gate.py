@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 17 (the mesh serve step) on its own, and what its
-logit gates can tell apart.
+"""chip_smoke.py's phases 17 and 19 (the mesh serve and train steps) on
+their own, and what their gates can tell apart.
 
     python3 tools/mesh_gate.py [--phase17] [--broken] [--broken-moe]
                                [--broken-count] [--broken-state-out]
                                [--broken-norm-gate] [--broken-cross]
                                [--cases] [--phase1] [--windows]
-                               [--models KEY,...]
+                               [--models KEY,...] [--phase19]
+                               [--broken-copies] [--broken-data-mean]
 
 ``--phase17`` runs ``chip_smoke.phase17`` on every model of
 ``MESH_MODELS`` (or the ``--models`` keys): (a) unsharded in this
@@ -34,11 +35,24 @@ that differ where the reference's top-2 gap exceeds the noise:
     ranks) so that an expert overflows, beside the correct step on the
     same weights.
 
+``--phase19`` runs ``chip_smoke.phase19`` (the mesh train step on four
+gloo ranks against the unsharded step), gated; its broken copies, patched
+into the spawned ranks (``train.step.reduce_mesh_grads``) and logged
+ungated, give the readings ``TRAIN_MESH_TOL`` lies below:
+
+  * ``--broken-copies``: a copied KV head's grads are not summed over its
+    copy group (each copy keeps its own query heads' part; the (1, 4)
+    lane);
+  * ``--broken-data-mean``: the grads are summed over "data" but not
+    divided by the data size (the (2, 2) lanes).
+
 ``--cases`` holds the fused op, the latent attention and the flash cross
-attention at each rank's shape (phase 1's per-rank cases); ``--phase1``
-runs every phase-1 case and logs its seconds; ``--windows`` times 20
-CUPTI windows of one small kernel, the cost of a window. With no flag it
-does ``--phase17``, ``--broken`` and ``--cases``. Needs a CUDA card.
+attention at each rank's shape, and the flash forward and backward at
+phase 19's and ``tools/mesh_train.py``'s (phase 1's per-rank cases);
+``--phase1`` runs every phase-1 case and logs its seconds; ``--windows``
+times 20 CUPTI windows of one small kernel, the cost of a window. With no
+flag it does ``--phase17``, ``--broken`` and ``--cases``. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -152,6 +166,34 @@ def broken_cross_entry(rank, world, tmp, models):
     cs._mesh_rank_entry(rank, world, tmp, models)
 
 
+def broken_copies_entry(rank, world, tmp):
+    """Phase 19's ranks with no copy-group sum of a copied KV head's
+    grads."""
+    from repro_torch.train import step
+    inner = step.reduce_mesh_grads
+    step.reduce_mesh_grads = lambda grads, plan, group, data: inner(
+        grads, [(over_data, None) for over_data, _ in plan], group, data)
+    cs._train_mesh_rank_entry(rank, world, tmp)
+
+
+def broken_data_mean_entry(rank, world, tmp):
+    """Phase 19's ranks with the grads' sum over "data" never divided by
+    the data size."""
+    from repro_torch.train import step
+    inner = step.reduce_mesh_grads
+    step.reduce_mesh_grads = lambda grads, plan, group, data: inner(
+        grads, plan, group, 1)
+    cs._train_mesh_rank_entry(rank, world, tmp)
+
+
+def train_readings(out: dict) -> list:
+    return [{k: r.get(k) for k in (
+        "mesh", "lane", "loss_rel_gap", "grad_norm_rel_gap",
+        "param_abs_gap", "leaves_whose_copies_differ", "step_s_median_2_3",
+        "peak_mem_gb_by_rank")}
+            for r in out["lanes"].values()]
+
+
 def broken_count_entry(rank, world, tmp, models):
     """Under ``gspmd``, every data shard's capacity count over its own
     rows only (the ``shard_map`` count), on the overflowing router."""
@@ -232,7 +274,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     for flag in ("phase17", "broken", "broken-moe", "broken-count",
                  "broken-state-out", "broken-norm-gate", "broken-cross",
-                 "cases", "phase1", "windows"):
+                 "cases", "phase1", "windows", "phase19", "broken-copies",
+                 "broken-data-mean"):
         ap.add_argument(f"--{flag}", action="store_true")
     ap.add_argument("--models", default=None,
                     help="comma-separated MESH_MODELS keys (default: all)")
@@ -240,7 +283,9 @@ def main() -> int:
     every = not (args.phase17 or args.broken or args.broken_moe
                  or args.broken_count or args.broken_state_out
                  or args.broken_norm_gate or args.broken_cross
-                 or args.cases or args.phase1 or args.windows)
+                 or args.cases or args.phase1 or args.windows
+                 or args.phase19 or args.broken_copies
+                 or args.broken_data_mean)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -284,7 +329,8 @@ def main() -> int:
             emit(case=cs.attention_case(
                 rng, C, f"attention D=576 H=4 C={C} (deepseek)", h=4, kv=1,
                 d=576, alias=True))
-        for case in cs.state_mesh_cases(rng):
+        for case in cs.state_mesh_cases(rng) + cs.train_mesh_flash_cases(
+                rng):
             emit(case=case)
 
     def phase1() -> None:
@@ -345,6 +391,18 @@ def main() -> int:
         attempt("broken-count", lambda: run(
             "overflowing router, gspmd counts shard-locally", ds,
             broken_count_entry, scaled_init))
+    if args.phase19:
+        attempt("phase19", lambda: emit(lane="phase 19", readings=(
+            train_readings(cs.phase19(card)))))
+    for flag, entry, what in (
+            (args.broken_copies, broken_copies_entry,
+             "copied KV heads' grads not summed"),
+            (args.broken_data_mean, broken_data_mean_entry,
+             "grads not divided by the data size")):
+        if flag:
+            attempt(what, lambda entry=entry, what=what: emit(
+                lane=what, readings=train_readings(
+                    cs.phase19(card, entry=entry))))
     return 1 if failed else 0
 
 

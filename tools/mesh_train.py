@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""A dense model at full width trained by the mesh train step over NCCL,
+one rank a card.
+
+    torchrun --standalone --nproc-per-node 4 tools/mesh_train.py \
+        [--arch minitron-8b] [--layers N] [--meshes 2x2,1x4] [--steps 4] \
+        [--out build/mesh_train.json]
+
+For each mesh of ``--meshes`` the ranks train ``--arch`` (default
+minitron-8b at all 32 layers: ~7.7 G parameters, whose float32 params,
+moments and grad buffers, ~123 GB, do not fit one card) through
+``repro_torch.train.step.make_train_step(mesh=...)``: FSDP over "data",
+tensor parallelism over "model", bf16 compute on float32 master params,
+remat "full".  Each rank holds its shard of the params (drawn on its own
+card from a seed a leaf, a block and a layer, as ``tools/mesh_serve.py``
+draws them: the global leaf never exists) and makes its moments on it.
+The batch is ``chip_smoke.py`` phase 4's: TRAIN_4K sequences (4096
+tokens) cut to 4, in microbatches of one sequence a data rank (2 at
+(2, 2), 4 at (1, 4)), each data rank its rows of each (``mesh_rows``);
+``--steps`` AdamW steps.  Logged: each card's name and power limit
+(``nvidia-smi``), the init's seconds and each rank's shard GB, the
+losses, trained tokens/s and the median step time of steps 2 to the
+last (host clock to the loss on the host), each rank's peak memory and
+flash launches a step, and a CUPTI window over one more step: each
+rank's device busy time against its host's wall time (the idle share),
+the flash kernels' and NCCL's time.  Rank 0 builds the kernels while the
+others wait at a barrier; rank 0 writes the summary to ``--out`` and
+prints it last.  Needs a CUDA card a rank.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from mesh_serve import local_params  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import TokenPipeline  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.train import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import adamw_init  # noqa: E402
+from repro_torch.train.step import make_train_step, mesh_rows  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+
+
+def train_on(api, shape, steps: int) -> dict:
+    """One mesh: this rank's shards drawn, ``steps`` timed steps, then a
+    profiled one."""
+    cfg = api.cfg
+    mesh = make_mesh(shape)
+    data = mesh.shape["data"]
+    microbatches = cs.TRAIN_BATCH // data     # one sequence a data rank
+    step, _, specs = make_train_step(
+        api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps + 1),
+        microbatches=microbatches, mesh=mesh)
+    cs.release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = local_params(api, specs, mesh, torch.float32)
+    state = {"params": params, "opt": adamw_init(params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shard_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+    take = mesh_rows(cs.TRAIN_BATCH, microbatches, data, mesh.coords["data"])
+    pipe = TokenPipeline(cfg, global_batch=cs.TRAIN_BATCH, seq_len=cs.TRAIN_S,
+                         seed=0)
+    batches = [{k: torch.from_numpy(v[take]).cuda()
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(steps + 1)]
+    box = {"state": state}
+    losses, step_s, launches = [], [], []
+
+    def one(batch):
+        common.reset_launch_counts()
+        box["state"], metrics = step(box["state"], batch)
+        losses.append(float(metrics["loss"]))
+        launches.append(dict(common.LAUNCHES))
+
+    dist.barrier()
+    for b in batches[:steps]:
+        t0 = time.perf_counter()
+        one(b)
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = cs.profiled_window(lambda: one(batches[steps]), 1, {
+        "flash_attention": list(cs.FLASH_KERNELS.values()),
+        "flash_attention_bwd": list(cs.FLASH_BWD_KERNELS[torch.bfloat16]),
+        "nccl": ["nccl"]})
+    median = statistics.median(step_s[1:])
+    want = {"flash_attention": 2 * cfg.n_layers * microbatches,
+            "flash_attention_bwd": cfg.n_layers * microbatches}
+    out = {"mesh": dict(mesh.shape), "coords": mesh.coords,
+           "microbatches": microbatches, "init_s": init_s,
+           "shard_gb": shard_gb, "losses": losses, "step_s": step_s,
+           "step_s_median_2_last": median,
+           "tokens_per_s": cs.TRAIN_BATCH * cs.TRAIN_S / median,
+           "peak_mem_gb": peak, "launches_per_step": launches[0],
+           "launches_ok": all({k: n.get(k, 0) for k in want} == want
+                              for n in launches),
+           "finite": all(math.isfinite(x) for x in losses),
+           "profile": profile}
+    del box, state, params, batches
+    cs.release()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minitron-8b")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--meshes", default="2x2,1x4")
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--out", default=str(ROOT / "build" / "mesh_train.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("mesh_train: needs a CUDA card a rank", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t_start = time.perf_counter()
+    if rank == 0:                   # one build; the others load it
+        common.library()
+    dist.barrier()
+    common.library()
+    build_s = time.perf_counter() - t_start
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    api = build_model(cfg)
+    runs = []
+    for text in args.meshes.split(","):
+        shape = tuple(int(x) for x in text.split("x"))
+        mine = {"rank": rank, "build_s": build_s,
+                **train_on(api, shape, args.steps)}
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        runs.append(every)
+    ok = True
+    if rank == 0:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()
+        out = {"cards": smi, "arch": cfg.name, "layers": cfg.n_layers,
+               "params": sum(math.prod(s.shape)
+                             for s in leaves(api.init_specs())),
+               "seq_len": cs.TRAIN_S, "batch": cs.TRAIN_BATCH,
+               "steps": args.steps, "backend": str(dist.get_backend()),
+               "runs": [{"mesh": r[0]["mesh"],
+                         "losses": r[0]["losses"],
+                         "tokens_per_s": r[0]["tokens_per_s"],
+                         "step_s_median_2_last": r[0]["step_s_median_2_last"],
+                         "same_losses_on_every_rank": all(
+                             x["losses"] == r[0]["losses"] for x in r),
+                         "ranks": r} for r in runs]}
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+        print(json.dumps(out), flush=True)
+        ok = all(x["finite"] and x["launches_ok"] for r in runs for x in r) \
+            and all(r["same_losses_on_every_rank"] for r in out["runs"])
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
