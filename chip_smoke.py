@@ -276,7 +276,16 @@ sm_90a) and then, failing with a non-zero exit on any error:
      after step 3 (``TRAIN_MESH_TOL``; copies bitwise equal), every rank
      launching 16 flash forwards and 8 flash backwards a step; bf16 at
      (2, 2) through ``run_training(mesh=...)``, its step time, peak
-     memory a rank and loss gap to (a)'s logged.
+     memory a rank and loss gap to (a)'s logged.  Then the MoE lane
+     (ROADMAP 7.6b): deepseek-v2-lite-16b at full width on 1 of its 27
+     layers, float32, (a) unsharded (its steps beside the ranks' qwen2
+     lanes), (b) at (2, 2) (8 heads, 32 whole experts and the whole
+     latent a rank) on (a)'s top-k picks, every router's column 0 scaled
+     by 16 so that expert 0 overflows each microbatch's capacity: the
+     picks dropped a step, summed over the data ranks, must equal (a)'s
+     and be above zero; losses, grad norms and params within
+     ``TRAIN_MESH_TOL``, the router and ``w_dkv`` bitwise equal across
+     model ranks, 4 / 2 flash launches a rank a step.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB; 2 and 1 in phase 17), phase 11
@@ -287,8 +296,9 @@ deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
 their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
 one card and its float32 grads through the host fit the phase's time)
-and phase 19's qwen2-1.5b (4 of 28 layers, so (a) and four ranks' FSDP
-gathers through the host fit the ~280 s left of the script's 1200 s);
+and phase 19's qwen2-1.5b (4 of 28 layers) and deepseek-v2-lite-16b (1
+of 27), so (a) and four ranks' FSDP gathers through the host fit the
+script's 1200 s;
 and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
 bf16 weights need four cards, ``tools/mesh_serve.py``),
 deepseek-v2-lite-16b (4 of 27 layers), mamba2-1.3b (8 of 48),
@@ -4048,17 +4058,19 @@ def pinned(cfg) -> bool:
 
 class RouteTape:
     """The MoE's top-k picks of a run, call by call (one call a layer a
-    step): recorded when ``picks`` is None; else replayed on ``rows`` of
-    the recorded batch (a rank's data shard's) in place of the call's own
-    picks, which are compared with them (``flips``: the token rows whose
-    own picks differ)."""
+    step; in training a layer a microbatch, forward and remat recompute):
+    recorded when ``picks`` is None; else replayed on ``rows`` of the
+    recorded batch (a rank's data shard's), or on the ``shard``-th block
+    of each call's tokens as large as the rank's own, in place of the
+    call's own picks, which are compared with them (``flips``: the token
+    rows whose own picks differ)."""
 
-    def __init__(self, picks=None, rows=slice(None)):
+    def __init__(self, picks=None, rows=slice(None), shard=None):
         from repro_torch.models import layers
         self.layers, self.inner = layers, layers.top_k_experts
         self.replay = picks is not None
         self.picks = picks if self.replay else []
-        self.rows = rows
+        self.rows, self.shard = rows, shard
         self.calls = self.flips = 0
 
     def __enter__(self):
@@ -4075,8 +4087,11 @@ class RouteTape:
             return vals, own
         ref = self.picks[self.calls]
         self.calls += 1
-        per = ref.shape[0] // B              # tokens a row: the chunk
-        lo = (self.rows.start or 0) * per
+        if self.shard is not None:
+            lo = self.shard * own.shape[0]
+        else:
+            per = ref.shape[0] // B          # tokens a row: the chunk
+            lo = (self.rows.start or 0) * per
         ref = ref[lo:lo + own.shape[0]].to(own.device)
         self.flips += int((own != ref).any(-1).sum())
         return logits.gather(1, ref), ref
@@ -4502,15 +4517,24 @@ def smoke_sweep(arch: str) -> dict:
 # mesh: FSDP and tensor parallelism) on gloo ranks on the one card
 # ---------------------------------------------------------------------------
 
-TRAIN_MESH_ARCH = "qwen2-1.5b"
-TRAIN_MESH_LAYERS = 4                # of 28: phase 19 fits its ~280 s
 TRAIN_MESH_S = 1024
 TRAIN_MESH_BATCH, TRAIN_MESH_MB, TRAIN_MESH_STEPS = 4, 2, 3
 TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-TRAIN_MESH_LANES = (((2, 2), "float32"), ((1, 4), "float32"),
-                    ((2, 2), "bfloat16"))
+# arch -> (layers, the scale of every MoE router's column 0)
+TRAIN_MESH_MODELS = {
+    "qwen2-1.5b": (4, None),        # of 28
+    # of 27 (2 layers took 88 s of four gloo ranks, PERF.md §6); router
+    # column 0 x 16 (as phase 17's overflow case): expert 0 overflows each
+    # microbatch's capacity (384 rows of 2048 tokens x 6 picks), so the
+    # count over "data" decides which picks drop
+    "deepseek-v2-lite-16b": (1, 16.0),
+}
+TRAIN_MESH_LANES = (("qwen2-1.5b", (2, 2), "float32"),
+                    ("qwen2-1.5b", (1, 4), "float32"),
+                    ("qwen2-1.5b", (2, 2), "bfloat16"),
+                    ("deepseek-v2-lite-16b", (2, 2), "float32"))
 TRAIN_MESH_RANKS = 4
-TRAIN_MESH_TIMEOUT = 420             # seconds for the ranks, from the spawn
+TRAIN_MESH_TIMEOUT = 600             # seconds for the ranks, from the spawn
 # float32 lanes against the unsharded float32 step on the same card, over
 # three steps: the largest relative loss and grad-norm gaps and the largest
 # param gap.  Near the geometric middle of the correct readings (loss
@@ -4519,15 +4543,38 @@ TRAIN_MESH_TIMEOUT = 420             # seconds for the ranks, from the spawn
 # --broken-data-mean``: without the copied KV heads' grad sum, loss
 # 6.8e-3, grad norm 3.9e-2, params 5.5e-3 at (1, 4); without the division
 # by the data size, grad norm 1.0 at (2, 2), where Adam and the clip
-# leave loss and params as they were (PERF.md §6)
+# leave loss and params as they were.  The MoE lane (deepseek, (2, 2))
+# reads 1.7e-7 / 7.5e-7 / 6.6e-5, and its broken copies (``--broken-train-
+# count``, ``--broken-router-entry``, ``--broken-latent-entry``) 4.6e-3-
+# 6.3e-2 / 4.5e-3-0.14 / 5.5e-3, beside their own gates: other dropped
+# picks; the router and ``norm2`` or ``w_dkv`` and ``norm1`` copies that
+# differ across model ranks (PERF.md §6)
 TRAIN_MESH_TOL = {"loss_rel_gap": 5e-5, "grad_norm_rel_gap": 3e-4,
                   "param_abs_gap": 5e-4}
 
 
-def train_mesh_config(dtype):
+def train_lane_key(arch: str, shape, lane: str) -> str:
+    return f"{arch} {lane} {shape[0]}x{shape[1]}"
+
+
+def train_mesh_config(arch: str, dtype):
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(TRAIN_MESH_ARCH),
-                               n_layers=TRAIN_MESH_LAYERS, dtype=dtype)
+    return dataclasses.replace(get_config(arch),
+                               n_layers=TRAIN_MESH_MODELS[arch][0],
+                               dtype=dtype)
+
+
+def train_mesh_params(api, arch: str):
+    """The seed-0 global params on the card, every MoE router's column 0
+    scaled by the arch's ``TRAIN_MESH_MODELS`` scale."""
+    from repro_torch.models import init_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(api.init_specs(), gen, device="cuda")
+    scale = TRAIN_MESH_MODELS[arch][1]
+    if scale is not None:
+        for block in params["group"].values():
+            block["moe"]["router"][..., 0] *= scale
+    return params
 
 
 def train_mesh_batches(cfg) -> list:
@@ -4538,72 +4585,118 @@ def train_mesh_batches(cfg) -> list:
     return [pipe.batch_at(i) for i in range(TRAIN_MESH_STEPS)]
 
 
-def train_mesh_expected() -> dict:
+def train_mesh_expected(arch: str) -> dict:
     """Flash launches of one rank's step: under remat "full" each layer's
     forward twice and its backward once, a microbatch."""
-    return {"flash_attention": 2 * TRAIN_MESH_LAYERS * TRAIN_MESH_MB,
-            "flash_attention_bwd": TRAIN_MESH_LAYERS * TRAIN_MESH_MB}
+    layers = TRAIN_MESH_MODELS[arch][0]
+    return {"flash_attention": 2 * layers * TRAIN_MESH_MB,
+            "flash_attention_bwd": layers * TRAIN_MESH_MB}
 
 
-def train_mesh_reference(tmp: str) -> dict:
+class DropCount:
+    """Within it, the picks every MoE routing drops past its expert's
+    capacity (``layers.moe_route``'s ``keep``; the forward's and the remat
+    recompute's), added up on the device."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.inner = layers, layers.moe_route
+        self.total = torch.zeros((), dtype=torch.int64, device="cuda")
+
+        def route(p, cfg, xt):
+            out = self.inner(p, cfg, xt)
+            self.total += (~out[2]).sum()
+            return out
+
+        layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.inner
+
+    def take(self) -> int:
+        n = int(self.total)
+        self.total.zero_()
+        return n
+
+
+def train_mesh_reference(tmp: str, lanes=TRAIN_MESH_LANES) -> dict:
     """Phase 19 (a): the unsharded steps in this process, from the same
-    seed-0 params the ranks draw: float32 through ``make_train_step``
-    (losses and grad norms saved for the comparison, the final params
-    kept on the host) and bf16 through ``run_training`` (its losses)."""
+    seed-0 params the ranks draw, for each arch of ``lanes``: float32
+    through ``make_train_step`` (losses, grad norms and an MoE's dropped
+    picks a step saved for the comparison, the final params kept on the
+    host, an MoE's top-k picks recorded for the ranks to replay) and,
+    where a lane is bf16, bf16 through ``run_training`` (its losses).
+    Each arch's ``refs-{arch}`` file then lets the ranks start its lanes,
+    so the next arch's steps here run beside them."""
     from repro_torch.data import TokenPipeline
-    from repro_torch.models import build_model, init_params
+    from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, LoopConfig, run_training
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import leaves
 
     t0 = time.perf_counter()
-    cfg = train_mesh_config(torch.float32)
-    api = build_model(cfg)
-    step, init_state, _ = make_train_step(
-        api, AdamWConfig(**TRAIN_MESH_OPT), microbatches=TRAIN_MESH_MB)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state = init_state(init_params(api.init_specs(), gen, device="cuda"))
-    out = {"float32": {"loss": [], "grad_norm": []}}
-    for b in train_mesh_batches(cfg):
-        state, m = step(state, {k: torch.from_numpy(v).cuda()
-                                for k, v in b.items()})
-        out["float32"]["loss"].append(float(m["loss"]))
-        out["float32"]["grad_norm"].append(float(m["grad_norm"]))
-    final = [p.cpu() for p in leaves(state["params"])]
-    del state
-    release()
-    cfg16 = train_mesh_config(torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
-    res = run_training(
-        build_model(cfg16), TokenPipeline(
-            cfg16, global_batch=TRAIN_MESH_BATCH, seq_len=TRAIN_MESH_S,
-            seed=0),
-        LoopConfig(steps=TRAIN_MESH_STEPS, microbatches=TRAIN_MESH_MB),
-        AdamWConfig(**TRAIN_MESH_OPT), device="cuda")
-    out["bfloat16"] = {"loss": res.losses, "step_s": res.step_seconds,
-                       "peak_mem_gb":
-                           torch.cuda.max_memory_allocated() / 2**30}
-    release()
-    Path(tmp, "train-refs.json").write_text(json.dumps(out))
+    out, finals = {}, {}
+    for arch in dict.fromkeys(a for a, _, _ in lanes):
+        cfg = train_mesh_config(arch, torch.float32)
+        api = build_model(cfg)
+        step, init_state, _ = make_train_step(
+            api, AdamWConfig(**TRAIN_MESH_OPT), microbatches=TRAIN_MESH_MB)
+        state = init_state(train_mesh_params(api, arch))
+        ref = out[f"{arch} float32"] = {"loss": [], "grad_norm": [],
+                                        "dropped": []}
+        with DropCount() as drops, RouteTape() as tape:
+            for b in train_mesh_batches(cfg):
+                state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                        for k, v in b.items()})
+                ref["loss"].append(float(m["loss"]))
+                ref["grad_norm"].append(float(m["grad_norm"]))
+                ref["dropped"].append(drops.take())
+        if cfg.n_experts:
+            torch.save(tape.picks, Path(tmp, f"picks-{arch}.pt"))
+        finals[arch] = [p.cpu() for p in leaves(state["params"])]
+        del state
+        release()
+        if (arch, "bfloat16") in {(a, ln) for a, _, ln in lanes}:
+            cfg16 = train_mesh_config(arch, torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            res = run_training(
+                build_model(cfg16), TokenPipeline(
+                    cfg16, global_batch=TRAIN_MESH_BATCH,
+                    seq_len=TRAIN_MESH_S, seed=0),
+                LoopConfig(steps=TRAIN_MESH_STEPS,
+                           microbatches=TRAIN_MESH_MB),
+                AdamWConfig(**TRAIN_MESH_OPT), device="cuda")
+            out[f"{arch} bfloat16"] = {
+                "loss": res.losses, "step_s": res.step_seconds,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+            release()
+        Path(tmp, f"refs-{arch}").write_text("")
     out["seconds"] = time.perf_counter() - t0
-    return out, final
+    return out, finals
 
 
-def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str) -> None:
+def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
+                    lanes=TRAIN_MESH_LANES) -> None:
     """Phase 19 (b), one rank: a gloo group over a FileStore on the one
     card, its collectives probed on the card's tensors while (a) runs;
-    then each lane of ``TRAIN_MESH_LANES`` on its mesh: float32 through
-    ``make_train_step(mesh=...)`` from the seed-0 global params (its
-    shards kept), this data rank's rows of each global batch
-    (``mesh_rows``), its flash launches counted step by step and its
-    param shards saved for (a)'s comparison; bf16 through
-    ``run_training(mesh=...)``."""
+    then each of ``lanes`` on its mesh, once (a) is done with its arch:
+    float32 through ``make_train_step(mesh=...)`` from the seed-0 global
+    params (its shards kept), this data rank's rows of each global batch
+    (``mesh_rows``), its flash launches and an MoE's dropped picks
+    counted step by step and its param shards saved for (a)'s
+    comparison; bf16 through ``run_training(mesh=...)``.  An MoE lane
+    replays (a)'s top-k picks on its data shard's tokens (``RouteTape``:
+    float32 sums in another order flip near-tied picks once Adam has
+    moved the weights, PERF.md §6) and counts the tokens whose own picks
+    differ; which picks fit their expert's capacity is still counted
+    here, over "data"."""
     import datetime
     import torch.distributed as dist
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import common
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model, init_params
+    from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, LoopConfig, run_training
     from repro_torch.train.step import make_train_step, mesh_rows
     from repro_torch.tree import leaves
@@ -4617,16 +4710,15 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str) -> None:
     probe = gloo_probe(rank, world)
     assert all(probe.values()), probe
     meshes = {shape: make_mesh(shape)          # in one order on every rank
-              for shape in dict.fromkeys(s for s, _ in TRAIN_MESH_LANES)}
-    while not Path(tmp, "refs-done").exists():
-        time.sleep(0.2)                 # the spawner's deadline bounds it
+              for shape in dict.fromkeys(s for _, s, _ in lanes)}
     out = {"rank": rank, "gloo_probe": probe, "lanes": {}}
     opt = AdamWConfig(**TRAIN_MESH_OPT)
-    for shape, lane in TRAIN_MESH_LANES:
+    for arch, shape, lane in lanes:
+        while not Path(tmp, f"refs-{arch}").exists():
+            time.sleep(0.2)             # the spawner's deadline bounds it
         t_lane = time.perf_counter()
         mesh = meshes[shape]
-        key = f"{lane} {shape[0]}x{shape[1]}"
-        cfg = train_mesh_config(dict(MESH_LANES)[lane])
+        cfg = train_mesh_config(arch, dict(MESH_LANES)[lane])
         api = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
         rec = {"coords": mesh.coords}
@@ -4643,45 +4735,55 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str) -> None:
         else:
             step, init_state, _ = make_train_step(
                 api, opt, microbatches=TRAIN_MESH_MB, mesh=mesh)
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            state = init_state(init_params(api.init_specs(), gen,
-                                           device="cuda"))
+            state = init_state(train_mesh_params(api, arch))
             release()
             take = mesh_rows(TRAIN_MESH_BATCH, TRAIN_MESH_MB,
                              mesh.shape["data"], mesh.coords["data"])
-            rec.update(loss=[], grad_norm=[], step_s=[], launches=[])
-            for b in train_mesh_batches(cfg):
-                batch = {k: torch.from_numpy(v[take]).cuda()
-                         for k, v in b.items()}
-                common.reset_launch_counts()
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                rec["loss"].append(float(m["loss"]))
-                rec["step_s"].append(time.perf_counter() - t0)
-                rec["grad_norm"].append(float(m["grad_norm"]))
-                rec["launches"].append(dict(common.LAUNCHES))
+            rec.update(loss=[], grad_norm=[], step_s=[], launches=[],
+                       dropped=[], route_flips=[])
+            tape = RouteTape(torch.load(Path(tmp, f"picks-{arch}.pt")),
+                             shard=mesh.coords["data"]) \
+                if cfg.n_experts else RouteTape()
+            with DropCount() as drops, tape:
+                for b in train_mesh_batches(cfg):
+                    batch = {k: torch.from_numpy(v[take]).cuda()
+                             for k, v in b.items()}
+                    common.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    rec["loss"].append(float(m["loss"]))
+                    rec["step_s"].append(time.perf_counter() - t0)
+                    rec["grad_norm"].append(float(m["grad_norm"]))
+                    rec["launches"].append(dict(common.LAUNCHES))
+                    rec["dropped"].append(drops.take())
+                    rec["route_flips"].append(
+                        tape.flips - sum(rec["route_flips"]))
+            key = train_lane_key(arch, shape, lane)
             torch.save([p.cpu() for p in leaves(state["params"])],
                        Path(tmp, f"shards-{key}-{rank}.pt"))
             del state
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
         release()
         rec["seconds"] = time.perf_counter() - t_lane
-        out["lanes"][key] = rec
+        out["lanes"][train_lane_key(arch, shape, lane)] = rec
     dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(out))
 
 
-def _train_mesh_rank_entry(rank, world, tmp):
-    train_mesh_rank(rank, world, tmp, os.path.join(tmp, f"rank-{rank}.json"))
+def _train_mesh_rank_entry(rank, world, tmp, lanes):
+    train_mesh_rank(rank, world, tmp, os.path.join(tmp, f"rank-{rank}.json"),
+                    lanes)
 
 
-def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
+def train_mesh_compare(tmp: str, refs: dict, finals: dict,
+                       lanes=TRAIN_MESH_LANES) -> dict:
     """(a) against the ranks of each lane: float32 losses and grad norms
-    (relative gaps), every rank's param shards against (a)'s params'
-    same blocks, and every param gathered from the ranks' shards
-    (``gather_params``: the copies of a replicated leaf or of a copied
-    KV head must be bitwise equal; the leaves where they differ are
-    listed); bf16 losses."""
+    (relative gaps), an MoE's dropped picks a step (summed over the data
+    ranks: the ranks of one data rank route alike), every rank's param
+    shards against (a)'s params' same blocks, and every param gathered
+    from the ranks' shards (``gather_params``: the copies of a replicated
+    leaf or of a copied KV head must be bitwise equal; the leaves where
+    they differ are listed); bf16 losses."""
     from repro_torch.dist.sharding import (gather_params, shard_params,
                                            train_specs)
     from repro_torch.launch.mesh import Mesh, rank_coords
@@ -4691,11 +4793,12 @@ def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
     ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
              for r in range(TRAIN_MESH_RANKS)]
     out = {}
-    for shape, lane in TRAIN_MESH_LANES:
-        key = f"{lane} {shape[0]}x{shape[1]}"
+    for arch, shape, lane in lanes:
+        key = train_lane_key(arch, shape, lane)
         recs = [r["lanes"][key] for r in ranks]
-        ref = refs[lane]
-        res = {"mesh": list(shape), "lane": lane,
+        ref = refs[f"{arch} {lane}"]
+        res = {"arch": arch, "layers": TRAIN_MESH_MODELS[arch][0],
+               "mesh": list(shape), "lane": lane,
                "loss": recs[0]["loss"], "reference_loss": ref["loss"],
                "loss_rel_gap": max(abs(a / b - 1) for a, b in
                                    zip(recs[0]["loss"], ref["loss"])),
@@ -4721,7 +4824,12 @@ def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
         res["grad_norm_rel_gap"] = max(abs(a / b - 1) for a, b in zip(
             recs[0]["grad_norm"], ref["grad_norm"]))
         res["launches_by_step"] = [r["launches"] for r in recs]
-        cfg = train_mesh_config(torch.float32)
+        res["dropped"] = [sum(r["dropped"][s] for r in recs
+                              if r["coords"]["model"] == 0)
+                          for s in range(TRAIN_MESH_STEPS)]
+        res["reference_dropped"] = ref["dropped"]
+        res["route_flips_by_rank"] = [r["route_flips"] for r in recs]
+        cfg = train_mesh_config(arch, torch.float32)
         mesh = Mesh(shape={"data": shape[0], "model": shape[1]},
                     coords={"data": 0, "model": 0}, groups={})
         like = build_model(cfg).init_specs()
@@ -4730,6 +4838,7 @@ def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
                       train_specs(cfg, mesh, like))
         shards = [torch.load(Path(tmp, f"shards-{key}-{r}.pt"))
                   for r in range(TRAIN_MESH_RANKS)]
+        final = finals[arch]
         gap, differ = 0.0, []
         for i, spec in enumerate(flat_specs):
             try:
@@ -4753,9 +4862,9 @@ def train_mesh_compare(tmp: str, refs: dict, final: list) -> dict:
 def check_train_mesh(res: dict) -> None:
     """Phase 19's gates: every lane finite, the same losses on every
     rank; each float32 lane within ``TRAIN_MESH_TOL`` of the unsharded
-    step, the copies of every piece bitwise equal; every rank's flash
+    step, the copies of every piece bitwise equal, an MoE's dropped picks
+    a step above zero and the unsharded step's; every rank's flash
     launches a float32 step the expected ones."""
-    want = train_mesh_expected()
     for key, r in res.items():
         assert r["finite"] and r["losses_equal_on_every_rank"], (key, r)
         if r["lane"] != "float32":
@@ -4763,13 +4872,17 @@ def check_train_mesh(res: dict) -> None:
         for k, bound in TRAIN_MESH_TOL.items():
             assert r[k] <= bound, (key, k, r[k], bound)
         assert not r["leaves_whose_copies_differ"], (key, r)
+        if TRAIN_MESH_MODELS[r["arch"]][1] is not None:
+            assert r["dropped"] == r["reference_dropped"], (key, r)
+            assert all(n > 0 for n in r["dropped"]), (key, r)
+        want = train_mesh_expected(r["arch"])
         for per_rank in r["launches_by_step"]:
             for launches in per_rank:
                 assert {k: launches.get(k, 0) for k in want} == want, \
                     (key, launches)
 
 
-def phase19(card: str, entry=None) -> dict:
+def phase19(card: str, entry=None, lanes=TRAIN_MESH_LANES) -> dict:
     """Phase 19: the ranks spawned first (their start-up and gloo probe
     beside (a)), then (a), then the comparison, logged, then gated (not
     with ``entry``: ``tools/mesh_gate.py``'s broken copies)."""
@@ -4779,13 +4892,12 @@ def phase19(card: str, entry=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ctx = mp.start_processes(entry or _train_mesh_rank_entry,
-                                 args=(TRAIN_MESH_RANKS, tmp),
+                                 args=(TRAIN_MESH_RANKS, tmp, lanes),
                                  nprocs=TRAIN_MESH_RANKS, join=False,
                                  start_method="spawn")
         try:
-            refs, final = train_mesh_reference(tmp)
+            refs, finals = train_mesh_reference(tmp, lanes)
             log("phase19 (a)", json.dumps({"card": card, **refs}))
-            Path(tmp, "refs-done").write_text("")
             deadline = t0 + TRAIN_MESH_TIMEOUT
             while not ctx.join(timeout=2):
                 if time.perf_counter() > deadline:
@@ -4798,7 +4910,7 @@ def phase19(card: str, entry=None) -> dict:
                     p.join()
         log(f"phase19 (b) seconds {time.perf_counter() - t0:.1f} "
             "(from the spawn)")
-        res = train_mesh_compare(tmp, refs, final)
+        res = train_mesh_compare(tmp, refs, finals, lanes)
     for key, r in res.items():
         log(f"phase19 (b) {key}", json.dumps({"card": card, **r}))
     if entry is None:
@@ -4981,8 +5093,10 @@ def train_mesh_flash_cases(rng) -> list:
     plain version: a rank of qwen2-1.5b's (2, 2) mesh (6 heads over 1 KV
     head, one sequence of 1024 a microbatch) in float32 and bf16 and of
     its (1, 4) mesh (3 heads over a copied KV head, two sequences) in
-    float32; and a rank of minitron-8b's (1, 4) mesh in
-    ``tools/mesh_train.py`` (8 heads over 2, S=4096, bf16)."""
+    float32; a rank of minitron-8b's (1, 4) mesh in
+    ``tools/mesh_train.py`` (8 heads over 2, S=4096, bf16); and a rank of
+    deepseek-v2-lite-16b's (2, 2) mesh (MLA: 8 heads, Q/K 192 beside V
+    128, which the op pads) in float32 and bf16."""
     s = TRAIN_MESH_S
     cases = []
     for case, tag in ((flash_case, "flash"), (flash_bwd_case, "flash bwd")):
@@ -4996,6 +5110,12 @@ def train_mesh_flash_cases(rng) -> list:
                  dtype=torch.float32),
             case(rng, f"{tag} S={TRAIN_S} D=128 H=8 KV=2 (minitron-8b, a "
                  "rank of (1, 4))", TRAIN_S, h=8, kv=2)]
+        for dtype, name in ((torch.float32, " float32"), (torch.bfloat16,
+                                                          "")):
+            cases.append(case(
+                rng, f"{tag} S={s} causal D=192 Dv=128 H=KV=8{name} "
+                "(deepseek-v2-lite-16b, a rank of (2, 2))", s, h=8, kv=8,
+                D=192, Dv=128, dtype=dtype))
     return cases
 
 
@@ -5250,7 +5370,7 @@ def main() -> int:
 
     t19 = time.perf_counter()
     log(f"phase19 starts at {t19 - t_script:.1f} s")
-    phase19(card)
+    mesh_train = phase19(card)["lanes"]
     log(f"phase19 seconds {time.perf_counter() - t19:.1f}")
 
     t11 = time.perf_counter()
@@ -5506,6 +5626,36 @@ def main() -> int:
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
             "call_ms": c["ms_call"], "timing": c["ms_timing"]})
+    # the flash forward and backward on phase 19's path: every rank of
+    # each arch's lanes, every step, at a rank's phase-1 shape
+    for arch, case in (
+            ("qwen2-1.5b", f"S={TRAIN_MESH_S} D=128 H=6 KV=1 float32 "
+                           "(qwen2-1.5b, a rank of (2, 2))"),
+            ("deepseek-v2-lite-16b",
+             f"S={TRAIN_MESH_S} causal D=192 Dv=128 H=KV=8 float32 "
+             "(deepseek-v2-lite-16b, a rank of (2, 2))")):
+        lanes = {k: r for k, r in mesh_train.items() if r["arch"] == arch}
+        for name, tag, src in (
+                ("flash_attention", "flash",
+                 "src/repro_torch/kernels/csrc/flash_attention.cu"),
+                ("flash_attention_bwd", "flash bwd",
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")):
+            c = by[f"{tag} {case}"]
+            by_lane = {k: sum(n.get(name, 0) for per_rank in r.get(
+                "launches_by_step", [r.get("launches_by_rank", [])])
+                for n in per_rank) for k, r in lanes.items()}
+            kernels.append({
+                "name": f"{name} ({arch}, mesh training)", "route": "cuda",
+                "source": src,
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+                "launches": sum(by_lane.values()),
+                "launches_by_lane": by_lane,
+                "path": f"phase 19: {arch} on four gloo ranks, "
+                        + ", ".join(lanes),
+                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+                "call_ms": c["ms_call"], "timing": c["ms_timing"],
+                **({"pad_ms": c["pad_ms"]} if "pad_ms" in c else {})})
     # the fused op on phase 17's path: every rank of the (1, 4) mesh, one
     # launch a layer a step in each lane, at its per-rank shape
     c = by["fused D=128 H=16 KV=2 C=16 (qwen2-72b, a rank of model=4)"]

@@ -13,14 +13,15 @@ codec and the mesh partition rules.
     ``serve.step.make_serve_step`` serves from (tensor parallelism over
     "model", expert parallelism over it too, request parallelism over
     "data") and ``train.step.make_train_step(mesh=...)`` trains the dense
-    family on (``train_specs``: FSDP over "data" on the contraction dim,
-    tensor parallelism over "model", the optimizer moments sharded as
-    their params, the batch's rows split over "data").
+    and MoE families on (``train_specs``: FSDP over "data" on the
+    contraction dim, tensor and expert parallelism over "model", the
+    optimizer moments sharded as their params, the batch's rows split
+    over "data").
 
 Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
-Not yet: the MoE and MLA trained over a mesh (ROADMAP item 7.6b),
-Mamba2, the RG-LRU, the encoder-decoder and the VLM (7.6c), a pod group
-beside a mesh and ``launch.train`` over a mesh (7.6d).
+Not yet: Mamba2, the RG-LRU, the encoder-decoder and the VLM trained
+over a mesh (ROADMAP item 7.6c), a pod group beside a mesh and
+``launch.train`` over a mesh (7.6d).
 """
 
 from . import compression, fault, sharding

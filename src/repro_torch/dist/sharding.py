@@ -66,15 +66,21 @@ def train_specs(cfg, mesh: Any, params_like: Any) -> Any:
     ``partition_specs`` (FSDP over "data" on the contraction dim, tensor
     parallelism over "model"), then the parameter half of
     ``head_specs`` (whole query heads; whole or copied KV heads).
-    ``params_like``: the model's ``ParamSpec`` tree.  The dense family
-    only: the others raise ``ValueError`` naming their ROADMAP item."""
-    if cfg.n_experts or cfg.mla:
+
+    The MoE family takes the same rules: the experts ``[E, D, F]`` /
+    ``[E, F, D]`` whole on each model rank (``("model", "data")`` /
+    ``("model", None, "data")``; where "model" does not divide E, the
+    experts stay whole and their FFN splits), the router ``("data",)``,
+    replicated over "model", the shared experts as a dense MLP; MLA's
+    ``wq`` / ``w_uk`` / ``w_uv`` / ``wo`` by whole heads and its latent
+    ``w_dkv`` ``("data",)``, whole on every model rank.
+    ``params_like``: the model's ``ParamSpec`` tree.  The dense and MoE
+    families only: the others raise ``ValueError`` naming ROADMAP item
+    7.6c."""
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: the mesh train step covers the dense "
-                         "family; MoE and MLA wait for ROADMAP item 7.6b")
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the mesh train step covers the dense "
-                         f"family; the {cfg.family} family waits for ROADMAP "
-                         "item 7.6c")
+                         f"and MoE families; the {cfg.family} family waits "
+                         "for ROADMAP item 7.6c")
     specs = partition_specs(params_like, train_rules(mesh), mesh)
     return head_specs(cfg, mesh, specs, {}, params_like, {})[0]
 

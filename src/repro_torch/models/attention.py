@@ -241,20 +241,27 @@ def mla_init(cfg: ModelConfig) -> Dict:
 
 
 def _mla_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, split: bool = False):
     """Returns q_nope, q_rope, c_kv (latent), k_rope (shared across
     heads).  The head count is read from ``wq``'s width: a rank of the
-    mesh serve step holds its block of whole heads, and the latent
-    (``w_dkv``) whole."""
+    mesh serve or train step holds its block of whole heads, and the
+    latent (``w_dkv``) whole.  ``split``: the heads are split over the
+    model group, and the grads of ``x`` through ``wq`` and of the latent
+    (which feeds only this rank's heads) are partial, so each takes a
+    ``model_entry``; ``x``'s path through ``w_dkv`` is then whole on
+    every rank, and takes none."""
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     H = p["wq"].shape[-1] // (dn + dr)
     R = cfg.kv_lora_rank
     dt = cfg.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
+    xq = model_entry(x) if split else x
+    q = (xq @ p["wq"].to(dt)).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_full = x @ p["w_dkv"].to(dt)                     # [B, S, R + dr]
+    if split:
+        ckv_full = model_entry(ckv_full)
     c_kv, k_rope = ckv_full[..., :R], ckv_full[..., R:]
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
@@ -266,12 +273,18 @@ def mla_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               impl: Optional[str] = None) -> torch.Tensor:
     """MLA's full-sequence forward: per-head K = [c_kv W_uk, k_rope] (the
     rope part shared by every head) and V = c_kv W_uv, causal attention at
-    head dim dn + dr with V dv wide, then ``wo``.  x: [B, S, D]."""
+    head dim dn + dr with V dv wide, then ``wo``.  x: [B, S, D].  On a
+    rank of the mesh train step the query, ``w_uk``, ``w_uv`` and ``wo``
+    weights hold this rank's heads (read from ``wq``'s width) and
+    ``w_dkv`` the whole latent: ``_mla_qkv`` enters ``x`` before ``wq``
+    and the latent after ``w_dkv``, and ``wo``'s partial products are
+    summed over the model group."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    H = p["wq"].shape[-1] // (dn + dr)
+    split = model_split(H, cfg.n_heads, "the MLA attention's heads")
     dt = cfg.dtype
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions, split)
     k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
     v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -280,7 +293,10 @@ def mla_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
                        causal=True, softcap=cfg.attn_logit_softcap,
                        impl=impl)
-    return out.reshape(B, S, H * dv) @ p["wo"].to(dt)
+    out = out.reshape(B, S, H * dv) @ p["wo"].to(dt)
+    if split:
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
+    return out
 
 
 def mla_serve(p: Dict, cfg: ModelConfig, x: torch.Tensor,

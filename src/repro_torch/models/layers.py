@@ -159,13 +159,15 @@ def moe_route(p: Dict, cfg: ModelConfig, xt: torch.Tensor):
     its row of the dispatch buffer, ``E * rows`` (the overflow row) where
     it does not; rows, each expert's buffer rows).
 
-    Under the mesh serve step's ``gspmd`` variant with the batch split
-    over data shards (``shardctx.data_size() > 1``), the capacity and the
-    running count are the whole batch's, as the reference's one program
-    counts them: T is every shard's rows, and each pick's place adds the
-    picks of its expert on the data shards before this one
-    (``shardctx.data_prefix``).  ``rows`` is then the capacity or this
-    shard's T*K picks, whichever is fewer; elsewhere it is the capacity.
+    Under the mesh serve step's ``gspmd`` variant, and in the mesh train
+    step, with the batch split over data shards (``shardctx.data_size()
+    > 1``), the capacity and the running count are the whole batch's (a
+    training microbatch's), as the reference's one program counts them:
+    T is every shard's rows, and each pick's place adds the picks of its
+    expert on the data shards before this one (``shardctx.data_prefix``,
+    int counts that carry no grad).  ``rows`` is then the capacity or
+    this shard's T*K picks, whichever is fewer; elsewhere it is the
+    capacity.
     """
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
@@ -209,7 +211,17 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     its FFN columns (SwiGLU separates over F).  The shared experts' FFN
     is split over ``"ffn"``.  One ``model_all_reduce`` sums the routed
     and shared partials; the activations are replicated over the model
-    group, so no all-to-all is needed."""
+    group, so no all-to-all is needed.
+
+    Differentiated (the mesh train step), a rank's routed partial feeds
+    the grads of the routing ``weights`` and of the dispatched rows only
+    through its own experts (or FFN columns), and the split shared
+    experts' input only through their columns: each takes a
+    ``model_entry``, whose backward sums its grad over the model group.
+    The router's path then carries the whole grad on every model rank,
+    so the router, replicated over "model", needs no model reduction of
+    its grad (and no entry on ``x`` in front of it, which would count
+    that path once a rank)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = cfg.dtype
@@ -217,6 +229,7 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xt = x.reshape(T, D)
     weights, _, keep, slot, rows = moe_route(p, cfg, xt)
     E_local = p["wi_gate"].shape[0]
+    xin = xt
     split = model_split(p["wi_gate"].shape[-1], cfg.moe_d_ff,
                         "the MoE's expert FFN")
     if model_split(E_local, E, "the MoE's experts"):
@@ -226,9 +239,15 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                            torch.full_like(slot, E_local * rows))
         keep = keep & mine
         split = True
+    shared_split = bool(cfg.n_shared_experts) and model_split(
+        p["shared"]["wo"].shape[0], cfg.n_shared_experts * cfg.moe_d_ff,
+        "the MoE's shared experts")
+    if split:       # this rank's experts or columns: partial grads
+        weights = model_entry(weights)
+        xin = model_entry(xt)
 
     buf = torch.zeros((E_local * rows + 1, D), dtype=dt, device=x.device)
-    buf[slot] = xt.repeat_interleave(K, dim=0)   # overflow writes discarded
+    buf[slot] = xin.repeat_interleave(K, dim=0)  # overflow writes discarded
     hidden = buf[:E_local * rows].reshape(E_local, rows, D)
     h = F.silu(torch.bmm(hidden, p["wi_gate"].to(dt))) \
         * torch.bmm(hidden, p["wi_up"].to(dt))
@@ -242,11 +261,12 @@ def moe_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
     if cfg.n_shared_experts:
         sp = p["shared"]
-        h = F.silu(xt @ sp["wi_gate"].to(dt)) * (xt @ sp["wi_up"].to(dt))
+        xs = xt
+        if shared_split:   # one entry for both sides where both are split
+            xs = xin if split else model_entry(xt)
+        h = F.silu(xs @ sp["wi_gate"].to(dt)) * (xs @ sp["wi_up"].to(dt))
         shared = h @ sp["wo"].to(dt)
-        if model_split(sp["wo"].shape[0],
-                       cfg.n_shared_experts * cfg.moe_d_ff,
-                       "the MoE's shared experts") != split:
+        if shared_split != split:
             # one side whole, the other a partial sum: sum the partial alone
             if split:
                 out, split = model_all_reduce(out), False

@@ -23,15 +23,18 @@ variant; the model code calls
 
 ``training_mesh(model=..., data=..., dims=...)`` installs the same
 model group for the train step (``train.step``), the group of the ranks
-that split the parameters' contraction dim (FSDP over "data") and, in
+that split the parameters' contraction dim and the batch's rows (FSDP
+over "data", and the MoE's capacity count, as under ``gspmd``) and, in
 the parameters' structure, the dim of each leaf that is split over it.
 Under it the model code calls, besides the above (each of which
 autograd differentiates as Megatron's pair does),
 
   * ``model_entry(x)``: the column-parallel entry before a split
-    ``wq`` / ``wk`` / ``wv``, MLP ``wi`` or output head: ``x`` itself
-    forward, the sum over the model group of ``x``'s grad backward (each
-    rank's heads, columns or vocab rows give a partial grad);
+    ``wq`` / ``wk`` / ``wv``, MLP ``wi`` or output head, and on what
+    feeds only this rank's heads or experts (MLA's latent, the MoE's
+    routing weights and dispatched rows): ``x`` itself forward, the sum
+    over the model group of ``x``'s grad backward (each rank's heads,
+    columns, experts or vocab rows give a partial grad);
   * ``fsdp_params(tree, path)``: each leaf of the parameter subtree at
     ``path`` all-gathered over the data group on its FSDP dim; backward,
     the grad reduce-scattered (summed over the data ranks) back onto the
@@ -126,11 +129,14 @@ def training_mesh(model: Optional[Any] = None, data: Optional[Any] = None,
     and ``data`` (the group of the ranks that split the parameters'
     contraction dim and the batch's rows, or None) with ``dims``: a tree
     in the parameters' structure holding, at each leaf, the dim that
-    ``data`` splits (None where the leaf is whole over it).  The MoE's
-    capacity count sees no data group (the MoE does not train over a
-    mesh yet)."""
+    ``data`` splits (None where the leaf is whole over it).  The MoE
+    counts each microbatch's capacity over ``data`` as ``gspmd`` does
+    (``data_size``, ``data_prefix``): data rank ``d`` holds the ``d``-th
+    block of each microbatch's rows (``train.step.mesh_rows``), so the
+    earlier shards' picks come first, in the reference's token-major
+    order."""
     size = dist.get_world_size(data) if data is not None else 1
-    tokens = (_MODEL_GROUP.set(model), _DATA_GROUP.set(None),
+    tokens = (_MODEL_GROUP.set(model), _DATA_GROUP.set(data),
               _VARIANT.set("gspmd"),
               _FSDP.set((data, size, dims) if size > 1 else None))
     try:
@@ -144,9 +150,11 @@ def training_mesh(model: Optional[Any] = None, data: Optional[Any] = None,
 def bind(fn: Callable) -> Callable:
     """``fn`` run under the groups installed now, wherever it is called:
     a remat'd layer's recompute runs on autograd's device thread, which
-    does not see this thread's context.  ``fn`` itself outside a
-    context."""
-    if _MODEL_GROUP.get() is None and _FSDP.get() is None:
+    does not see this thread's context (the FSDP gathers, the model
+    collectives and the MoE's ``data_prefix`` run again there).  ``fn``
+    itself outside a context."""
+    if _MODEL_GROUP.get() is None and _FSDP.get() is None \
+            and _DATA_GROUP.get() is None:
         return fn
     ctx = contextvars.copy_context()
     return lambda *args: ctx.run(fn, *args)

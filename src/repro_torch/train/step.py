@@ -25,22 +25,25 @@ exact float32 mean instead (the reference's uncompressed pod reduction),
 and so does an encoder-decoder, as in the reference.
 
 Given ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh), the
-dense family trains as the reference's GSPMD step does, every collective
-explicit (``models.shardctx``): each rank holds its shards of the params
-and of both moments (``dist.sharding.train_specs``: the reference's
-``train_rules``, FSDP over "data" on the contraction dim and tensor
-parallelism over "model", then whole query heads and whole or copied KV
-heads), all-gathers each layer's shards over "data" inside its remat'd
-group and reduce-scatters their grads, sums the row-parallel products and
-enters the column-parallel ones over "model", and runs AdamW on its
-shards with the whole model's clip norm.  It takes this data rank's rows
-of the global batch (each leaf indexed by ``mesh_rows``).  ``specs`` is
-then the parameters' (and each moment's) specs; None without a mesh.
+dense and MoE families train as the reference's GSPMD step does, every
+collective explicit (``models.shardctx``): each rank holds its shards of
+the params and of both moments (``dist.sharding.train_specs``: the
+reference's ``train_rules``, FSDP over "data" on the contraction dim and
+tensor and expert parallelism over "model", then whole query heads and
+whole or copied KV heads; MLA's latent and the MoE's router whole on
+every model rank), all-gathers each layer's shards over "data" inside
+its remat'd group and reduce-scatters their grads, sums the row-parallel
+products and enters the column-parallel ones over "model", counts each
+microbatch's expert capacity over "data" (``layers.moe_route``), and
+runs AdamW on its shards with the whole model's clip norm.  It takes
+this data rank's rows of the global batch (each leaf indexed by
+``mesh_rows``).  ``specs`` is then the parameters' (and each moment's)
+specs; None without a mesh.
 
-Not ported: the MoE and MLA over a mesh (ROADMAP 7.6b), Mamba2, the
-RG-LRU, the encoder-decoder and the VLM over a mesh (7.6c), a pod group
-beside a mesh (7.6d), ``models/shardctx.py``'s activation hints (layout
-hints to XLA's partitioner; eager PyTorch has none) and
+Not ported: Mamba2, the RG-LRU, the encoder-decoder and the VLM over a
+mesh (ROADMAP 7.6c), a pod group beside a mesh (7.6d),
+``models/shardctx.py``'s activation hints (layout hints to XLA's
+partitioner; eager PyTorch has none) and
 ``pod_err_struct`` (the residuals' shapes for the dry run's lowering).
 """
 
@@ -221,8 +224,11 @@ def make_mesh_loss_and_grad(api: ModelAPI, mesh: Any, specs: Any,
     sums a copied KV head's over its copy group (each copy saw its own
     query heads only: what GSPMD does for the reference's split inside a
     head) and divides every grad by the data size.  A leaf replicated
-    over "model" needs no model reduction: the column-parallel entries
-    give it the same grad on every model rank."""
+    over "model" (norms, MLA's ``w_dkv``, the MoE's router) needs no
+    model reduction: the column-parallel entries (``shardctx.
+    model_entry``, also on MLA's latent and the MoE's routing weights
+    and dispatched rows) give it the same, whole grad on every model
+    rank."""
     like = api.init_specs()
     flat_specs = []
     map_with_path(lambda _, __, spec: flat_specs.append(spec), like, specs)

@@ -503,13 +503,23 @@ def test_checkpoint_resumes_across_mesh_shapes(runs, direction):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("grok-1-314b", "7.6b"), ("deepseek-v2-lite-16b", "7.6b"),
     ("mamba2-1.3b", "7.6c"), ("recurrentgemma-9b", "7.6c"),
     ("whisper-large-v3", "7.6c"), ("internvl2-1b", "7.6c")])
 def test_other_families_raise(arch, item):
     api = build_model(get_config(arch, smoke=True))
     with pytest.raises(ValueError, match=f"item {item}"):
         make_train_step(api, AdamWConfig(), mesh=shape_mesh(2, 2))
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b"])
+def test_moe_family_builds_a_mesh_step(arch):
+    """The MoE family trains over the mesh
+    (``tests/test_torch_train_mesh_moe.py`` holds it to the reference)."""
+    api = build_model(get_config(arch, smoke=True))
+    step, init, specs = make_train_step(api, AdamWConfig(),
+                                        mesh=shape_mesh(2, 2))
+    assert callable(step) and callable(init)
+    assert specs["group"]["b0_attn"]["moe"]["router"] == (None, "data")
 
 
 def test_a_pod_group_beside_a_mesh_raises():

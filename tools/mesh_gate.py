@@ -8,6 +8,10 @@ their own, and what their gates can tell apart.
                                [--cases] [--phase1] [--windows]
                                [--models KEY,...] [--phase19]
                                [--broken-copies] [--broken-data-mean]
+                               [--broken-train-count]
+                               [--broken-router-entry]
+                               [--broken-latent-entry]
+                               [--train-archs ARCH,...]
 
 ``--phase17`` runs ``chip_smoke.phase17`` on every model of
 ``MESH_MODELS`` (or the ``--models`` keys): (a) unsharded in this
@@ -36,15 +40,25 @@ that differ where the reference's top-2 gap exceeds the noise:
     same weights.
 
 ``--phase19`` runs ``chip_smoke.phase19`` (the mesh train step on four
-gloo ranks against the unsharded step), gated; its broken copies, patched
-into the spawned ranks (``train.step.reduce_mesh_grads``) and logged
-ungated, give the readings ``TRAIN_MESH_TOL`` lies below:
+gloo ranks against the unsharded step), gated, on the lanes of
+``--train-archs`` (default: all of ``TRAIN_MESH_LANES``); its broken
+copies, patched into the spawned ranks and logged ungated, give the
+readings ``TRAIN_MESH_TOL`` lies below:
 
   * ``--broken-copies``: a copied KV head's grads are not summed over its
-    copy group (each copy keeps its own query heads' part; the (1, 4)
-    lane);
+    copy group (``train.step.reduce_mesh_grads``; each copy keeps its own
+    query heads' part; the (1, 4) lane);
   * ``--broken-data-mean``: the grads are summed over "data" but not
-    divided by the data size (the (2, 2) lanes).
+    divided by the data size (the (2, 2) lanes);
+  * ``--broken-train-count``: each data shard counts the MoE's capacity
+    over its own rows (``layers.data_size`` 1; the deepseek lane, whose
+    router overflows);
+  * ``--broken-router-entry``: no ``model_entry`` on the MoE's routing
+    weights, so the router's grad keeps only this rank's experts' part;
+  * ``--broken-latent-entry``: no ``model_entry`` on MLA's latent, so
+    ``w_dkv``'s grad keeps only this rank's heads' part.
+
+The last three run the deepseek-v2-lite-16b lane alone.
 
 ``--cases`` holds the fused op, the latent attention and the flash cross
 attention at each rank's shape, and the flash forward and backward at
@@ -58,6 +72,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -166,31 +181,69 @@ def broken_cross_entry(rank, world, tmp, models):
     cs._mesh_rank_entry(rank, world, tmp, models)
 
 
-def broken_copies_entry(rank, world, tmp):
+def broken_copies_entry(rank, world, tmp, lanes):
     """Phase 19's ranks with no copy-group sum of a copied KV head's
     grads."""
     from repro_torch.train import step
     inner = step.reduce_mesh_grads
     step.reduce_mesh_grads = lambda grads, plan, group, data: inner(
         grads, [(over_data, None) for over_data, _ in plan], group, data)
-    cs._train_mesh_rank_entry(rank, world, tmp)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
 
 
-def broken_data_mean_entry(rank, world, tmp):
+def broken_data_mean_entry(rank, world, tmp, lanes):
     """Phase 19's ranks with the grads' sum over "data" never divided by
     the data size."""
     from repro_torch.train import step
     inner = step.reduce_mesh_grads
     step.reduce_mesh_grads = lambda grads, plan, group, data: inner(
         grads, plan, group, 1)
-    cs._train_mesh_rank_entry(rank, world, tmp)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_train_count_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with each data shard counting the MoE's capacity
+    over its own rows."""
+    layers.data_size = lambda: 1
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def skipping_entry(fn, module, which: int):
+    """``fn`` with its ``which``-th call (from 0) of ``module``'s
+    ``model_entry`` the identity, in every call of ``fn`` (the forward
+    and the remat recompute)."""
+    def inner(*a, **k):
+        calls = itertools.count()
+        module.model_entry = lambda x: (
+            x if next(calls) == which else shardctx.model_entry(x))
+        try:
+            return fn(*a, **k)
+        finally:
+            module.model_entry = shardctx.model_entry
+    return inner
+
+
+def broken_router_entry_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with no entry on the MoE's routing weights (the
+    first ``model_entry`` of ``moe_apply``)."""
+    blocks.moe_apply = skipping_entry(layers.moe_apply, layers, 0)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_latent_entry_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with no entry on MLA's latent (the second
+    ``model_entry`` of ``_mla_qkv``, after the one before ``wq``)."""
+    from repro_torch.models import attention
+    attention._mla_qkv = skipping_entry(attention._mla_qkv, attention, 1)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
 
 
 def train_readings(out: dict) -> list:
     return [{k: r.get(k) for k in (
-        "mesh", "lane", "loss_rel_gap", "grad_norm_rel_gap",
-        "param_abs_gap", "leaves_whose_copies_differ", "step_s_median_2_3",
-        "peak_mem_gb_by_rank")}
+        "arch", "mesh", "lane", "loss_rel_gap", "grad_norm_rel_gap",
+        "param_abs_gap", "leaves_whose_copies_differ", "dropped",
+        "reference_dropped", "step_s_median_2_3", "peak_mem_gb_by_rank",
+        "seconds_by_rank")}
             for r in out["lanes"].values()]
 
 
@@ -275,17 +328,22 @@ def main() -> int:
     for flag in ("phase17", "broken", "broken-moe", "broken-count",
                  "broken-state-out", "broken-norm-gate", "broken-cross",
                  "cases", "phase1", "windows", "phase19", "broken-copies",
-                 "broken-data-mean"):
+                 "broken-data-mean", "broken-train-count",
+                 "broken-router-entry", "broken-latent-entry"):
         ap.add_argument(f"--{flag}", action="store_true")
     ap.add_argument("--models", default=None,
                     help="comma-separated MESH_MODELS keys (default: all)")
+    ap.add_argument("--train-archs", default=None,
+                    help="comma-separated archs of phase 19's lanes "
+                         "(default: all)")
     args = ap.parse_args()
     every = not (args.phase17 or args.broken or args.broken_moe
                  or args.broken_count or args.broken_state_out
                  or args.broken_norm_gate or args.broken_cross
                  or args.cases or args.phase1 or args.windows
                  or args.phase19 or args.broken_copies
-                 or args.broken_data_mean)
+                 or args.broken_data_mean or args.broken_train_count
+                 or args.broken_router_entry or args.broken_latent_entry)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -391,18 +449,29 @@ def main() -> int:
         attempt("broken-count", lambda: run(
             "overflowing router, gspmd counts shard-locally", ds,
             broken_count_entry, scaled_init))
+    archs = args.train_archs.split(",") if args.train_archs else None
+    lanes = tuple(x for x in cs.TRAIN_MESH_LANES
+                  if archs is None or x[0] in archs)
+    moe_lanes = tuple(x for x in cs.TRAIN_MESH_LANES
+                      if x[0] == "deepseek-v2-lite-16b")
     if args.phase19:
         attempt("phase19", lambda: emit(lane="phase 19", readings=(
-            train_readings(cs.phase19(card)))))
-    for flag, entry, what in (
+            train_readings(cs.phase19(card, lanes=lanes)))))
+    for flag, entry, what, on in (
             (args.broken_copies, broken_copies_entry,
-             "copied KV heads' grads not summed"),
+             "copied KV heads' grads not summed", lanes),
             (args.broken_data_mean, broken_data_mean_entry,
-             "grads not divided by the data size")):
+             "grads not divided by the data size", lanes),
+            (args.broken_train_count, broken_train_count_entry,
+             "each data shard counts its own rows", moe_lanes),
+            (args.broken_router_entry, broken_router_entry_entry,
+             "no entry on the routing weights", moe_lanes),
+            (args.broken_latent_entry, broken_latent_entry_entry,
+             "no entry on MLA's latent", moe_lanes)):
         if flag:
-            attempt(what, lambda entry=entry, what=what: emit(
+            attempt(what, lambda entry=entry, what=what, on=on: emit(
                 lane=what, readings=train_readings(
-                    cs.phase19(card, entry=entry))))
+                    cs.phase19(card, entry=entry, lanes=on))))
     return 1 if failed else 0
 
 

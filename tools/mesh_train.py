@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A dense model at full width trained by the mesh train step over NCCL,
-one rank a card.
+"""A dense or MoE model at full width trained by the mesh train step over
+NCCL, one rank a card.
 
     torchrun --standalone --nproc-per-node 4 tools/mesh_train.py \
         [--arch minitron-8b] [--layers N] [--meshes 2x2,1x4] [--steps 4] \
@@ -8,7 +8,10 @@ one rank a card.
 
 For each mesh of ``--meshes`` the ranks train ``--arch`` (default
 minitron-8b at all 32 layers: ~7.7 G parameters, whose float32 params,
-moments and grad buffers, ~123 GB, do not fit one card) through
+moments and grad buffers, ~123 GB, do not fit one card; grok-1-314b
+with ``--layers 2``, 11.45 G; deepseek-v2-lite-16b with ``--layers 20``,
+12.12 G: whole experts a model rank, the router and MLA's latent whole
+on each) through
 ``repro_torch.train.step.make_train_step(mesh=...)``: FSDP over "data",
 tensor parallelism over "model", bf16 compute on float32 master params,
 remat "full".  Each rank holds its shard of the params (drawn on its own
@@ -24,14 +27,17 @@ last (host clock to the loss on the host), each rank's peak memory and
 flash launches a step, and a CUPTI window over one more step: each
 rank's device busy time against its host's wall time (the idle share),
 the flash kernels' and NCCL's time.  Rank 0 builds the kernels while the
-others wait at a barrier; rank 0 writes the summary to ``--out`` and
-prints it last.  Needs a CUDA card a rank.
+others wait at a barrier; rank 0 writes the summary to ``--out`` after
+each mesh (a later mesh that runs out of memory leaves the earlier ones)
+and prints it last.  A collective that waits 300 s fails the run.  Needs
+a CUDA card a rank.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -133,7 +139,7 @@ def main() -> int:
         print("mesh_train: needs a CUDA card a rank", file=sys.stderr)
         return 2
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    dist.init_process_group("nccl")
+    dist.init_process_group("nccl", timeout=datetime.timedelta(seconds=300))
     rank, world = dist.get_rank(), dist.get_world_size()
     t_start = time.perf_counter()
     if rank == 0:                   # one build; the others load it
@@ -145,36 +151,37 @@ def main() -> int:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = build_model(cfg)
-    runs = []
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    out = {"cards": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           "params": sum(math.prod(s.shape)
+                         for s in leaves(api.init_specs())),
+           "seq_len": cs.TRAIN_S, "batch": cs.TRAIN_BATCH,
+           "steps": args.steps, "backend": str(dist.get_backend()),
+           "runs": []}
     for text in args.meshes.split(","):
         shape = tuple(int(x) for x in text.split("x"))
         mine = {"rank": rank, "build_s": build_s,
                 **train_on(api, shape, args.steps)}
-        every = [None] * world
-        dist.all_gather_object(every, mine)
-        runs.append(every)
+        r = [None] * world
+        dist.all_gather_object(r, mine)
+        out["runs"].append({
+            "mesh": r[0]["mesh"], "losses": r[0]["losses"],
+            "tokens_per_s": r[0]["tokens_per_s"],
+            "step_s_median_2_last": r[0]["step_s_median_2_last"],
+            "same_losses_on_every_rank": all(
+                x["losses"] == r[0]["losses"] for x in r),
+            "ranks": r})
+        if rank == 0:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=1))
     ok = True
     if rank == 0:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()
-        out = {"cards": smi, "arch": cfg.name, "layers": cfg.n_layers,
-               "params": sum(math.prod(s.shape)
-                             for s in leaves(api.init_specs())),
-               "seq_len": cs.TRAIN_S, "batch": cs.TRAIN_BATCH,
-               "steps": args.steps, "backend": str(dist.get_backend()),
-               "runs": [{"mesh": r[0]["mesh"],
-                         "losses": r[0]["losses"],
-                         "tokens_per_s": r[0]["tokens_per_s"],
-                         "step_s_median_2_last": r[0]["step_s_median_2_last"],
-                         "same_losses_on_every_rank": all(
-                             x["losses"] == r[0]["losses"] for x in r),
-                         "ranks": r} for r in runs]}
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(out, indent=1))
         print(json.dumps(out), flush=True)
-        ok = all(x["finite"] and x["launches_ok"] for r in runs for x in r) \
+        ok = all(x["finite"] and x["launches_ok"] for r in out["runs"]
+                 for x in r["ranks"]) \
             and all(r["same_losses_on_every_rank"] for r in out["runs"])
     dist.barrier()
     dist.destroy_process_group()
