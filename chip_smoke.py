@@ -262,30 +262,39 @@ sm_90a) and then, failing with a non-zero exit on any error:
      3's kernel path against plain path, the fused op launched once a
      layer a kernel step; phase 1 holds starcoder2's 36 heads over 4
      (a group of 9) at C=16 and C=1.
- 19. the mesh train step (run before phase 11; ROADMAP 7.6): qwen2-1.5b
-     at full width on 4 of its 28 layers, (a) unsharded in this process,
-     three AdamW steps of 2 microbatches of 2 sequences of 1024 tokens in
-     float32 (``make_train_step``) and in bf16 (``run_training``); (b)
-     four gloo ranks spawned on the one card, their collectives probed
-     first (``gloo_probe``: the FSDP pair ``all_gather_into_tensor`` and
-     ``reduce_scatter_tensor`` too), each taking its shards of the same
-     seed-0 params and its data rank's rows of the same batches: float32
-     at (2, 2) (FSDP over "data", 6 heads over 1 KV head a rank) and at
-     (1, 4) (3 heads over a copied KV head), held to (a) by their
-     losses, grad norms and every param gathered from the ranks' shards
-     after step 3 (``TRAIN_MESH_TOL``; copies bitwise equal), every rank
-     launching 16 flash forwards and 8 flash backwards a step; bf16 at
-     (2, 2) through ``run_training(mesh=...)``, its step time, peak
-     memory a rank and loss gap to (a)'s logged.  Then the MoE lane
-     (ROADMAP 7.6b): deepseek-v2-lite-16b at full width on 1 of its 27
-     layers, float32, (a) unsharded (its steps beside the ranks' qwen2
-     lanes), (b) at (2, 2) (8 heads, 32 whole experts and the whole
-     latent a rank) on (a)'s top-k picks, every router's column 0 scaled
-     by 16 so that expert 0 overflows each microbatch's capacity: the
-     picks dropped a step, summed over the data ranks, must equal (a)'s
-     and be above zero; losses, grad norms and params within
-     ``TRAIN_MESH_TOL``, the router and ``w_dkv`` bitwise equal across
-     model ranks, 4 / 2 flash launches a rank a step.
+ 19. the mesh train step (run before phase 11; ROADMAP 7.6): four gloo
+     ranks spawned on the one card, their collectives probed first
+     (``gloo_probe``: the FSDP pair ``all_gather_into_tensor`` and
+     ``reduce_scatter_tensor`` too), each lane's ranks taking their
+     shards of the same seed-0 params (drawn in turns) and their data
+     rank's rows of the same batches, beside (a): each arch unsharded in
+     this process, three AdamW steps in float32 (``make_train_step``;
+     a bf16 lane's arch in bf16 too, ``run_training``).  Every float32
+     lane is held to (a) by its losses, grad norms and every param
+     gathered from the ranks' shards after step 3 (``TRAIN_MESH_TOL``;
+     copies bitwise equal) and its launches a rank a step
+     (``train_launches``).  The lanes, at full width: recurrentgemma-9b
+     on 4 of 38 layers (a group and the tail's first rec) at (1, 4),
+     1024 LRU channels and 4 heads over a copied KV head a rank, 4
+     microbatches of one sequence of 1024 tokens, its (a) and its ranks
+     each alone on the card (8 / 4 flash launches); qwen2-1.5b on 2 of
+     28 layers, 2 microbatches of 2 x 1024 tokens: float32 at (2, 2)
+     (FSDP over "data", 6 heads over 1 KV head a rank) and (1, 4) (3
+     heads over a copied KV head), bf16 at (2, 2) through
+     ``run_training(mesh=...)`` (its step time, peak memory a rank and
+     loss gap to (a)'s logged); deepseek-v2-lite-16b on 1 of 27 layers
+     at (2, 2) (8 heads, 32 whole experts and the whole latent a rank)
+     on (a)'s top-k picks, every router's column 0 scaled by 16 so that
+     expert 0 overflows each microbatch's capacity: the picks dropped a
+     step, summed over the data ranks, must equal (a)'s and be above
+     zero, the router and ``w_dkv`` bitwise equal across model ranks;
+     mamba2-1.3b on 2 of 48 layers at (2, 2) (32 of 64 SSD heads a rank,
+     B and C whole; 8 ``ssd_chunk`` and 4 ``ssd_chunk_bwd`` launches);
+     whisper-large-v3 on 1 encoder and 1 decoder layer at (2, 2) (10
+     heads a rank; 1500 frames, 448 tokens).  internvl2-1b's lane (2 of
+     24 layers at (2, 2), 7 heads over 1, 256 patch embeddings before
+     1024 tokens) runs in ``tools/mesh_gate.py`` alone: the script's 1200
+     s do not hold it.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB; 2 and 1 in phase 17), phase 11
@@ -296,9 +305,11 @@ deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
 their float32 training state does not fit 80 GB at full depth; and
 phase 16 (b)'s two ranks (4 of 28 layers each, so both states fit the
 one card and its float32 grads through the host fit the phase's time)
-and phase 19's qwen2-1.5b (4 of 28 layers) and deepseek-v2-lite-16b (1
-of 27), so (a) and four ranks' FSDP gathers through the host fit the
-script's 1200 s;
+and phase 19's lanes (qwen2-1.5b on 2 of 28 layers, cut from 4 so the
+others fit; deepseek-v2-lite-16b on 1 of 27, recurrentgemma-9b on 4 of
+38, mamba2-1.3b on 2 of 48, whisper-large-v3 on 1 of 32 encoder and
+decoder layers), so (a) and four ranks' collectives through the host fit
+the script's 1200 s;
 and phase 17's qwen2-72b (4 of 80 layers: the whole model's 145.4 GB of
 bf16 weights need four cards, ``tools/mesh_serve.py``),
 deepseek-v2-lite-16b (4 of 27 layers), mamba2-1.3b (8 of 48),
@@ -3234,24 +3245,29 @@ def check_train_path(phase: str, res: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def flash_train_step(cfg) -> dict:
-    """Flash launches a train step of ``TRAIN_MB`` microbatches: under
-    remat "full" a layer group's forward runs again in the backward, so an
+def train_launches(cfg, microbatches: int = TRAIN_MB) -> dict:
+    """Flash launches a train step of ``microbatches``: under remat
+    "full" a layer group's forward runs again in the backward, so an
     attention in a checkpointed group launches the forward twice and the
     backward once; a hybrid's tail runs outside the checkpoints (once).
     An encoder-decoder checkpoints every encoder and decoder layer: the
-    encoder's self attention, the decoder's self and cross attentions."""
+    encoder's self attention, the decoder's self and cross attentions.
+    Mamba2's SSD op likewise: ``ssd_chunk`` twice and ``ssd_chunk_bwd``
+    once a layer."""
     if cfg.family == "encdec":
         n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
-        return {"flash_attention": 2 * n * TRAIN_MB,
-                "flash_attention_bwd": n * TRAIN_MB}
+        return {"flash_attention": 2 * n * microbatches,
+                "flash_attention_bwd": n * microbatches}
+    if cfg.family == "ssm":
+        return {"ssd_chunk": 2 * cfg.n_layers * microbatches,
+                "ssd_chunk_bwd": cfg.n_layers * microbatches}
     kinds = cfg.pattern_for_layers()
     pattern = cfg.block_pattern or ("attn",)
     n_group = (cfg.n_layers // len(pattern)) * len(pattern)
     grouped = sum(k == "attn" for k in kinds[:n_group])
     tail = sum(k == "attn" for k in kinds[n_group:])
-    return {"flash_attention": (2 * grouped + tail) * TRAIN_MB,
-            "flash_attention_bwd": (grouped + tail) * TRAIN_MB}
+    return {"flash_attention": (2 * grouped + tail) * microbatches,
+            "flash_attention_bwd": (grouped + tail) * microbatches}
 
 
 def rglru_scan_peak(cfg, seq_len: int = TRAIN_S) -> dict:
@@ -3302,7 +3318,7 @@ def family_training(arch: str, layers, seq_len: int, seed: int,
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     api = build_model(cfg)
-    expected = flash_train_step(cfg)
+    expected = train_launches(cfg)
     out = {"arch": arch, "layers": cfg.n_layers,
            "published_layers": get_config(arch).n_layers,
            "seq_len": seq_len, "batch": TRAIN_BATCH,
@@ -4520,19 +4536,62 @@ def smoke_sweep(arch: str) -> dict:
 TRAIN_MESH_S = 1024
 TRAIN_MESH_BATCH, TRAIN_MESH_MB, TRAIN_MESH_STEPS = 4, 2, 3
 TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-# arch -> (layers, the scale of every MoE router's column 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMeshModel:
+    """A phase-19 architecture: its depth (an encoder-decoder's, each
+    stack's), every MoE router's column 0 scale (None: as drawn), its
+    microbatches a step and tokens a sequence, whether its lanes hold
+    the card alone ((a) then runs it first and waits for the ranks to
+    finish its lanes before the next arch), and Adam's eps."""
+    layers: int
+    router_scale: Optional[float] = None
+    microbatches: int = TRAIN_MESH_MB
+    seq: int = TRAIN_MESH_S
+    alone: bool = False
+    eps: float = 1e-8
+
+
 TRAIN_MESH_MODELS = {
-    "qwen2-1.5b": (4, None),        # of 28
-    # of 27 (2 layers took 88 s of four gloo ranks, PERF.md §6); router
+    # 4 of 38: one (rec, rec, attn) group and the tail's first rec, the
+    # fewest layers that run the tail; 3.0 G parameters, the untied table
+    # and head 2.1 G of them: (a)'s float32 state ~60 GB, the four ranks'
+    # ~48 GB, so each holds the card alone; one row a microbatch keeps a
+    # rank's [1, 1024, 256000] float32 logits (gathered over "model") and
+    # their grad within the rest (PERF.md §4)
+    "recurrentgemma-9b": TrainMeshModel(4, microbatches=4, alone=True),
+    "qwen2-1.5b": TrainMeshModel(2),      # of 28
+    # 1 of 27 (2 layers took 88 s of four gloo ranks, PERF.md §6); router
     # column 0 x 16 (as phase 17's overflow case): expert 0 overflows each
     # microbatch's capacity (384 rows of 2048 tokens x 6 picks), so the
     # count over "data" decides which picks drop
-    "deepseek-v2-lite-16b": (1, 16.0),
+    "deepseek-v2-lite-16b": TrainMeshModel(1, router_scale=16.0),
+    # 2 of 48; Adam's eps 1e-6: at 1e-8 the tied table's near-zero grads
+    # (rows the batch never reads) turn rounding into updates of ~lr, and
+    # two correct unsharded runs, kernel and plain paths, part by 1.16e-3
+    # there after three steps, above the param gate (``tools/mesh_gate.py
+    # --noise``, PERF.md §6)
+    "mamba2-1.3b": TrainMeshModel(2, eps=1e-6),
+    # 1 encoder and 1 decoder layer of 32 each; 448 tokens, its target
+    # length, against 1500 frames
+    "whisper-large-v3": TrainMeshModel(1, seq=WHISPER_MAX_SEQ),
+    "internvl2-1b": TrainMeshModel(2),    # of 24; 256 patches + the text
 }
-TRAIN_MESH_LANES = (("qwen2-1.5b", (2, 2), "float32"),
+TRAIN_MESH_LANES = (("recurrentgemma-9b", (1, 4), "float32"),
+                    ("qwen2-1.5b", (2, 2), "float32"),
                     ("qwen2-1.5b", (1, 4), "float32"),
                     ("qwen2-1.5b", (2, 2), "bfloat16"),
-                    ("deepseek-v2-lite-16b", (2, 2), "float32"))
+                    ("deepseek-v2-lite-16b", (2, 2), "float32"),
+                    ("mamba2-1.3b", (2, 2), "float32"),
+                    ("whisper-large-v3", (2, 2), "float32"))
+# internvl2-1b's lane (23 s of the ranks, PERF.md §6) does not fit the
+# script's 1200 s beside the others; the VLM's trunk is the dense lanes'
+# code, its prefix held by tests/test_torch_train_mesh_state.py on the
+# CPU and by ``tools/mesh_gate.py --phase19 --train-archs internvl2-1b``
+# on the card, which picks from these
+TRAIN_MESH_GATE_LANES = TRAIN_MESH_LANES + (
+    ("internvl2-1b", (2, 2), "float32"),)
 TRAIN_MESH_RANKS = 4
 TRAIN_MESH_TIMEOUT = 600             # seconds for the ranks, from the spawn
 # float32 lanes against the unsharded float32 step on the same card, over
@@ -4557,40 +4616,47 @@ def train_lane_key(arch: str, shape, lane: str) -> str:
     return f"{arch} {lane} {shape[0]}x{shape[1]}"
 
 
+def train_mesh_opt(arch: str):
+    """The lanes' AdamW settings, with the arch's eps."""
+    from repro_torch.train import AdamWConfig
+    return AdamWConfig(**TRAIN_MESH_OPT, eps=TRAIN_MESH_MODELS[arch].eps)
+
+
 def train_mesh_config(arch: str, dtype):
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch),
-                               n_layers=TRAIN_MESH_MODELS[arch][0],
-                               dtype=dtype)
+    cfg = get_config(arch)
+    n = TRAIN_MESH_MODELS[arch].layers
+    stacks = dict(n_enc_layers=n, n_dec_layers=n) \
+        if cfg.family == "encdec" else {}
+    return dataclasses.replace(cfg, n_layers=n, dtype=dtype, **stacks)
 
 
 def train_mesh_params(api, arch: str):
     """The seed-0 global params on the card, every MoE router's column 0
-    scaled by the arch's ``TRAIN_MESH_MODELS`` scale."""
+    scaled by the arch's ``router_scale``."""
     from repro_torch.models import init_params
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(api.init_specs(), gen, device="cuda")
-    scale = TRAIN_MESH_MODELS[arch][1]
+    scale = TRAIN_MESH_MODELS[arch].router_scale
     if scale is not None:
         for block in params["group"].values():
             block["moe"]["router"][..., 0] *= scale
     return params
 
 
-def train_mesh_batches(cfg) -> list:
-    """The global batches of the three steps (numpy, from seed 0)."""
+def train_mesh_batches(arch: str, cfg) -> list:
+    """The global batches of the three steps (numpy, from seed 0; an
+    encoder-decoder's frames and a VLM's patch embeddings with them)."""
     from repro_torch.data import TokenPipeline
     pipe = TokenPipeline(cfg, global_batch=TRAIN_MESH_BATCH,
-                         seq_len=TRAIN_MESH_S, seed=0)
+                         seq_len=TRAIN_MESH_MODELS[arch].seq, seed=0)
     return [pipe.batch_at(i) for i in range(TRAIN_MESH_STEPS)]
 
 
 def train_mesh_expected(arch: str) -> dict:
-    """Flash launches of one rank's step: under remat "full" each layer's
-    forward twice and its backward once, a microbatch."""
-    layers = TRAIN_MESH_MODELS[arch][0]
-    return {"flash_attention": 2 * layers * TRAIN_MESH_MB,
-            "flash_attention_bwd": layers * TRAIN_MESH_MB}
+    """Kernel launches of one rank's step (``train_launches``)."""
+    return train_launches(train_mesh_config(arch, torch.float32),
+                            TRAIN_MESH_MODELS[arch].microbatches)
 
 
 class DropCount:
@@ -4628,25 +4694,30 @@ def train_mesh_reference(tmp: str, lanes=TRAIN_MESH_LANES) -> dict:
     host, an MoE's top-k picks recorded for the ranks to replay) and,
     where a lane is bf16, bf16 through ``run_training`` (its losses).
     Each arch's ``refs-{arch}`` file then lets the ranks start its lanes,
-    so the next arch's steps here run beside them."""
+    so the next arch's steps here run beside them; after an arch whose
+    lanes hold the card alone, this waits for the ranks' ``ranks-{arch}``
+    file."""
     from repro_torch.data import TokenPipeline
     from repro_torch.models import build_model
-    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+    from repro_torch.train import LoopConfig, run_training
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import leaves
 
     t0 = time.perf_counter()
     out, finals = {}, {}
     for arch in dict.fromkeys(a for a, _, _ in lanes):
+        model = TRAIN_MESH_MODELS[arch]
         cfg = train_mesh_config(arch, torch.float32)
         api = build_model(cfg)
         step, init_state, _ = make_train_step(
-            api, AdamWConfig(**TRAIN_MESH_OPT), microbatches=TRAIN_MESH_MB)
+            api, train_mesh_opt(arch), microbatches=model.microbatches)
+        torch.cuda.reset_peak_memory_stats()
         state = init_state(train_mesh_params(api, arch))
         ref = out[f"{arch} float32"] = {"loss": [], "grad_norm": [],
                                         "dropped": []}
+        t_arch = time.perf_counter()
         with DropCount() as drops, RouteTape() as tape:
-            for b in train_mesh_batches(cfg):
+            for b in train_mesh_batches(arch, cfg):
                 state, m = step(state, {k: torch.from_numpy(v).cuda()
                                         for k, v in b.items()})
                 ref["loss"].append(float(m["loss"]))
@@ -4654,6 +4725,8 @@ def train_mesh_reference(tmp: str, lanes=TRAIN_MESH_LANES) -> dict:
                 ref["dropped"].append(drops.take())
         if cfg.n_experts:
             torch.save(tape.picks, Path(tmp, f"picks-{arch}.pt"))
+        ref["seconds"] = time.perf_counter() - t_arch
+        ref["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
         finals[arch] = [p.cpu() for p in leaves(state["params"])]
         del state
         release()
@@ -4663,15 +4736,17 @@ def train_mesh_reference(tmp: str, lanes=TRAIN_MESH_LANES) -> dict:
             res = run_training(
                 build_model(cfg16), TokenPipeline(
                     cfg16, global_batch=TRAIN_MESH_BATCH,
-                    seq_len=TRAIN_MESH_S, seed=0),
+                    seq_len=model.seq, seed=0),
                 LoopConfig(steps=TRAIN_MESH_STEPS,
-                           microbatches=TRAIN_MESH_MB),
-                AdamWConfig(**TRAIN_MESH_OPT), device="cuda")
+                           microbatches=model.microbatches),
+                train_mesh_opt(arch), device="cuda")
             out[f"{arch} bfloat16"] = {
                 "loss": res.losses, "step_s": res.step_seconds,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
             release()
         Path(tmp, f"refs-{arch}").write_text("")
+        while model.alone and not Path(tmp, f"ranks-{arch}").exists():
+            time.sleep(0.2)             # the spawner's deadline bounds it
     out["seconds"] = time.perf_counter() - t0
     return out, finals
 
@@ -4690,14 +4765,16 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
     float32 sums in another order flip near-tied picks once Adam has
     moved the weights, PERF.md §6) and counts the tokens whose own picks
     differ; which picks fit their expert's capacity is still counted
-    here, over "data"."""
+    here, over "data".  The ranks draw the global params in turns, so
+    one whole tree is on the card at a time; after the lanes of an arch
+    that holds the card alone, rank 0 writes ``ranks-{arch}``."""
     import datetime
     import torch.distributed as dist
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import common
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    from repro_torch.train import AdamWConfig, LoopConfig, run_training
+    from repro_torch.train import LoopConfig, run_training
     from repro_torch.train.step import make_train_step, mesh_rows
     from repro_torch.tree import leaves
 
@@ -4712,12 +4789,12 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
     meshes = {shape: make_mesh(shape)          # in one order on every rank
               for shape in dict.fromkeys(s for _, s, _ in lanes)}
     out = {"rank": rank, "gloo_probe": probe, "lanes": {}}
-    opt = AdamWConfig(**TRAIN_MESH_OPT)
     for arch, shape, lane in lanes:
         while not Path(tmp, f"refs-{arch}").exists():
             time.sleep(0.2)             # the spawner's deadline bounds it
         t_lane = time.perf_counter()
         mesh = meshes[shape]
+        model = TRAIN_MESH_MODELS[arch]
         cfg = train_mesh_config(arch, dict(MESH_LANES)[lane])
         api = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
@@ -4726,18 +4803,23 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
             common.reset_launch_counts()
             res = run_training(
                 api, TokenPipeline(cfg, global_batch=TRAIN_MESH_BATCH,
-                                   seq_len=TRAIN_MESH_S, seed=0),
+                                   seq_len=model.seq, seed=0),
                 LoopConfig(steps=TRAIN_MESH_STEPS,
-                           microbatches=TRAIN_MESH_MB), opt,
+                           microbatches=model.microbatches),
+                train_mesh_opt(arch),
                 device="cuda", mesh=mesh)
             rec.update(loss=res.losses, step_s=res.step_seconds,
                        launches=dict(common.LAUNCHES))
         else:
             step, init_state, _ = make_train_step(
-                api, opt, microbatches=TRAIN_MESH_MB, mesh=mesh)
-            state = init_state(train_mesh_params(api, arch))
-            release()
-            take = mesh_rows(TRAIN_MESH_BATCH, TRAIN_MESH_MB,
+                api, train_mesh_opt(arch), microbatches=model.microbatches,
+                mesh=mesh)
+            for turn in range(world):   # one global tree at a time
+                if turn == rank:
+                    state = init_state(train_mesh_params(api, arch))
+                    release()
+                dist.barrier()
+            take = mesh_rows(TRAIN_MESH_BATCH, model.microbatches,
                              mesh.shape["data"], mesh.coords["data"])
             rec.update(loss=[], grad_norm=[], step_s=[], launches=[],
                        dropped=[], route_flips=[])
@@ -4745,7 +4827,7 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
                              shard=mesh.coords["data"]) \
                 if cfg.n_experts else RouteTape()
             with DropCount() as drops, tape:
-                for b in train_mesh_batches(cfg):
+                for b in train_mesh_batches(arch, cfg):
                     batch = {k: torch.from_numpy(v[take]).cuda()
                              for k, v in b.items()}
                     common.reset_launch_counts()
@@ -4759,13 +4841,19 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
                     rec["route_flips"].append(
                         tape.flips - sum(rec["route_flips"]))
             key = train_lane_key(arch, shape, lane)
-            torch.save([p.cpu() for p in leaves(state["params"])],
-                       Path(tmp, f"shards-{key}-{rank}.pt"))
+            part = Path(tmp, f"shards-{key}-{rank}.part")
+            torch.save([p.cpu() for p in leaves(state["params"])], part)
+            os.replace(part, Path(tmp, f"shards-{key}-{rank}.pt"))
             del state
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
         release()
         rec["seconds"] = time.perf_counter() - t_lane
         out["lanes"][train_lane_key(arch, shape, lane)] = rec
+        if model.alone and (arch, shape, lane) == [
+                x for x in lanes if x[0] == arch][-1]:
+            dist.barrier()              # every rank has let go of the card
+            if rank == 0:
+                Path(tmp, f"ranks-{arch}").write_text("")
     dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(out))
 
@@ -4775,29 +4863,64 @@ def _train_mesh_rank_entry(rank, world, tmp, lanes):
                     lanes)
 
 
-def train_mesh_compare(tmp: str, refs: dict, finals: dict,
-                       lanes=TRAIN_MESH_LANES) -> dict:
-    """(a) against the ranks of each lane: float32 losses and grad norms
-    (relative gaps), an MoE's dropped picks a step (summed over the data
-    ranks: the ranks of one data rank route alike), every rank's param
-    shards against (a)'s params' same blocks, and every param gathered
-    from the ranks' shards (``gather_params``: the copies of a replicated
-    leaf or of a copied KV head must be bitwise equal; the leaves where
-    they differ are listed); bf16 losses."""
+def train_mesh_param_gaps(tmp: str, arch: str, shape, key: str,
+                          final: list) -> dict:
+    """A float32 lane's params after step 3 against (a)'s: every rank's
+    shard of each leaf against (a)'s same block (the largest gap and its
+    leaf), and every leaf gathered from the ranks' shards
+    (``gather_params``: the copies of a replicated leaf or of a copied KV
+    head must be bitwise equal; the leaves where they differ are
+    listed).  The ranks' shard files are removed."""
     from repro_torch.dist.sharding import (gather_params, shard_params,
                                            train_specs)
     from repro_torch.launch.mesh import Mesh, rank_coords
     from repro_torch.models import build_model
     from repro_torch.tree import map_with_path
 
-    ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
+    cfg = train_mesh_config(arch, torch.float32)
+    mesh = Mesh(shape={"data": shape[0], "model": shape[1]},
+                coords={"data": 0, "model": 0}, groups={})
+    like = build_model(cfg).init_specs()
+    flat = []
+    map_with_path(lambda path, _, s: flat.append(("/".join(path), s)), like,
+                  train_specs(cfg, mesh, like))
+    files = [Path(tmp, f"shards-{key}-{r}.pt")
              for r in range(TRAIN_MESH_RANKS)]
+    shards = [torch.load(f) for f in files]
+    for f in files:
+        f.unlink()
+    gap, where, differ = 0.0, None, []
+    for i, (name, spec) in enumerate(flat):
+        try:
+            gather_params([s[i] for s in shards], spec, mesh)
+        except ValueError:               # two holders of a piece differ
+            differ.append(name)
+        for r, s in enumerate(shards):   # each rank's own shard
+            mine = dataclasses.replace(mesh, coords=rank_coords(
+                mesh.shape, r))
+            g = float((s[i] - shard_params(final[i], spec, mine)).abs().max())
+            if g > gap:
+                gap, where = g, name
+    return {"param_abs_gap": gap, "param_abs_gap_leaf": where,
+            "params_compared": len(flat),
+            "leaves_whose_copies_differ": differ}
+
+
+def train_mesh_compare(refs: dict, ranks: list, params: dict,
+                       lanes=TRAIN_MESH_LANES) -> dict:
+    """(a) against the ranks of each lane: float32 losses and grad norms
+    (relative gaps), an MoE's dropped picks a step (summed over the data
+    ranks: the ranks of one data rank route alike) and the params'
+    readings (``params``: ``train_mesh_param_gaps`` by lane); bf16
+    losses.  ``ranks``: every rank's record."""
     out = {}
     for arch, shape, lane in lanes:
         key = train_lane_key(arch, shape, lane)
         recs = [r["lanes"][key] for r in ranks]
         ref = refs[f"{arch} {lane}"]
-        res = {"arch": arch, "layers": TRAIN_MESH_MODELS[arch][0],
+        model = TRAIN_MESH_MODELS[arch]
+        res = {"arch": arch, "layers": model.layers,
+               "microbatches": model.microbatches, "seq_len": model.seq,
                "mesh": list(shape), "lane": lane,
                "loss": recs[0]["loss"], "reference_loss": ref["loss"],
                "loss_rel_gap": max(abs(a / b - 1) for a, b in
@@ -4809,7 +4932,7 @@ def train_mesh_compare(tmp: str, refs: dict, finals: dict,
                "step_s": [r["step_s"] for r in recs],
                "step_s_median_2_3": statistics.median(
                    recs[0]["step_s"][1:]),
-               "tokens_per_s": TRAIN_MESH_BATCH * TRAIN_MESH_S
+               "tokens_per_s": TRAIN_MESH_BATCH * model.seq
                / statistics.median(recs[0]["step_s"][1:]),
                "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in recs],
                "seconds_by_rank": [r["seconds"] for r in recs]}
@@ -4829,32 +4952,7 @@ def train_mesh_compare(tmp: str, refs: dict, finals: dict,
                           for s in range(TRAIN_MESH_STEPS)]
         res["reference_dropped"] = ref["dropped"]
         res["route_flips_by_rank"] = [r["route_flips"] for r in recs]
-        cfg = train_mesh_config(arch, torch.float32)
-        mesh = Mesh(shape={"data": shape[0], "model": shape[1]},
-                    coords={"data": 0, "model": 0}, groups={})
-        like = build_model(cfg).init_specs()
-        flat_specs = []
-        map_with_path(lambda _, __, s: flat_specs.append(s), like,
-                      train_specs(cfg, mesh, like))
-        shards = [torch.load(Path(tmp, f"shards-{key}-{r}.pt"))
-                  for r in range(TRAIN_MESH_RANKS)]
-        final = finals[arch]
-        gap, differ = 0.0, []
-        for i, spec in enumerate(flat_specs):
-            try:
-                whole = gather_params([s[i] for s in shards], spec, mesh)
-            except ValueError:           # two holders of a piece differ
-                differ.append(i)
-                whole = None
-            for r, s in enumerate(shards):   # each rank's own shard
-                mine = dataclasses.replace(mesh, coords=rank_coords(
-                    mesh.shape, r))
-                gap = max(gap, float((s[i] - shard_params(
-                    final[i], spec, mine)).abs().max()))
-            del whole
-        res["param_abs_gap"] = gap
-        res["params_compared"] = len(flat_specs)
-        res["leaves_whose_copies_differ"] = differ
+        res.update(params[key])
         out[key] = res
     return out
 
@@ -4863,8 +4961,8 @@ def check_train_mesh(res: dict) -> None:
     """Phase 19's gates: every lane finite, the same losses on every
     rank; each float32 lane within ``TRAIN_MESH_TOL`` of the unsharded
     step, the copies of every piece bitwise equal, an MoE's dropped picks
-    a step above zero and the unsharded step's; every rank's flash
-    launches a float32 step the expected ones."""
+    a step above zero and the unsharded step's; every rank's flash (and
+    Mamba2's SSD) launches a float32 step the expected ones."""
     for key, r in res.items():
         assert r["finite"] and r["losses_equal_on_every_rank"], (key, r)
         if r["lane"] != "float32":
@@ -4872,7 +4970,7 @@ def check_train_mesh(res: dict) -> None:
         for k, bound in TRAIN_MESH_TOL.items():
             assert r[k] <= bound, (key, k, r[k], bound)
         assert not r["leaves_whose_copies_differ"], (key, r)
-        if TRAIN_MESH_MODELS[r["arch"]][1] is not None:
+        if TRAIN_MESH_MODELS[r["arch"]].router_scale is not None:
             assert r["dropped"] == r["reference_dropped"], (key, r)
             assert all(n > 0 for n in r["dropped"]), (key, r)
         want = train_mesh_expected(r["arch"])
@@ -4895,11 +4993,28 @@ def phase19(card: str, entry=None, lanes=TRAIN_MESH_LANES) -> dict:
                                  args=(TRAIN_MESH_RANKS, tmp, lanes),
                                  nprocs=TRAIN_MESH_RANKS, join=False,
                                  start_method="spawn")
+        pending = {train_lane_key(*x): x for x in lanes
+                   if x[2] == "float32"}
+        params = {}
+
+        def compare_done() -> None:
+            """Each float32 lane whose shards are all written, compared
+            while the ranks run the later lanes."""
+            for key, (arch, shape, _) in list(pending.items()):
+                if all(Path(tmp, f"shards-{key}-{r}.pt").exists()
+                       for r in range(TRAIN_MESH_RANKS)):
+                    params[key] = train_mesh_param_gaps(
+                        tmp, arch, shape, key, finals[arch])
+                    del pending[key]
+                    if all(a != arch for a, _, _ in pending.values()):
+                        del finals[arch]
+
         try:
             refs, finals = train_mesh_reference(tmp, lanes)
             log("phase19 (a)", json.dumps({"card": card, **refs}))
             deadline = t0 + TRAIN_MESH_TIMEOUT
             while not ctx.join(timeout=2):
+                compare_done()
                 if time.perf_counter() > deadline:
                     raise TimeoutError(f"phase 19 (b): the ranks ran past "
                                        f"{TRAIN_MESH_TIMEOUT} s")
@@ -4910,7 +5025,10 @@ def phase19(card: str, entry=None, lanes=TRAIN_MESH_LANES) -> dict:
                     p.join()
         log(f"phase19 (b) seconds {time.perf_counter() - t0:.1f} "
             "(from the spawn)")
-        res = train_mesh_compare(tmp, refs, finals, lanes)
+        compare_done()
+        ranks = [json.loads(Path(tmp, f"rank-{r}.json").read_text())
+                 for r in range(TRAIN_MESH_RANKS)]
+        res = train_mesh_compare(refs, ranks, params, lanes)
     for key, r in res.items():
         log(f"phase19 (b) {key}", json.dumps({"card": card, **r}))
     if entry is None:
@@ -5085,6 +5203,7 @@ def phase1_cases() -> list:
           for C in (16, 1)),
         *state_mesh_cases(rng),
         *train_mesh_flash_cases(rng),
+        *ssd_mesh_cases(rng),
     ]
 
 
@@ -5094,10 +5213,17 @@ def train_mesh_flash_cases(rng) -> list:
     head, one sequence of 1024 a microbatch) in float32 and bf16 and of
     its (1, 4) mesh (3 heads over a copied KV head, two sequences) in
     float32; a rank of minitron-8b's (1, 4) mesh in
-    ``tools/mesh_train.py`` (8 heads over 2, S=4096, bf16); and a rank of
+    ``tools/mesh_train.py`` (8 heads over 2, S=4096, bf16); a rank of
     deepseek-v2-lite-16b's (2, 2) mesh (MLA: 8 heads, Q/K 192 beside V
-    128, which the op pads) in float32 and bf16."""
+    128, which the op pads) in float32 and bf16; and, in float32, a rank
+    of recurrentgemma-9b's (1, 4) mesh (4 heads over a copied KV head of
+    256, window 2048, one sequence a microbatch), of whisper-large-v3's
+    (2, 2) mesh (10 heads over 10 of 64: the encoder at 1500 frames, the
+    decoder's self attention at 448 tokens and its cross attention
+    against the 1500 frames) and of internvl2-1b's (2, 2) mesh (7 heads
+    over 1 of 64, 256 patches and 1024 tokens)."""
     s = TRAIN_MESH_S
+    f32 = dict(dtype=torch.float32)
     cases = []
     for case, tag in ((flash_case, "flash"), (flash_bwd_case, "flash bwd")):
         cases += [
@@ -5116,7 +5242,37 @@ def train_mesh_flash_cases(rng) -> list:
                 rng, f"{tag} S={s} causal D=192 Dv=128 H=KV=8{name} "
                 "(deepseek-v2-lite-16b, a rank of (2, 2))", s, h=8, kv=8,
                 D=192, Dv=128, dtype=dtype))
+        w, f = WHISPER_MAX_SEQ, WHISPER_FRAMES
+        cases += [
+            case(rng, f"{tag} S={s} D=256 H=4 KV=1 window={RG_WINDOW} "
+                 "float32 (recurrentgemma-9b, a rank of (1, 4))", s, h=4,
+                 kv=1, D=256, window=RG_WINDOW, **f32),
+            case(rng, f"{tag} S={f} D=64 H=KV=10 non-causal float32 "
+                 "(whisper-large-v3 encoder, a rank of (2, 2))", f, h=10,
+                 kv=10, D=64, causal=False, **f32),
+            case(rng, f"{tag} S={w} D=64 H=KV=10 float32 (whisper-large-v3 "
+                 "decoder, a rank of (2, 2))", w, h=10, kv=10, D=64, **f32),
+            case(rng, f"{tag} Sq={w} Sk={f} D=64 H=KV=10 non-causal float32 "
+                 "(whisper-large-v3 cross, a rank of (2, 2))", w, Sk=f,
+                 h=10, kv=10, D=64, causal=False, **f32),
+            case(rng, f"{tag} S={s + 256} D=64 H=7 KV=1 float32 "
+                 "(internvl2-1b, a rank of (2, 2))", s + 256, h=7, kv=1,
+                 D=64, **f32)]
     return cases
+
+
+# a rank of mamba2-1.3b's (2, 2) mesh in phase 19: one sequence of 1024
+# tokens a microbatch (4 chunks of 256), 32 of its 64 SSD heads
+SSD_MESH_RANK = dict(Bp=4, L=256, H=32, P=64, N=128)
+
+
+def ssd_mesh_cases(rng) -> list:
+    """``ssd_chunk`` forward and backward at a rank's heads of phase 19's
+    Mamba2 lane, each against its plain version."""
+    return [ssd_case(rng, "ssd B'=4 L=256 H=32 float32 (mamba2-1.3b, a "
+                     "rank of (2, 2))", **SSD_MESH_RANK),
+            ssd_bwd_case(rng, "ssd bwd B'=4 L=256 H=32 float32 "
+                         "(mamba2-1.3b, a rank of (2, 2))", **SSD_MESH_RANK)]
 
 
 def state_mesh_cases(rng) -> list:
@@ -5369,7 +5525,8 @@ def main() -> int:
     log(f"phase18 seconds {time.perf_counter() - t18:.1f}")
 
     t19 = time.perf_counter()
-    log(f"phase19 starts at {t19 - t_script:.1f} s")
+    log(f"phase19 starts at {t19 - t_script:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     mesh_train = phase19(card)["lanes"]
     log(f"phase19 seconds {time.perf_counter() - t19:.1f}")
 
@@ -5626,28 +5783,49 @@ def main() -> int:
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
             "call_ms": c["ms_call"], "timing": c["ms_timing"]})
-    # the flash forward and backward on phase 19's path: every rank of
-    # each arch's lanes, every step, at a rank's phase-1 shape
-    for arch, case in (
-            ("qwen2-1.5b", f"S={TRAIN_MESH_S} D=128 H=6 KV=1 float32 "
-                           "(qwen2-1.5b, a rank of (2, 2))"),
+    # the flash forward and backward (Mamba2's SSD op) on phase 19's
+    # path: every rank of each arch's lanes, every step, at a rank's
+    # phase-1 shape (whisper's: the cross attention's)
+    s19 = TRAIN_MESH_S
+    flash_pair = (("flash_attention", "flash ",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:92"),
+                  ("flash_attention_bwd", "flash bwd ",
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:92"))
+    ssd_pair = (("ssd_chunk", "ssd ",
+                 "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                 "src/repro/kernels/ssd_chunk/kernel.py:50"),
+                ("ssd_chunk_bwd", "ssd bwd ",
+                 "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                 "src/repro/kernels/ssd_chunk/kernel.py:50"))
+    for arch, case, pair in (
+            ("qwen2-1.5b", f"S={s19} D=128 H=6 KV=1 float32 "
+                           "(qwen2-1.5b, a rank of (2, 2))", flash_pair),
             ("deepseek-v2-lite-16b",
-             f"S={TRAIN_MESH_S} causal D=192 Dv=128 H=KV=8 float32 "
-             "(deepseek-v2-lite-16b, a rank of (2, 2))")):
+             f"S={s19} causal D=192 Dv=128 H=KV=8 float32 "
+             "(deepseek-v2-lite-16b, a rank of (2, 2))", flash_pair),
+            ("recurrentgemma-9b", f"S={s19} D=256 H=4 KV=1 window="
+             f"{RG_WINDOW} float32 (recurrentgemma-9b, a rank of (1, 4))",
+             flash_pair),
+            ("mamba2-1.3b", "B'=4 L=256 H=32 float32 (mamba2-1.3b, a rank "
+             "of (2, 2))", ssd_pair),
+            ("whisper-large-v3", f"Sq={WHISPER_MAX_SEQ} Sk={WHISPER_FRAMES} "
+             "D=64 H=KV=10 non-causal float32 (whisper-large-v3 cross, a "
+             "rank of (2, 2))", flash_pair),
+            ("internvl2-1b", f"S={s19 + 256} D=64 H=7 KV=1 float32 "
+             "(internvl2-1b, a rank of (2, 2))", flash_pair)):
         lanes = {k: r for k, r in mesh_train.items() if r["arch"] == arch}
-        for name, tag, src in (
-                ("flash_attention", "flash",
-                 "src/repro_torch/kernels/csrc/flash_attention.cu"),
-                ("flash_attention_bwd", "flash bwd",
-                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu")):
-            c = by[f"{tag} {case}"]
+        if not lanes:
+            continue
+        for name, tag, src, replaces in pair:
+            c = by[f"{tag}{case}"]
             by_lane = {k: sum(n.get(name, 0) for per_rank in r.get(
                 "launches_by_step", [r.get("launches_by_rank", [])])
                 for n in per_rank) for k, r in lanes.items()}
             kernels.append({
                 "name": f"{name} ({arch}, mesh training)", "route": "cuda",
-                "source": src,
-                "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+                "source": src, "replaces": replaces,
                 "launches": sum(by_lane.values()),
                 "launches_by_lane": by_lane,
                 "path": f"phase 19: {arch} on four gloo ranks, "

@@ -12,16 +12,15 @@ codec and the mesh partition rules.
     each rank's shard of a parameter or cache tree, which
     ``serve.step.make_serve_step`` serves from (tensor parallelism over
     "model", expert parallelism over it too, request parallelism over
-    "data") and ``train.step.make_train_step(mesh=...)`` trains the dense
-    and MoE families on (``train_specs``: FSDP over "data" on the
-    contraction dim, tensor and expert parallelism over "model", the
-    optimizer moments sharded as their params, the batch's rows split
-    over "data").
+    "data") and ``train.step.make_train_step(mesh=...)`` trains every
+    family on (``train_specs``: FSDP over "data" on the contraction dim,
+    tensor and expert parallelism over "model", Mamba2 by whole SSD
+    heads and the RG-LRU by channels, the optimizer moments sharded as
+    their params, the batch's rows split over "data").
 
 Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
-Not yet: Mamba2, the RG-LRU, the encoder-decoder and the VLM trained
-over a mesh (ROADMAP item 7.6c), a pod group beside a mesh and
-``launch.train`` over a mesh (7.6d).
+Not yet: a pod group beside a mesh and ``launch.train`` over a mesh
+(ROADMAP item 7.6d).
 """
 
 from . import compression, fault, sharding

@@ -74,15 +74,19 @@ def train_specs(cfg, mesh: Any, params_like: Any) -> Any:
     replicated over "model", the shared experts as a dense MLP; MLA's
     ``wq`` / ``w_uk`` / ``w_uv`` / ``wo`` by whole heads and its latent
     ``w_dkv`` ``("data",)``, whole on every model rank.
-    ``params_like``: the model's ``ParamSpec`` tree.  The dense and MoE
-    families only: the others raise ``ValueError`` naming ROADMAP item
-    7.6c."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"{cfg.name}: the mesh train step covers the dense "
-                         f"and MoE families; the {cfg.family} family waits "
-                         "for ROADMAP item 7.6c")
+    Mamba2 and the RG-LRU then take the parameter half of
+    ``state_specs``: Mamba2 by whole SSD heads (``in_proj``'s z, x and
+    dt columns, x's conv channels, ``A_log``, ``D_skip``, ``dt_bias``,
+    ``norm_w``, ``out_proj``'s rows; B and C whole, a ``Segments``
+    entry), the RG-LRU by LRU channels; "data" stays on the contraction
+    dims (``in_proj``'s, ``out_proj``'s and ``proj_x`` / ``proj_gate``'s
+    D).  The encoder-decoder's attentions (encoder ``attn``, decoder
+    ``self_attn`` and ``cross_attn``) split whole heads as any GQA does,
+    and so does the VLM's trunk.  ``params_like``: the model's
+    ``ParamSpec`` tree."""
     specs = partition_specs(params_like, train_rules(mesh), mesh)
-    return head_specs(cfg, mesh, specs, {}, params_like, {})[0]
+    specs = head_specs(cfg, mesh, specs, {}, params_like, {})[0]
+    return state_specs(cfg, mesh, specs, {}, params_like, {})[0]
 
 
 def axis_dim(spec: Spec, axis: str):
@@ -107,7 +111,9 @@ def first_holder(spec: Spec, mesh: Any) -> bool:
     """Whether the calling rank is the first of the ranks that hold its
     block of a leaf: its index is 0 on every mesh axis the spec does not
     split, and first among the ranks of a ``Copies`` block.  Summing
-    over the first holders counts each piece of the leaf once."""
+    over the first holders counts each piece of the leaf once, but for a
+    ``Segments`` dim, which counts here as whole over its axis (its
+    split segments on that axis's other ranks: ``norm_share``)."""
     split = {a for e in spec if not isinstance(e, Copies) for a in _axes(e)}
     for axis, size in mesh.shape.items():
         copies = [e for e in spec if isinstance(e, Copies) and e.axis == axis]
@@ -120,6 +126,33 @@ def first_holder(spec: Spec, mesh: Any) -> bool:
         if mesh.coords[axis] % holders:
             return False
     return True
+
+
+def norm_share(spec: Spec, mesh: Any):
+    """The part of the calling rank's block of a leaf that it counts in a
+    sum over the mesh that must see each piece once (the clip norm):
+    ``first_holder`` where the spec has no ``Segments`` dim; with one,
+    the rank counts its split segments wherever it is on the segments'
+    axis and the whole segments (held alike by every rank of the axis)
+    only at index 0 there, as ``first_holder`` counts the other axes.
+    Returns True (the whole block), False (nothing) or ``(dim, pieces)``:
+    the (start, width) of each counted piece of the block's ``dim``."""
+    seg = [(d, e) for d, e in enumerate(spec) if isinstance(e, Segments)]
+    if not seg:
+        return first_holder(spec, mesh)
+    (dim, entry), = seg
+    first = dataclasses.replace(mesh, coords={**mesh.coords, entry.axis: 0})
+    if not first_holder(spec, first):
+        return False
+    if mesh.coords[entry.axis] == 0:
+        return True
+    n, pieces, start = mesh.shape[entry.axis], [], 0
+    for width, split in entry.parts:
+        width = width // n if split else width
+        if split:
+            pieces.append((start, width))
+        start += width
+    return dim, tuple(pieces)
 
 
 def serve_rules(mesh: Any) -> Dict:

@@ -141,13 +141,18 @@ def gqa_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Cross attention: queries from x [B, S, D], K/V [B, Senc, KV, hd]
     precomputed from the encoder.  Only q and the output projection are
     evaluated here (no self-K/V products).  The heads are read from
-    ``wq`` (a rank of the mesh serve step holds its block of them, and of
-    the cross K/V), and ``wo``'s partial products are summed over the
-    model group."""
+    ``wq`` (a rank of the mesh serve or train step holds its block of
+    them, and of the cross K/V): ``x`` enters through the column-parallel
+    entry and ``wo``'s partial products are summed over the model
+    group."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     H = p["wq"].shape[-1] // hd
     dt = cfg.dtype
+    split = model_split(p["wo"].shape[0], cfg.q_dim,
+                        "the cross attention's wo")
+    if split:
+        x = model_entry(x)
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt).reshape(H, hd)
@@ -155,7 +160,7 @@ def gqa_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                        causal=False, softcap=cfg.attn_logit_softcap,
                        impl=impl)
     out = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
-    if model_split(p["wo"].shape[0], cfg.q_dim, "the cross attention's wo"):
+    if split:
         out = model_all_reduce(out)      # this rank's heads: a partial sum
     return out
 

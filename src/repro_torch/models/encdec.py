@@ -22,7 +22,12 @@ of the FFN and of the vocabulary, its self-attention pools and its cross
 K/V hold its KV heads (``encdec_prefill_cross`` computes a rank's own
 from its ``wk`` / ``wv``), and the serve step looks its tokens up
 vocab-parallel (``lm.embed_tokens``); the reference's ``constrain_batch``
-is a sharding hint with no counterpart.
+is a sharding hint with no counterpart.  On a rank of the mesh train step
+(``train.step``) the encoder and decoder gather each layer's FSDP shards
+inside its remat'd layer, the decoder looks its tokens up vocab-parallel
+(``lm.lookup_tokens``) and the encoder's output enters the decoder
+through one column-parallel entry: each layer's cross K/V read only this
+rank's KV heads.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .attention import cross_kv, gqa_cross, gqa_init, gqa_serve, gqa_train
 from .blocks import block_cache_init
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm_apply, norm_init
+from .shardctx import bind, fsdp_params, model_entry, model_split
 from .spec import ParamSpec
 
 
@@ -76,27 +82,30 @@ def encdec_init(cfg: ModelConfig) -> Dict:
 
 def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
            impl: Optional[str] = None) -> torch.Tensor:
-    """frames: [B, Senc, D] stub embeddings -> encoder hidden states."""
+    """frames: [B, Senc, D] stub embeddings -> encoder hidden states.
+    Under the mesh train step each layer's FSDP shards are gathered
+    inside its remat'd layer, ``enc_norm``'s where it is used."""
     B, S, D = frames.shape
     x = frames.to(cfg.dtype) + sinusoid_positions(
         S, D, device=frames.device).to(cfg.dtype)
 
     def layer(h, p):
+        p = fsdp_params(p, ("encoder",), stacked=True)
         a = norm_apply(p["norm1"], cfg, h)
         h = h + gqa_train(p["attn"], cfg, a, positions=None, causal=False,
                           use_rope=False, impl=impl)
         a = norm_apply(p["norm2"], cfg, h)
         return h + mlp_apply(p["mlp"], cfg, a)
 
-    layer = lm._remat(layer, cfg.remat)
+    layer = lm._remat(bind(layer), cfg.remat)
     for p in lm._unbind(params["encoder"], cfg.n_enc_layers):
         x = layer(x, p)
-    return norm_apply(params["enc_norm"], cfg, x)
+    return norm_apply(fsdp_params(params["enc_norm"], ("enc_norm",)), cfg, x)
 
 
 def _dec_embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                offset) -> torch.Tensor:
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    x = lm.lookup_tokens(params, cfg, tokens)
     return x + sinusoid_positions(tokens.shape[1], cfg.d_model, offset,
                                   device=x.device).to(cfg.dtype)
 
@@ -104,10 +113,18 @@ def _dec_embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  enc_out: torch.Tensor, *,
                  impl: Optional[str] = None) -> torch.Tensor:
-    """Teacher-forced decoder -> logits [B, S, V] (tied unembedding)."""
+    """Teacher-forced decoder -> logits [B, S, V] (tied unembedding).
+    Under the mesh train step each layer's FSDP shards are gathered
+    inside its remat'd layer, ``final_norm``'s where it is used, and
+    ``enc_out`` takes one column-parallel entry before the layers (each
+    layer's cross K/V reads only this rank's KV heads)."""
     x = _dec_embed(params, cfg, tokens, 0)
+    wo = params["decoder"]["cross_attn"]["wo"]
+    if model_split(wo.shape[-2], cfg.q_dim, "the cross attention's wo"):
+        enc_out = model_entry(enc_out)
 
     def layer(h, enc, p):
+        p = fsdp_params(p, ("decoder",), stacked=True)
         a = norm_apply(p["norm1"], cfg, h)
         h = h + gqa_train(p["self_attn"], cfg, a, positions=None,
                           causal=True, use_rope=False, impl=impl)
@@ -117,10 +134,11 @@ def decode_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         a = norm_apply(p["norm3"], cfg, h)
         return h + mlp_apply(p["mlp"], cfg, a)
 
-    layer = lm._remat(layer, cfg.remat)
+    layer = lm._remat(bind(layer), cfg.remat)
     for p in lm._unbind(params["decoder"], cfg.n_dec_layers):
         x = layer(x, enc_out, p)
-    return lm.unembed(params, cfg, norm_apply(params["final_norm"], cfg, x))
+    return lm.unembed(params, cfg, norm_apply(
+        fsdp_params(params["final_norm"], ("final_norm",)), cfg, x))
 
 
 def encdec_loss(params: Dict, cfg: ModelConfig, frames: torch.Tensor,

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .shardctx import (data_prefix, data_size, model_all_reduce,
-                       model_entry, model_rank, model_split)
+                       model_entry, model_psum, model_rank, model_split)
 from .spec import ParamSpec
 
 
@@ -51,12 +51,14 @@ def rmsnorm_gated(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
                   dtype, full: Optional[int] = None) -> torch.Tensor:
     """Mamba2's gated RMSNorm: norm(x * silu(gate)) * w, in float32.
     ``full``: the whole width, where ``x`` may hold a rank's block of it
-    (the mesh serve step's heads): each rank's sum of squares is then
-    summed over the model group before the mean."""
+    (the mesh serve and train steps' heads): each rank's sum of squares
+    is then summed over the model group before the mean
+    (``model_psum``: each rank's grad of the sum covers its own heads
+    only)."""
     xf = (x * F.silu(gate.float())).float()
     if full is not None and model_split(xf.shape[-1], full,
                                         "Mamba2's gated norm"):
-        var = model_all_reduce((xf ** 2).sum(-1, keepdim=True)) / full
+        var = model_psum((xf ** 2).sum(-1, keepdim=True)) / full
     else:
         var = (xf ** 2).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * w.float()).to(dtype)

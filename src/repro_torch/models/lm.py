@@ -83,26 +83,32 @@ def lm_init(cfg: ModelConfig) -> Dict:
     return params
 
 
-def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 prefix_embeds: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """Token embeddings [B, S, D]; a VLM's ``prefix_embeds`` [B, Np, D]
-    (its patch embeddings) go before them, cast to ``cfg.dtype``.  A
-    table split over the model group (the mesh serve step) is looked up
-    vocab-parallel: a token outside this rank's rows reads zeros, and the
-    sum over the group leaves each token its one row.  Under the mesh
-    train step the table's FSDP shards are gathered first."""
+def lookup_tokens(params: Dict, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``params["embed"]`` [B, S, D] for ``tokens``, in
+    ``cfg.dtype``.  A table split over the model group (the mesh serve
+    and train steps) is looked up vocab-parallel: a token outside this
+    rank's rows reads zeros, and the sum over the group leaves each token
+    its one row.  Under the mesh train step the table's FSDP shards are
+    gathered first."""
     table = fsdp_params(params["embed"], ("embed",)).to(cfg.dtype)
     rows = table.shape[0]
     if not model_split(rows, cfg.vocab, "the embedding"):
-        x = table[tokens.long()]
-    else:
-        local = tokens.long() - model_rank() * rows
-        mine = (local >= 0) & (local < rows)
-        x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
-                        torch.zeros((), dtype=table.dtype,
-                                    device=table.device))
-        x = model_all_reduce(x)
+        return table[tokens.long()]
+    local = tokens.long() - model_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return model_all_reduce(x)
+
+
+def embed_tokens(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings [B, S, D] (``lookup_tokens``; a hybrid's scaled by
+    sqrt(D)); a VLM's ``prefix_embeds`` [B, Np, D] (its patch embeddings)
+    go before them, cast to ``cfg.dtype``."""
+    x = lookup_tokens(params, cfg, tokens)
     if cfg.family == "hybrid":               # gemma-style embedding scale
         x = x * math.sqrt(cfg.d_model)
     if prefix_embeds is not None:
@@ -163,7 +169,9 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     """The final-normed hidden states [B, Np + S, D] of the full groups,
     then the tail; ``prefix_embeds`` as ``embed_tokens``.  Under the mesh
     train step each layer's FSDP shards are gathered inside its remat'd
-    group (``shardctx.fsdp_params``), ``final_norm``'s where it is used."""
+    group (``shardctx.fsdp_params``), each tail layer's where it runs
+    (without remat, as the reference's tail), ``final_norm``'s where it
+    is used."""
     pattern, n_full, tail = _pattern_groups(cfg)
     x = embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
@@ -182,8 +190,9 @@ def lm_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     for layer in range(n_full):
         x = group_fn(x, *(p[layer] for p in per_layer))
     for i, kind in enumerate(tail):
-        x = block_train(params["tail"][f"t{i}_{kind}"], cfg, kind, x,
-                        positions, impl=impl)
+        key = f"t{i}_{kind}"
+        x = block_train(fsdp_params(params["tail"][key], ("tail", key)), cfg,
+                        kind, x, positions, impl=impl)
     return norm_apply(fsdp_params(params["final_norm"], ("final_norm",)),
                       cfg, x)
 

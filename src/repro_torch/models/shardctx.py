@@ -10,8 +10,11 @@ variant; the model code calls
 
   * ``model_all_reduce(x)``: the sum over the model group of each rank's
     partial product (after ``wo`` of the attention and of the MLP, after
-    the MoE's routed and shared experts, and the vocab-parallel
-    embedding lookup);
+    the MoE's routed and shared experts, after Mamba2's and the RG-LRU's
+    ``out_proj``, and the vocab-parallel embedding lookup);
+  * ``model_psum(x)``: the same sum where each rank's consumer reads only
+    its own channels of it (Mamba2's gated norm's sum of squares, the
+    RG-LRU's gate pre-activations);
   * ``gather_vocab(x)``: the logits' vocab slices of every rank,
     concatenated in rank order along the last dim;
   * ``model_rank()``: this rank's index in the model group (its vocab
@@ -26,29 +29,36 @@ model group for the train step (``train.step``), the group of the ranks
 that split the parameters' contraction dim and the batch's rows (FSDP
 over "data", and the MoE's capacity count, as under ``gspmd``) and, in
 the parameters' structure, the dim of each leaf that is split over it.
-Under it the model code calls, besides the above (each of which
-autograd differentiates as Megatron's pair does),
+Under it the model code calls, besides the above (autograd
+differentiates ``model_all_reduce`` and ``model_entry`` as Megatron's
+pair does, ``model_psum`` as JAX's ``psum``),
 
   * ``model_entry(x)``: the column-parallel entry before a split
-    ``wq`` / ``wk`` / ``wv``, MLP ``wi`` or output head, and on what
+    ``wq`` / ``wk`` / ``wv``, MLP ``wi``, output head, Mamba2's z, x and
+    dt columns or the RG-LRU's ``proj_x`` / ``proj_gate``, and on what
     feeds only this rank's heads or experts (MLA's latent, the MoE's
-    routing weights and dispatched rows): ``x`` itself forward, the sum
-    over the model group of ``x``'s grad backward (each rank's heads,
-    columns, experts or vocab rows give a partial grad);
+    routing weights and dispatched rows, Mamba2's B and C, the
+    encoder's output before the cross attentions' ``wk`` / ``wv``):
+    ``x`` itself forward, the sum over the model group of ``x``'s grad
+    backward (each rank's heads, columns, experts or vocab rows give a
+    partial grad);
   * ``fsdp_params(tree, path)``: each leaf of the parameter subtree at
     ``path`` all-gathered over the data group on its FSDP dim; backward,
     the grad reduce-scattered (summed over the data ranks) back onto the
-    rank's shard.  ``lm_hidden`` calls it inside the remat'd layer group,
-    so remat "full" gathers again in the recompute and no layer's
-    gathered weights outlive it; ``bind(fn)`` carries the installed groups
-    into that recompute, which autograd runs on its device thread.
+    rank's shard.  ``lm_hidden``, ``encdec.encode`` and
+    ``encdec.decode_train`` call it inside each remat'd layer, so remat
+    "full" gathers again in the recompute and no layer's gathered
+    weights outlive it; ``bind(fn)`` carries the installed groups into
+    that recompute, which autograd runs on its device thread.
 
 The backward of ``model_all_reduce`` is the identity and that of
 ``gather_vocab`` this rank's vocab block of the grad: every rank of the
 model group runs the same replicated computation after either.  Never
 ``torch.distributed.nn``'s all_reduce, whose backward is an all-reduce
 too: after a row-parallel sum it would multiply every replicated grad
-by the model size.
+by the model size.  That backward is right only where each rank reads
+its own channels of the sum, so each rank's grad of it is partial:
+``model_psum``, a function of its own, used there alone.
 
 Outside a context (or in a group of one rank) the model collectives
 return ``x`` unchanged and ``model_rank()`` is 0, as the reference's
@@ -225,6 +235,24 @@ class _ModelSum(torch.autograd.Function):
         return grad, None
 
 
+class _ModelPsum(torch.autograd.Function):
+    """The sum read by channel: all-reduce forward, all-reduce of the
+    grad backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class _ModelEntry(torch.autograd.Function):
     """The column-parallel entry: identity forward, all-reduce of the
     input's grad backward."""
@@ -300,6 +328,17 @@ def model_all_reduce(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     dist.all_reduce(x, group=group)
     return x
+
+
+def model_psum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model group where each rank goes on with
+    its own channels of it: forward as ``model_all_reduce`` (bitwise),
+    backward the sum of the grad over the group (each rank's grad covers
+    only the channels it reads)."""
+    group, _ = _group()
+    if group is None or not _differentiated(x):
+        return model_all_reduce(x)
+    return _ModelPsum.apply(x, group)
 
 
 def model_entry(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ only the recurrence itself runs token by token; the projections, the
 causal conv (``conv_chunk``) and the gated norm run on the whole chunk,
 so that on a rank of the mesh serve step, which holds its block of
 whole SSD heads (``dist.sharding.state_specs``), the products that need
-every head are summed once a layer a step, whatever the chunk.
+every head are summed once a layer a step, whatever the chunk.  On a
+rank of the mesh train step ``mamba2_train`` and ``rglru_train`` run the
+same blocks (the SSD op on the rank's heads), differentiated through
+``shardctx``'s entries and sums.
 
 The depthwise causal convolution stays a shifted sum, as in the
 reference: ``F.conv1d`` would go through cuDNN, which runs float32
@@ -40,7 +43,8 @@ import torch.nn.functional as F
 from ..kernels.ssd_chunk import ssd_chunk
 from .config import ModelConfig
 from .layers import rmsnorm_gated
-from .shardctx import model_all_reduce, model_rank, model_split
+from .shardctx import (model_all_reduce, model_entry, model_psum,
+                       model_rank, model_split)
 from .spec import ParamSpec
 
 
@@ -131,24 +135,44 @@ def _mamba2_xbc_split(p: Dict, xbc: torch.Tensor):
 
 def mamba2_train(p: Dict, cfg: ModelConfig, u: torch.Tensor, *,
                  impl: Optional[str] = None) -> torch.Tensor:
-    """Chunked SSD forward. u: [B, S, D] -> [B, S, D]."""
-    d = mamba2_dims(cfg)
+    """Chunked SSD forward. u: [B, S, D] -> [B, S, D].  The heads are
+    those of ``p`` (all, or a rank's block of whole heads under the mesh
+    train step), read from ``A_log``'s and ``norm_w``'s widths.  On a
+    rank, z, x and dt come from ``u`` through the column-parallel entry;
+    B and C, which feed every head while the rank's SSD reads its own
+    heads only, come from ``u`` itself and take one entry after the
+    conv, so their columns of ``in_proj`` and the conv get the same,
+    whole grad on every rank and ``u``'s grad counts their path once.
+    The gated norm's sum of squares and ``out_proj``'s partial products
+    are summed over the model group."""
     B_, S, _ = u.shape
-    nh, hd, st = d["nheads"], d["hd"], d["state"]
+    nh, hd = p["A_log"].shape[-1], cfg.ssm_head_dim
+    di = p["norm_w"].shape[-1]
+    d_inner = mamba2_dims(cfg)["d_inner"]
+    split = model_split(di, d_inner, "Mamba2's heads")
     dt_ = cfg.dtype
     cl = min(cfg.ssm_chunk, S)
     if S % cl:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {cl}")
     nc = S // cl
 
-    zxbcdt = u @ p["in_proj"].to(dt_)
-    z, xbc, dtr = _mamba2_split(p, zxbcdt)
+    w = p["in_proj"].to(dt_)
+    if split:                          # z | x | B | C | dt
+        ue = model_entry(u)
+        zx = ue @ w[..., :2 * di]
+        z, dtr = zx[..., :di], ue @ w[..., -nh:]
+        xbc = torch.cat([zx[..., di:], u @ w[..., 2 * di:-nh]], dim=-1)
+    else:
+        z, xbc, dtr = _mamba2_split(p, u @ w)
     xbc = causal_conv1d(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
-    x, Bm, Cm = _mamba2_xbc_split(p, xbc)
+    x, bc = xbc[..., :di], xbc[..., di:]
+    if split:
+        bc = model_entry(bc)
+    st = bc.shape[-1] // 2
 
     x = x.reshape(B_, S, nh, hd).float()
-    Bm = Bm.float()                                     # [B, S, st], ngroups=1
-    Cm = Cm.float()
+    Bm = bc[..., :st].float()                           # [B, S, st], ngroups=1
+    Cm = bc[..., st:].float()
     dt = F.softplus(dtr.float() + p["dt_bias"].float())          # [B, S, nh]
     A = -torch.exp(p["A_log"].float())                           # [nh]
 
@@ -186,9 +210,12 @@ def mamba2_train(p: Dict, cfg: ModelConfig, u: torch.Tensor, *,
 
     y = (y_intra + y_inter).reshape(B_, S, nh, hd)
     y = y + x * p["D_skip"].float()[None, None, :, None]
-    y = y.reshape(B_, S, d["d_inner"])
-    y = rmsnorm_gated(y, z, p["norm_w"], dt_)
-    return y @ p["out_proj"].to(dt_)
+    y = y.reshape(B_, S, di)
+    y = rmsnorm_gated(y, z, p["norm_w"], dt_, full=d_inner)
+    out = y @ p["out_proj"].to(dt_)
+    if split:
+        out = model_all_reduce(out)      # this rank's heads: a partial sum
+    return out
 
 
 def _stacked(layers: Optional[int], *shape: int) -> Tuple[int, ...]:
@@ -288,13 +315,14 @@ def _rglru_coeffs(p: Dict, cfg: ModelConfig, xc: torch.Tensor):
     """xc: [..., L] post-conv activations -> (a, gated_x) float32.  On a
     rank that holds its block of the channels (``w_r`` / ``w_i`` rows,
     their columns whole), both gates' partial pre-activations are summed
-    over the model group in one ``model_all_reduce`` and the rank takes
-    its own channels' columns."""
+    over the model group in one ``model_psum`` (each rank's grad of the
+    sum covers its own channels only) and the rank takes its own
+    channels' columns."""
     dt = cfg.dtype
     local, full = xc.shape[-1], cfg.lru_width or cfg.d_model
     pre_r, pre_i = xc @ p["w_r"].to(dt), xc @ p["w_i"].to(dt)
     if model_split(local, full, "the RG-LRU's channels"):
-        pre = model_all_reduce(torch.cat([pre_r, pre_i], dim=-1))
+        pre = model_psum(torch.cat([pre_r, pre_i], dim=-1))
         lo = model_rank() * local
         pre_r = pre[..., lo:lo + local]
         pre_i = pre[..., full + lo:full + lo + local]
@@ -330,15 +358,25 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_train(p: Dict, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     """u: [B, S, D] -> [B, S, D] via h_t = a_t * h_{t-1} + m_t * x_t
-    (``linear_scan`` over S)."""
+    (``linear_scan`` over S).  The channels are those of ``p`` (all, or
+    a rank's block under the mesh train step): ``u`` enters ``proj_x``
+    and ``proj_gate`` through one column-parallel entry, and
+    ``out_proj``'s partial products are summed over the model group."""
     dt = cfg.dtype
+    split = model_split(p["out_proj"].shape[0], cfg.lru_width or cfg.d_model,
+                        "the RG-LRU's out_proj")
+    if split:
+        u = model_entry(u)
     gate = F.gelu((u @ p["proj_gate"].to(dt)).float(), approximate="tanh")
     x = u @ p["proj_x"].to(dt)
     xc = causal_conv1d(x, p["conv_w"].to(dt), p["conv_b"].to(dt))
     a, gated = _rglru_coeffs(p, cfg, xc)
     h = linear_scan(a, gated)
     y = (gate * h).to(dt)
-    return y @ p["out_proj"].to(dt)
+    out = y @ p["out_proj"].to(dt)
+    if split:
+        out = model_all_reduce(out)      # this rank's channels: a partial sum
+    return out
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, *, device: torch.device,

@@ -30,11 +30,11 @@ a restore on rank 0 broadcasts the params, the optimizer state and the
 pipeline's position, and hands each rank its own residual row.  The
 fault path (``monitor``, ``policy``) does not run over a group.
 
-With ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh; the
-dense and MoE families, ``train.step``) every rank draws the same global
-batch and keeps its data rank's rows (``train.step.mesh_rows``), and
-draws the same global parameters from the seed and keeps its shards of
-them.  Rank 0
+With ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh; every
+family, ``train.step``) every rank draws the same global batch and keeps
+its data rank's rows (``train.step.mesh_rows``; the frames and patch
+embeddings too), and draws the same global parameters from the seed and
+keeps its shards of them.  Rank 0
 alone holds the ``CheckpointManager`` and saves the gathered global state
 (every leaf all-gathered, assembled by ``dist.sharding.gather_params``),
 in the leaves and layout of an unsharded run; a restore on rank 0
@@ -182,10 +182,9 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
     """Run (or resume) training.  ``crash_at`` raises after that step's
     checkpointable state exists — tests use it to exercise restart.
     ``pod_group``: reduce the grads across this group's ranks; ``mesh``:
-    train the dense or MoE family over a ("data", "model") mesh (module
-    docstring).  Over either, ``ckpt`` belongs to rank 0 alone, and
-    ``monitor`` and ``policy`` are refused (each rank would plan on its
-    own)."""
+    train over a ("data", "model") mesh (module docstring).  Over either,
+    ``ckpt`` belongs to rank 0 alone, and ``monitor`` and ``policy`` are
+    refused (each rank would plan on its own)."""
     dev = resolve_device(device)
     rank = world = None
     if mesh is not None and pod_group is not None:

@@ -59,16 +59,23 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def sharded_norm(tree: Any, owned: Sequence[bool]) -> torch.Tensor:
+def sharded_norm(tree: Any, owned: Sequence[Any]) -> torch.Tensor:
     """The global norm of a tree sharded over the ranks of the default
-    group (the whole mesh): each rank sums the squares of the leaves it is
-    the first holder of (``owned``, in ``leaves`` order; a piece held by
-    several ranks counts once), one all-reduce sums the ranks' sums, then
-    the square root."""
+    group (the whole mesh): each rank sums the squares of what it owns of
+    each leaf (``owned``, in ``leaves`` order, ``dist.sharding.
+    norm_share``'s: True for the whole block, False for none of it, or
+    ``(dim, pieces)``, the (start, width) pieces of ``dim`` it owns; a
+    piece held by several ranks is owned by one), one all-reduce sums the
+    ranks' sums, then the square root."""
     flat = leaves(tree)
     sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
     for x, own in zip(flat, owned, strict=True):
-        if own:
+        if isinstance(own, tuple):
+            dim, pieces = own
+            for start, width in pieces:
+                sq = sq + torch.sum(torch.square(
+                    x.narrow(dim, start, width).float()))
+        elif own:
             sq = sq + torch.sum(torch.square(x.float()))
     sq = sq.reshape(1)
     dist.all_reduce(sq)

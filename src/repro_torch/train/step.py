@@ -24,24 +24,27 @@ the replicated parameters stay bitwise equal.  ``codec="none"`` takes the
 exact float32 mean instead (the reference's uncompressed pod reduction),
 and so does an encoder-decoder, as in the reference.
 
-Given ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh), the
-dense and MoE families train as the reference's GSPMD step does, every
-collective explicit (``models.shardctx``): each rank holds its shards of
-the params and of both moments (``dist.sharding.train_specs``: the
-reference's ``train_rules``, FSDP over "data" on the contraction dim and
-tensor and expert parallelism over "model", then whole query heads and
-whole or copied KV heads; MLA's latent and the MoE's router whole on
-every model rank), all-gathers each layer's shards over "data" inside
-its remat'd group and reduce-scatters their grads, sums the row-parallel
-products and enters the column-parallel ones over "model", counts each
-microbatch's expert capacity over "data" (``layers.moe_route``), and
-runs AdamW on its shards with the whole model's clip norm.  It takes
-this data rank's rows of the global batch (each leaf indexed by
+Given ``mesh`` (``launch.mesh.make_mesh``'s ("data", "model") mesh),
+every family trains as the reference's GSPMD step does, every collective
+explicit (``models.shardctx``): each rank holds its shards of the params
+and of both moments (``dist.sharding.train_specs``: the reference's
+``train_rules``, FSDP over "data" on the contraction dim and tensor and
+expert parallelism over "model", then whole query heads and whole or
+copied KV heads, Mamba2 by whole SSD heads with B and C whole, the
+RG-LRU by channels; MLA's latent and the MoE's router whole on every
+model rank), all-gathers each layer's shards over "data" inside its
+remat'd layer (a hybrid's tail layer where it runs) and reduce-scatters
+their grads, sums the row-parallel products and enters the
+column-parallel ones over "model", counts each microbatch's expert
+capacity over "data" (``layers.moe_route``), and runs AdamW on its
+shards with the whole model's clip norm (``dist.sharding.norm_share``:
+each piece once, a split segment on every model rank).  It takes this
+data rank's rows of the global batch (each leaf, the VLM's patch
+embeddings and the encoder-decoder's frames too, indexed by
 ``mesh_rows``).  ``specs`` is then the parameters' (and each moment's)
 specs; None without a mesh.
 
-Not ported: Mamba2, the RG-LRU, the encoder-decoder and the VLM over a
-mesh (ROADMAP 7.6c), a pod group beside a mesh (7.6d),
+Not ported: a pod group beside a mesh (ROADMAP 7.6d),
 ``models/shardctx.py``'s activation hints (layout hints to XLA's
 partitioner; eager PyTorch has none) and
 ``pod_err_struct`` (the residuals' shapes for the dry run's lowering).
@@ -57,8 +60,8 @@ import torch
 import torch.distributed as dist
 
 from ..dist import compression
-from ..dist.sharding import (axis_dim, copies_of, first_holder,
-                             shard_params, train_specs)
+from ..dist.sharding import (axis_dim, copies_of, norm_share, shard_params,
+                             train_specs)
 from ..kernels.common import resolve_device
 from ..models.registry import ModelAPI
 from ..models.shardctx import training_mesh
@@ -223,12 +226,13 @@ def make_mesh_loss_and_grad(api: ModelAPI, mesh: Any, specs: Any,
     over "data" (``bq`` / ``bk`` / ``bv``, a dim that does not divide),
     sums a copied KV head's over its copy group (each copy saw its own
     query heads only: what GSPMD does for the reference's split inside a
-    head) and divides every grad by the data size.  A leaf replicated
-    over "model" (norms, MLA's ``w_dkv``, the MoE's router) needs no
-    model reduction: the column-parallel entries (``shardctx.
-    model_entry``, also on MLA's latent and the MoE's routing weights
-    and dispatched rows) give it the same, whole grad on every model
-    rank."""
+    head) and divides every grad by the data size.  A leaf, or a whole
+    segment, replicated over "model" (norms, MLA's ``w_dkv``, the MoE's
+    router, Mamba2's B and C columns) needs no model reduction: the
+    column-parallel entries (``shardctx.model_entry``, also on MLA's
+    latent, the MoE's routing weights and dispatched rows, Mamba2's B
+    and C and the encoder's output) give it the same, whole grad on
+    every model rank."""
     like = api.init_specs()
     flat_specs = []
     map_with_path(lambda _, __, spec: flat_specs.append(spec), like, specs)
@@ -273,7 +277,7 @@ def _mesh_train_step(api: ModelAPI, opt_cfg: AdamWConfig, mesh: Any,
                      specs: Any, microbatches: int, impl: Optional[str]):
     """(train_step, init_state) of the mesh (module docstring)."""
     owned = []
-    map_with_path(lambda _, __, spec: owned.append(first_holder(spec, mesh)),
+    map_with_path(lambda _, __, spec: owned.append(norm_share(spec, mesh)),
                   api.init_specs(), specs)
     norm = functools.partial(sharded_norm, owned=owned)
     loss_and_grad = make_mesh_loss_and_grad(api, mesh, specs, microbatches,

@@ -11,6 +11,9 @@ their own, and what their gates can tell apart.
                                [--broken-train-count]
                                [--broken-router-entry]
                                [--broken-latent-entry]
+                               [--broken-norm-sum] [--broken-gate-sum]
+                               [--broken-bc-entry] [--broken-cross-entry]
+                               [--broken-segment-norm] [--noise]
                                [--train-archs ARCH,...]
 
 ``--phase17`` runs ``chip_smoke.phase17`` on every model of
@@ -41,7 +44,8 @@ that differ where the reference's top-2 gap exceeds the noise:
 
 ``--phase19`` runs ``chip_smoke.phase19`` (the mesh train step on four
 gloo ranks against the unsharded step), gated, on the lanes of
-``--train-archs`` (default: all of ``TRAIN_MESH_LANES``); its broken
+``--train-archs`` (default: all of ``TRAIN_MESH_LANES``; internvl2-1b's
+lane, ``TRAIN_MESH_GATE_LANES``, runs only when named); its broken
 copies, patched into the spawned ranks and logged ungated, give the
 readings ``TRAIN_MESH_TOL`` lies below:
 
@@ -56,13 +60,39 @@ readings ``TRAIN_MESH_TOL`` lies below:
   * ``--broken-router-entry``: no ``model_entry`` on the MoE's routing
     weights, so the router's grad keeps only this rank's experts' part;
   * ``--broken-latent-entry``: no ``model_entry`` on MLA's latent, so
-    ``w_dkv``'s grad keeps only this rank's heads' part.
+    ``w_dkv``'s grad keeps only this rank's heads' part;
+  * ``--broken-norm-sum``: Mamba2's gated norm's sum of squares with an
+    identity backward (``model_all_reduce`` for ``model_psum``), so each
+    rank's input grads miss the other heads' part of the norm's;
+  * ``--broken-gate-sum``: the same for the RG-LRU's gate
+    pre-activations;
+  * ``--broken-bc-entry``: no ``model_entry`` on Mamba2's B and C, so
+    their columns of ``in_proj`` and the conv keep this rank's heads'
+    part of the grad and their copies part;
+  * ``--broken-cross-entry``: no ``model_entry`` on the encoder's output
+    before the decoder's cross attentions, so the encoder's grads keep
+    this rank's heads' part;
+  * ``--broken-segment-norm``: the clip norm's old count
+    (``first_holder``), which drops the z, x and dt blocks of Mamba2's
+    ``Segments`` leaves on model ranks 1..m-1.
 
-The last three run the deepseek-v2-lite-16b lane alone.
+``--broken-train-count``, ``--broken-router-entry`` and
+``--broken-latent-entry`` run the deepseek-v2-lite-16b lane alone;
+``--broken-norm-sum``, ``--broken-bc-entry`` and
+``--broken-segment-norm`` the mamba2-1.3b lane, ``--broken-gate-sum``
+the recurrentgemma-9b lane, ``--broken-cross-entry`` the
+whisper-large-v3 lane.
+
+``--noise`` runs phase 19 (a)'s unsharded float32 steps of each arch of
+``--train-archs`` (default: mamba2-1.3b and qwen2-1.5b) twice, through
+the kernels and through their plain versions (``impl="ref"``), from the
+same params and batches: how far two correct runs part over the three
+steps, the floor under the mesh lanes' readings.
 
 ``--cases`` holds the fused op, the latent attention and the flash cross
-attention at each rank's shape, and the flash forward and backward at
-phase 19's and ``tools/mesh_train.py``'s (phase 1's per-rank cases);
+attention at each rank's shape, and the flash forward and backward and
+``ssd_chunk``'s at phase 19's and ``tools/mesh_train.py``'s (phase 1's
+per-rank cases, and ``ssd_chunk`` at 16 heads, a rank of (1, 4));
 ``--phase1`` runs every phase-1 case and logs its seconds; ``--windows``
 times 20 CUPTI windows of one small kernel, the cost of a window. With no
 flag it does ``--phase17``, ``--broken`` and ``--cases``. Needs a CUDA
@@ -238,10 +268,91 @@ def broken_latent_entry_entry(rank, world, tmp, lanes):
     cs._train_mesh_rank_entry(rank, world, tmp, lanes)
 
 
+def broken_norm_sum_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with the gated norm's sum backward the
+    identity."""
+    layers.model_psum = shardctx.model_all_reduce
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_gate_sum_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with the RG-LRU gates' sum backward the
+    identity."""
+    ssm.model_psum = shardctx.model_all_reduce
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_bc_entry_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with no entry on Mamba2's B and C (the second
+    ``model_entry`` of ``mamba2_train``, after the one on ``u``)."""
+    blocks.mamba2_train = skipping_entry(ssm.mamba2_train, ssm, 1)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_cross_entry_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with no entry on the encoder's output."""
+    encdec.model_entry = lambda x: x
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_segment_norm_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with the clip norm counting a ``Segments`` leaf on
+    model rank 0 alone."""
+    from repro_torch.dist import sharding
+    from repro_torch.train import step
+    step.norm_share = sharding.first_holder
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def path_gaps(arch: str) -> dict:
+    """Phase 19 (a)'s three unsharded float32 steps of ``arch`` through
+    the kernels and through their plain versions: the largest relative
+    loss and grad-norm gaps of the steps, each step's, and the largest
+    param gap after them with its leaf."""
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, map_with_path
+
+    cfg = cs.train_mesh_config(arch, torch.float32)
+    api = build_model(cfg)
+    runs = {}
+    for impl in (None, "ref"):
+        step, init_state, _ = make_train_step(
+            api, cs.train_mesh_opt(arch),
+            microbatches=cs.TRAIN_MESH_MODELS[arch].microbatches, impl=impl)
+        state = init_state(cs.train_mesh_params(api, arch))
+        rec = {"loss": [], "grad_norm": []}
+        for b in cs.train_mesh_batches(arch, cfg):
+            state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                    for k, v in b.items()})
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["params"] = [p.cpu() for p in leaves(state["params"])]
+        runs[impl] = rec
+        del state
+        cs.release()
+    names = []
+    map_with_path(lambda path, _: names.append("/".join(path)),
+                  api.init_specs())
+    gaps = [float((a - b).abs().max()) for a, b in
+            zip(runs[None]["params"], runs["ref"]["params"])]
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    rel = {k: [abs(a / b - 1) for a, b in zip(runs[None][k], runs["ref"][k])]
+           for k in ("loss", "grad_norm")}
+    return {"arch": arch, "loss_rel_gap_by_step": rel["loss"],
+            "grad_norm_rel_gap_by_step": rel["grad_norm"],
+            "loss_rel_gap": max(rel["loss"]),
+            "grad_norm_rel_gap": max(rel["grad_norm"]),
+            "param_abs_gap": gaps[worst], "param_abs_gap_leaf": names[worst],
+            "lr": cs.TRAIN_MESH_OPT["lr"],
+            "eps": cs.TRAIN_MESH_MODELS[arch].eps}
+
+
 def train_readings(out: dict) -> list:
     return [{k: r.get(k) for k in (
         "arch", "mesh", "lane", "loss_rel_gap", "grad_norm_rel_gap",
-        "param_abs_gap", "leaves_whose_copies_differ", "dropped",
+        "param_abs_gap", "param_abs_gap_leaf", "leaves_whose_copies_differ",
+        "dropped",
         "reference_dropped", "step_s_median_2_3", "peak_mem_gb_by_rank",
         "seconds_by_rank")}
             for r in out["lanes"].values()]
@@ -329,7 +440,9 @@ def main() -> int:
                  "broken-state-out", "broken-norm-gate", "broken-cross",
                  "cases", "phase1", "windows", "phase19", "broken-copies",
                  "broken-data-mean", "broken-train-count",
-                 "broken-router-entry", "broken-latent-entry"):
+                 "broken-router-entry", "broken-latent-entry",
+                 "broken-norm-sum", "broken-gate-sum", "broken-bc-entry",
+                 "broken-cross-entry", "broken-segment-norm", "noise"):
         ap.add_argument(f"--{flag}", action="store_true")
     ap.add_argument("--models", default=None,
                     help="comma-separated MESH_MODELS keys (default: all)")
@@ -343,7 +456,10 @@ def main() -> int:
                  or args.cases or args.phase1 or args.windows
                  or args.phase19 or args.broken_copies
                  or args.broken_data_mean or args.broken_train_count
-                 or args.broken_router_entry or args.broken_latent_entry)
+                 or args.broken_router_entry or args.broken_latent_entry
+                 or args.broken_norm_sum or args.broken_gate_sum
+                 or args.broken_bc_entry or args.broken_cross_entry
+                 or args.broken_segment_norm or args.noise)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -388,8 +504,14 @@ def main() -> int:
                 rng, C, f"attention D=576 H=4 C={C} (deepseek)", h=4, kv=1,
                 d=576, alias=True))
         for case in cs.state_mesh_cases(rng) + cs.train_mesh_flash_cases(
-                rng):
+                rng) + cs.ssd_mesh_cases(rng):
             emit(case=case)
+        rank4 = dict(cs.SSD_MESH_RANK, H=16)
+        emit(case=cs.ssd_case(rng, "ssd B'=4 L=256 H=16 float32 "
+                              "(mamba2-1.3b, a rank of (1, 4))", **rank4))
+        emit(case=cs.ssd_bwd_case(rng, "ssd bwd B'=4 L=256 H=16 float32 "
+                                  "(mamba2-1.3b, a rank of (1, 4))",
+                                  **rank4))
 
     def phase1() -> None:
         got = cs.phase1_cases()
@@ -450,10 +572,17 @@ def main() -> int:
             "overflowing router, gspmd counts shard-locally", ds,
             broken_count_entry, scaled_init))
     archs = args.train_archs.split(",") if args.train_archs else None
-    lanes = tuple(x for x in cs.TRAIN_MESH_LANES
-                  if archs is None or x[0] in archs)
-    moe_lanes = tuple(x for x in cs.TRAIN_MESH_LANES
-                      if x[0] == "deepseek-v2-lite-16b")
+    lanes = cs.TRAIN_MESH_LANES if archs is None else tuple(
+        x for x in cs.TRAIN_MESH_GATE_LANES if x[0] in archs)
+    def arch_lanes(arch: str) -> tuple:
+        return tuple(x for x in cs.TRAIN_MESH_LANES if x[0] == arch)
+
+    moe_lanes = arch_lanes("deepseek-v2-lite-16b")
+    mamba_lanes = arch_lanes("mamba2-1.3b")
+    if args.noise:
+        for arch in archs or ("mamba2-1.3b", "qwen2-1.5b"):
+            attempt(f"noise {arch}", lambda arch=arch: emit(
+                noise=path_gaps(arch)))
     if args.phase19:
         attempt("phase19", lambda: emit(lane="phase 19", readings=(
             train_readings(cs.phase19(card, lanes=lanes)))))
@@ -467,7 +596,19 @@ def main() -> int:
             (args.broken_router_entry, broken_router_entry_entry,
              "no entry on the routing weights", moe_lanes),
             (args.broken_latent_entry, broken_latent_entry_entry,
-             "no entry on MLA's latent", moe_lanes)):
+             "no entry on MLA's latent", moe_lanes),
+            (args.broken_norm_sum, broken_norm_sum_entry,
+             "the gated norm's sum, identity backward", mamba_lanes),
+            (args.broken_gate_sum, broken_gate_sum_entry,
+             "the RG-LRU gates' sum, identity backward",
+             arch_lanes("recurrentgemma-9b")),
+            (args.broken_bc_entry, broken_bc_entry_entry,
+             "no entry on Mamba2's B and C", mamba_lanes),
+            (args.broken_cross_entry, broken_cross_entry_entry,
+             "no entry on the encoder's output",
+             arch_lanes("whisper-large-v3")),
+            (args.broken_segment_norm, broken_segment_norm_entry,
+             "the clip norm's old count of Segments leaves", mamba_lanes)):
         if flag:
             attempt(what, lambda entry=entry, what=what, on=on: emit(
                 lane=what, readings=train_readings(

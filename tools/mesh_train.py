@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A dense or MoE model at full width trained by the mesh train step over
-NCCL, one rank a card.
+"""A model at full width trained by the mesh train step over NCCL, one
+rank a card.
 
     torchrun --standalone --nproc-per-node 4 tools/mesh_train.py \
         [--arch minitron-8b] [--layers N] [--meshes 2x2,1x4] [--steps 4] \
@@ -11,22 +11,26 @@ minitron-8b at all 32 layers: ~7.7 G parameters, whose float32 params,
 moments and grad buffers, ~123 GB, do not fit one card; grok-1-314b
 with ``--layers 2``, 11.45 G; deepseek-v2-lite-16b with ``--layers 20``,
 12.12 G: whole experts a model rank, the router and MLA's latent whole
-on each) through
+on each; recurrentgemma-9b at all 38 layers, 10.45 G: a model rank's
+LRU channels and query heads over a copied KV head; mamba2-1.3b,
+whisper-large-v3 (``--layers`` cuts both stacks) and internvl2-1b too)
+through
 ``repro_torch.train.step.make_train_step(mesh=...)``: FSDP over "data",
 tensor parallelism over "model", bf16 compute on float32 master params,
 remat "full".  Each rank holds its shard of the params (drawn on its own
 card from a seed a leaf, a block and a layer, as ``tools/mesh_serve.py``
 draws them: the global leaf never exists) and makes its moments on it.
 The batch is ``chip_smoke.py`` phase 4's: TRAIN_4K sequences (4096
-tokens) cut to 4, in microbatches of one sequence a data rank (2 at
+tokens; whisper's 448 against 1500 frames, internvl2's after 256 patch
+embeddings) cut to 4, in microbatches of one sequence a data rank (2 at
 (2, 2), 4 at (1, 4)), each data rank its rows of each (``mesh_rows``);
 ``--steps`` AdamW steps.  Logged: each card's name and power limit
 (``nvidia-smi``), the init's seconds and each rank's shard GB, the
 losses, trained tokens/s and the median step time of steps 2 to the
 last (host clock to the loss on the host), each rank's peak memory and
-flash launches a step, and a CUPTI window over one more step: each
-rank's device busy time against its host's wall time (the idle share),
-the flash kernels' and NCCL's time.  Rank 0 builds the kernels while the
+flash (Mamba2: ``ssd_chunk``) launches a step, and a CUPTI window over
+one more step: each rank's device busy time against its host's wall
+time (the idle share), the kernels' and NCCL's time.  Rank 0 builds the kernels while the
 others wait at a barrier; rank 0 writes the summary to ``--out`` after
 each mesh (a later mesh that runs out of memory leaves the earlier ones)
 and prints it last.  A collective that waits 300 s fails the run.  Needs
@@ -66,6 +70,12 @@ from repro_torch.train.step import make_train_step, mesh_rows  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 
+def seq_len(cfg) -> int:
+    """Tokens a sequence: phase 4's, or an encoder-decoder's target
+    length (phase 15's)."""
+    return cs.WHISPER_MAX_SEQ if cfg.family == "encdec" else cs.TRAIN_S
+
+
 def train_on(api, shape, steps: int) -> dict:
     """One mesh: this rank's shards drawn, ``steps`` timed steps, then a
     profiled one."""
@@ -85,8 +95,8 @@ def train_on(api, shape, steps: int) -> dict:
     init_s = time.perf_counter() - t0
     shard_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
     take = mesh_rows(cs.TRAIN_BATCH, microbatches, data, mesh.coords["data"])
-    pipe = TokenPipeline(cfg, global_batch=cs.TRAIN_BATCH, seq_len=cs.TRAIN_S,
-                         seed=0)
+    pipe = TokenPipeline(cfg, global_batch=cs.TRAIN_BATCH,
+                         seq_len=seq_len(cfg), seed=0)
     batches = [{k: torch.from_numpy(v[take]).cuda()
                 for k, v in pipe.batch_at(i).items()}
                for i in range(steps + 1)]
@@ -108,15 +118,15 @@ def train_on(api, shape, steps: int) -> dict:
     profile = cs.profiled_window(lambda: one(batches[steps]), 1, {
         "flash_attention": list(cs.FLASH_KERNELS.values()),
         "flash_attention_bwd": list(cs.FLASH_BWD_KERNELS[torch.bfloat16]),
-        "nccl": ["nccl"]})
+        "ssd_chunk": list(cs.SSD_FWD_KERNELS),
+        "ssd_chunk_bwd": list(cs.SSD_BWD_KERNELS), "nccl": ["nccl"]})
     median = statistics.median(step_s[1:])
-    want = {"flash_attention": 2 * cfg.n_layers * microbatches,
-            "flash_attention_bwd": cfg.n_layers * microbatches}
+    want = cs.train_launches(cfg, microbatches)
     out = {"mesh": dict(mesh.shape), "coords": mesh.coords,
            "microbatches": microbatches, "init_s": init_s,
            "shard_gb": shard_gb, "losses": losses, "step_s": step_s,
            "step_s_median_2_last": median,
-           "tokens_per_s": cs.TRAIN_BATCH * cs.TRAIN_S / median,
+           "tokens_per_s": cs.TRAIN_BATCH * seq_len(cfg) / median,
            "peak_mem_gb": peak, "launches_per_step": launches[0],
            "launches_ok": all({k: n.get(k, 0) for k in want} == want
                               for n in launches),
@@ -149,7 +159,9 @@ def main() -> int:
     build_s = time.perf_counter() - t_start
     cfg = get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        stacks = dict(n_enc_layers=args.layers, n_dec_layers=args.layers) \
+            if cfg.family == "encdec" else {}
+        cfg = dataclasses.replace(cfg, n_layers=args.layers, **stacks)
     api = build_model(cfg)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -158,7 +170,7 @@ def main() -> int:
     out = {"cards": smi, "arch": cfg.name, "layers": cfg.n_layers,
            "params": sum(math.prod(s.shape)
                          for s in leaves(api.init_specs())),
-           "seq_len": cs.TRAIN_S, "batch": cs.TRAIN_BATCH,
+           "seq_len": seq_len(cfg), "batch": cs.TRAIN_BATCH,
            "steps": args.steps, "backend": str(dist.get_backend()),
            "runs": []}
     for text in args.meshes.split(","):
