@@ -127,7 +127,7 @@ sm_90a) and then, failing with a non-zero exit on any error:
      but for its trie's pins, every engine serves one copy of the weights,
      and every qwen2 step of every engine, restored pages included,
      launches the fused append and attention once a layer;
- 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width on 8
+ 11. drives SplitFS in the trainer: (a) qwen2-1.5b at full width on 2
      of its 28 layers, phase 4's shape, ``run_training`` with a
      ``CheckpointManager(keep=1)``: on a SYNC ``USplit``, 4 steps with a
      save every 2 and a crash after step 3; ``Volume.mount`` of the same
@@ -278,11 +278,11 @@ sm_90a) and then, failing with a non-zero exit on any error:
      1024 LRU channels and 4 heads over a copied KV head a rank, 4
      microbatches of one sequence of 1024 tokens, its (a) and its ranks
      each alone on the card (8 / 4 flash launches); qwen2-1.5b on 2 of
-     28 layers, 2 microbatches of 2 x 1024 tokens: float32 at (2, 2)
-     (FSDP over "data", 6 heads over 1 KV head a rank) and (1, 4) (3
-     heads over a copied KV head), bf16 at (2, 2) through
-     ``run_training(mesh=...)`` (its step time, peak memory a rank and
-     loss gap to (a)'s logged); deepseek-v2-lite-16b on 1 of 27 layers
+     28 layers, 2 microbatches of 2 x 1024 tokens: float32 at (1, 4) (3
+     heads over a KV head copied on two ranks, its grads summed over the
+     copy group), bf16 at (2, 2) through ``run_training(mesh=...)`` (its
+     step time, peak memory a rank and loss gap to (a)'s logged);
+     deepseek-v2-lite-16b on 1 of 27 layers
      at (2, 2) (8 heads, 32 whole experts and the whole latent a rank)
      on (a)'s top-k picks, every router's column 0 scaled by 16 so that
      expert 0 overflows each microbatch's capacity: the picks dropped a
@@ -291,14 +291,25 @@ sm_90a) and then, failing with a non-zero exit on any error:
      mamba2-1.3b on 2 of 48 layers at (2, 2) (32 of 64 SSD heads a rank,
      B and C whole; 8 ``ssd_chunk`` and 4 ``ssd_chunk_bwd`` launches);
      whisper-large-v3 on 1 encoder and 1 decoder layer at (2, 2) (10
-     heads a rank; 1500 frames, 448 tokens).  internvl2-1b's lane (2 of
-     24 layers at (2, 2), 7 heads over 1, 256 patch embeddings before
-     1024 tokens) runs in ``tools/mesh_gate.py`` alone: the script's 1200
-     s do not hold it.
+     heads a rank; 1500 frames, 448 tokens); qwen2-1.5b's pod lanes
+     (ROADMAP 7.6d) at (pod, data, model) = (2, 1, 2), each pod 2 of the
+     4 rows: under int8 (each pod the whole model, 6 heads over 1 a
+     rank, its shards reduced with the other pod's on its own buckets)
+     held to ``POD_TOL`` (its step-1 loss, before the codec acts, to
+     ``TRAIN_MESH_TOL``), its params bitwise equal across the pods, and
+     on every rank the error-feedback identity within its float32 bound
+     (``PodProbe``), which pod 0's residuals in place of pod 1's, and
+     the clip norm over every pod's pieces, must break; uncompressed
+     ("pod" in FSDP and the batch, the (2, 2) view: FSDP over "data", 6
+     heads over 1 KV head a rank) held to ``TRAIN_MESH_TOL``.
+     internvl2-1b's lane (2 of 24 layers at (2, 2), 7 heads over 1, 256
+     patch embeddings before 1024 tokens) runs in ``tools/mesh_gate.py``
+     alone: the script's 1200 s do not hold it; so does qwen2-1.5b's
+     float32 (2, 2) lane, the uncompressed pod lane's step.
 
 Every phase runs its model at full depth, but grok-1-314b (2 of 64
 layers: its bf16 weights are ~632 GB; 2 and 1 in phase 17), phase 11
-(a)'s qwen2-1.5b (8
+(a)'s qwen2-1.5b (2
 of its 28 layers, at full width: three saves and three restores of the
 full-depth state took 462-598 s of the script's 1200 s) and phase 15's
 deepseek-v2-lite-16b (4 of 27 layers) and recurrentgemma-9b (4 of 38):
@@ -490,11 +501,14 @@ PHASE15 = (("deepseek-v2-lite-16b", DS_TRAIN_LAYERS, TRAIN_S, 0, True),
            ("recurrentgemma-9b", RG_TRAIN_LAYERS, TRAIN_S, 1, False),
            ("internvl2-1b", None, TRAIN_S, 2, False),
            ("whisper-large-v3", None, WHISPER_MAX_SEQ, 0, False))
-# phase 11 (a): qwen2-1.5b at full width on 8 of its 28 layers, a 7.3 GB
+# phase 11 (a): qwen2-1.5b at full width on 2 of its 28 layers, a 3.92 GB
 # state (three saves and three restores of the full 18.52 GB state took
 # 462-598 s of the script's 1200 s; of the 10.66 GB state on 14 layers,
-# 291-305 s, when phase 17 took the script to 1095-1183 s)
-PHASE11_LAYERS = 8
+# 291-305 s, when phase 17 took the script to 1095-1183 s; the 7.29 GB
+# state on 8 layers took phase 11 to 157.7-188.2 s, when phase 19's pod
+# lanes took the script to 1051.3-1159.7 s as the host's speed varied,
+# PERF.md §6)
+PHASE11_LAYERS = 2
 # phase 16: the compressed gradient reduction on qwen2-1.5b.  (a) one rank
 # (NCCL) at full width and depth, phase 4's shape, 3 steps a codec from the
 # same params; (b) two ranks on the one card over gloo (NCCL refuses two
@@ -4578,20 +4592,30 @@ TRAIN_MESH_MODELS = {
     "whisper-large-v3": TrainMeshModel(1, seq=WHISPER_MAX_SEQ),
     "internvl2-1b": TrainMeshModel(2),    # of 24; 256 patches + the text
 }
+# the pod lanes (train/step.py over a ("pod", "data", "model") mesh):
+# qwen2-1.5b at (2, 1, 2), each pod half of the global batch, through the
+# int8 pod reduction on each rank's own buckets, then uncompressed ("pod"
+# joins FSDP and the batch: the (2, 2) view, rank for rank and row for
+# row the float32 (2, 2) lane, which it replaces here), both in float32
+POD_SHAPE = (2, 1, 2)
+POD_CODECS = ("int8", "none")
+POD_LANES = tuple(("qwen2-1.5b", POD_SHAPE, codec) for codec in POD_CODECS)
 TRAIN_MESH_LANES = (("recurrentgemma-9b", (1, 4), "float32"),
-                    ("qwen2-1.5b", (2, 2), "float32"),
                     ("qwen2-1.5b", (1, 4), "float32"),
                     ("qwen2-1.5b", (2, 2), "bfloat16"),
                     ("deepseek-v2-lite-16b", (2, 2), "float32"),
                     ("mamba2-1.3b", (2, 2), "float32"),
-                    ("whisper-large-v3", (2, 2), "float32"))
+                    ("whisper-large-v3", (2, 2), "float32")) + POD_LANES
 # internvl2-1b's lane (23 s of the ranks, PERF.md §6) does not fit the
 # script's 1200 s beside the others; the VLM's trunk is the dense lanes'
 # code, its prefix held by tests/test_torch_train_mesh_state.py on the
-# CPU and by ``tools/mesh_gate.py --phase19 --train-archs internvl2-1b``
-# on the card, which picks from these
-TRAIN_MESH_GATE_LANES = TRAIN_MESH_LANES + (
-    ("internvl2-1b", (2, 2), "float32"),)
+# CPU.  qwen2-1.5b's float32 (2, 2) lane is the uncompressed pod lane's
+# step on the same ranks and rows (their readings are bitwise equal,
+# PERF.md §6).  Both run on the card with ``tools/mesh_gate.py
+# --phase19``, which picks from these
+TRAIN_MESH_GATE_ONLY = (("qwen2-1.5b", (2, 2), "float32"),
+                        ("internvl2-1b", (2, 2), "float32"))
+TRAIN_MESH_GATE_LANES = TRAIN_MESH_LANES + TRAIN_MESH_GATE_ONLY
 TRAIN_MESH_RANKS = 4
 TRAIN_MESH_TIMEOUT = 600             # seconds for the ranks, from the spawn
 # float32 lanes against the unsharded float32 step on the same card, over
@@ -4610,10 +4634,51 @@ TRAIN_MESH_TIMEOUT = 600             # seconds for the ranks, from the spawn
 # differ across model ranks (PERF.md §6)
 TRAIN_MESH_TOL = {"loss_rel_gap": 5e-5, "grad_norm_rel_gap": 3e-4,
                   "param_abs_gap": 5e-4}
+# the int8 pod lane against the unsharded float32 step, whose grads are
+# exact where the lane's are the codec's (``python3 tools/mesh_gate.py
+# --pod --broken-pod-residuals --broken-pod-norm --broken-pod-rows``,
+# PERF.md §6; each reading the same to the last digit in every run):
+# correct loss 1.44e-3, grad norm 9.73e-3, params 5.160e-3, step-1 loss
+# equal (it is read before the codec acts, so it is held to
+# ``TRAIN_MESH_TOL``); every pod reading pod 0's rows 3.59e-2 / 0.212 /
+# 5.538e-3, step 1 1.87e-4; every pod keeping pod 0's residuals 1.73e-3
+# / 9.75e-3 / 5.10e-3 (its identity gap 7.6e-3 against a bound of
+# 4.0e-6: ``PodProbe``); the clip norm over every pod's pieces 6.4e-4 /
+# 0.425 / 5.12e-3.  The loss bound sits 3.5x above the correct reading
+# and 7x below the rows', the grad-norm bound near the geometric middle
+# of the correct and the rows' (4.5e-2); params, which Adam moves by
+# ~lr whatever the grads, at the geometric middle of 5.160e-3 and the
+# rows' 5.538e-3
+POD_TOL = {"loss_rel_gap": 5e-3, "grad_norm_rel_gap": 5e-2,
+           "param_abs_gap": 5.35e-3}
 
 
 def train_lane_key(arch: str, shape, lane: str) -> str:
-    return f"{arch} {lane} {shape[0]}x{shape[1]}"
+    return f"{arch} {lane} {'x'.join(map(str, shape))}"
+
+
+def lane_dtype(lane: str):
+    """A lane's dtype: float32, but for the bf16 lane."""
+    return torch.bfloat16 if lane == "bfloat16" else torch.float32
+
+
+def lane_codec(lane: str) -> str:
+    """The pod reduction's codec of a float32 lane: a pod lane's own,
+    else none."""
+    return lane if lane in POD_CODECS else "none"
+
+
+def lane_view(api, shape, lane: str) -> tuple:
+    """The ("data", "model") mesh shape a lane's shards are on, each
+    rank's coords on it, and the ranks whose shards make up the whole
+    tree (the first ranks of the view, row-major): the mesh a train step
+    over ``shape`` shards on (``train.step.shard_mesh``)."""
+    from repro_torch.launch.mesh import plain_mesh
+    from repro_torch.train.step import shard_mesh
+    views = [shard_mesh(api, plain_mesh(shape, r), lane_codec(lane))
+             for r in range(math.prod(shape))]
+    view = tuple(views[0].shape.values())
+    return view, [v.coords for v in views], list(range(math.prod(view)))
 
 
 def train_mesh_opt(arch: str):
@@ -4684,6 +4749,110 @@ class DropCount:
         n = int(self.total)
         self.total.zero_()
         return n
+
+
+class PodProbe:
+    """Within it, a rank's compressed pod reduction
+    (``compression.bucketed_compressed_psum`` over its own buckets) and
+    its AdamW update are watched, step by step.  Each bucket's ``x = g +
+    err`` (the codec's input), the exact float32 mean over the pods of
+    its grads ``g`` (all-reduced beside the codec's reduction) and the
+    applied mean (the codec's output) are kept, the exact and applied
+    means summed over the steps; ``finish`` then reads the error-feedback
+    identity: sum of applied means + the pods' mean final residual ==
+    sum of exact means.  In float32 the two sides part by rounding alone:
+    at each step ``x`` (one rounding, |x| <= M_t, M_t the largest |x|
+    over the pods), the pods' sums of dequantized and of exact values
+    (one rounding each, of at most 2 M_t: |deq| <= |x| + scale / 2, a
+    residual is at most scale / 2 = M / 254) and the two running sums (one
+    rounding each, of at most t M), and the final sum and mean (the
+    residual subtraction ``x - deq`` is exact, Sterbenz): at most
+    ``(5 + 2 T) u sum_t M_t`` (u = 2^-24, T steps), bounded here by
+    ``8 T u sum_t M_t``.  ``collapsed`` reads the same identity with pod
+    0's final residual in place of every pod's (the reference's collapsed
+    residuals, ``repro/dist/sharding.py:60-67``), and at step 1 the clip
+    norm is read again over the default group, every pod's pieces
+    counted (``world_norm``).  CUDA events time each reduction."""
+
+    U = 2.0 ** -24
+
+    def __init__(self):
+        from repro_torch.dist import compression
+        import repro_torch.train.step as train_step
+        self.compression, self.train_step = compression, train_step
+        self.applied, self.exact, self.peaks, self.ms = [], [], [], []
+        self.norms = []
+        self.group = self.residuals = None
+
+    def __enter__(self):
+        self.real = (self.compression.bucketed_compressed_psum,
+                     self.train_step.adamw_update)
+        self.compression.bucketed_compressed_psum = self.psum
+        self.train_step.adamw_update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        (self.compression.bucketed_compressed_psum,
+         self.train_step.adamw_update) = self.real
+
+    def psum(self, tree, residuals, group, *, plan, codec, topk_frac):
+        import torch.distributed as dist
+        flat = self.compression.bucket_flat
+        pods = dist.get_world_size(group)
+        peak = torch.zeros((), device="cuda")
+        exact = []
+        for b in range(plan.num_buckets):
+            g = flat(tree, plan, b).clone()
+            peak = torch.maximum(peak, (g + residuals[b]).abs().max())
+            dist.all_reduce(g, group=group)
+            exact.append(g.div_(pods))
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, new = self.real[0](tree, residuals, group, plan=plan,
+                                codec=codec, topk_frac=topk_frac)
+        end.record()
+        end.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        applied = [flat(out, plan, b).clone()
+                   for b in range(plan.num_buckets)]
+        if not self.applied:
+            self.applied, self.exact = applied, exact
+        else:
+            for acc, x in zip(self.applied + self.exact, applied + exact):
+                acc.add_(x)
+        self.peaks.append(float(peak))
+        self.group, self.residuals = group, new
+        return out, new
+
+    def update(self, cfg, params, grads, state, *, norm):
+        from repro_torch.train.optimizer import sharded_norm
+        if not self.norms:
+            self.norms = [float(norm(grads)), float(sharded_norm(
+                grads, owned=norm.keywords["owned"]))]
+        return self.real[1](cfg, params, grads, state, norm=norm)
+
+    def finish(self) -> dict:
+        """The identity's readings on this rank (a collective over the
+        pods)."""
+        import torch.distributed as dist
+        pods = dist.get_world_size(self.group)
+        gap = collapsed = 0.0
+        for s_app, s_ex, e in zip(self.applied, self.exact, self.residuals):
+            first = e.clone()
+            dist.broadcast(first, group=self.group, group_src=0)
+            mean = e.clone()
+            dist.all_reduce(mean, group=self.group)
+            mean.div_(pods)
+            gap = max(gap, float((s_app + mean - s_ex).abs().max()))
+            collapsed = max(collapsed,
+                            float((s_app + first - s_ex).abs().max()))
+        steps = len(self.peaks)
+        return {"ef_identity_gap": gap,
+                "ef_identity_bound": 8 * steps * self.U * sum(self.peaks),
+                "ef_collapsed_gap": collapsed, "codec_ms": self.ms,
+                "world_norm_rel_gap": self.norms[1] / self.norms[0] - 1}
 
 
 def train_mesh_reference(tmp: str, lanes=TRAIN_MESH_LANES) -> dict:
@@ -4775,7 +4944,8 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.train import LoopConfig, run_training
-    from repro_torch.train.step import make_train_step, mesh_rows
+    from repro_torch.train.step import (batch_rows, make_train_step,
+                                        shard_mesh)
     from repro_torch.tree import leaves
 
     torch.cuda.set_device(0)
@@ -4795,7 +4965,7 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
         t_lane = time.perf_counter()
         mesh = meshes[shape]
         model = TRAIN_MESH_MODELS[arch]
-        cfg = train_mesh_config(arch, dict(MESH_LANES)[lane])
+        cfg = train_mesh_config(arch, lane_dtype(lane))
         api = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
         rec = {"coords": mesh.coords}
@@ -4811,22 +4981,25 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
             rec.update(loss=res.losses, step_s=res.step_seconds,
                        launches=dict(common.LAUNCHES))
         else:
+            codec = lane_codec(lane)
             step, init_state, _ = make_train_step(
                 api, train_mesh_opt(arch), microbatches=model.microbatches,
-                mesh=mesh)
+                mesh=mesh, codec=codec)
             for turn in range(world):   # one global tree at a time
                 if turn == rank:
                     state = init_state(train_mesh_params(api, arch))
                     release()
                 dist.barrier()
-            take = mesh_rows(TRAIN_MESH_BATCH, model.microbatches,
-                             mesh.shape["data"], mesh.coords["data"])
+            take = batch_rows(TRAIN_MESH_BATCH, model.microbatches, mesh,
+                              shard_mesh(api, mesh, codec))
             rec.update(loss=[], grad_norm=[], step_s=[], launches=[],
                        dropped=[], route_flips=[])
             tape = RouteTape(torch.load(Path(tmp, f"picks-{arch}.pt")),
                              shard=mesh.coords["data"]) \
                 if cfg.n_experts else RouteTape()
-            with DropCount() as drops, tape:
+            probe = PodProbe() if lane == "int8" else \
+                contextlib.nullcontext()
+            with DropCount() as drops, tape, probe:
                 for b in train_mesh_batches(arch, cfg):
                     batch = {k: torch.from_numpy(v[take]).cuda()
                              for k, v in b.items()}
@@ -4840,6 +5013,9 @@ def train_mesh_rank(rank: int, world: int, tmp: str, out_path: str,
                     rec["dropped"].append(drops.take())
                     rec["route_flips"].append(
                         tape.flips - sum(rec["route_flips"]))
+            if lane == "int8":
+                rec.update(probe.finish())
+                del probe
             key = train_lane_key(arch, shape, lane)
             part = Path(tmp, f"shards-{key}-{rank}.part")
             torch.save([p.cpu() for p in leaves(state["params"])], part)
@@ -4864,23 +5040,27 @@ def _train_mesh_rank_entry(rank, world, tmp, lanes):
 
 
 def train_mesh_param_gaps(tmp: str, arch: str, shape, key: str,
-                          final: list) -> dict:
+                          final: list, lane: str = "float32") -> dict:
     """A float32 lane's params after step 3 against (a)'s: every rank's
     shard of each leaf against (a)'s same block (the largest gap and its
     leaf), and every leaf gathered from the ranks' shards
     (``gather_params``: the copies of a replicated leaf or of a copied KV
     head must be bitwise equal; the leaves where they differ are
-    listed).  The ranks' shard files are removed."""
+    listed); a pod lane under the codec gathers pod 0's ranks and holds
+    each rank's shards to its counterpart's in pod 1, bitwise
+    (``lane_view``).  The ranks' shard files are removed."""
     from repro_torch.dist.sharding import (gather_params, shard_params,
                                            train_specs)
-    from repro_torch.launch.mesh import Mesh, rank_coords
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.tree import map_with_path
 
     cfg = train_mesh_config(arch, torch.float32)
-    mesh = Mesh(shape={"data": shape[0], "model": shape[1]},
+    api = build_model(cfg)
+    view, coords, whole = lane_view(api, shape, lane)
+    mesh = Mesh(shape={"data": view[0], "model": view[1]},
                 coords={"data": 0, "model": 0}, groups={})
-    like = build_model(cfg).init_specs()
+    like = api.init_specs()
     flat = []
     map_with_path(lambda path, _, s: flat.append(("/".join(path), s)), like,
                   train_specs(cfg, mesh, like))
@@ -4892,18 +5072,23 @@ def train_mesh_param_gaps(tmp: str, arch: str, shape, key: str,
     gap, where, differ = 0.0, None, []
     for i, (name, spec) in enumerate(flat):
         try:
-            gather_params([s[i] for s in shards], spec, mesh)
+            gather_params([shards[r][i] for r in whole], spec, mesh)
         except ValueError:               # two holders of a piece differ
             differ.append(name)
         for r, s in enumerate(shards):   # each rank's own shard
-            mine = dataclasses.replace(mesh, coords=rank_coords(
-                mesh.shape, r))
+            mine = dataclasses.replace(mesh, coords=coords[r])
             g = float((s[i] - shard_params(final[i], spec, mine)).abs().max())
             if g > gap:
                 gap, where = g, name
-    return {"param_abs_gap": gap, "param_abs_gap_leaf": where,
-            "params_compared": len(flat),
-            "leaves_whose_copies_differ": differ}
+    out = {"param_abs_gap": gap, "param_abs_gap_leaf": where,
+           "params_compared": len(flat),
+           "leaves_whose_copies_differ": differ}
+    if len(whole) < len(shards):         # every pod holds the whole tree
+        out["pods_bitwise_equal"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for r in whole for a, b in zip(shards[r],
+                                           shards[r + len(whole)]))
+    return out
 
 
 def train_mesh_compare(refs: dict, ranks: list, params: dict,
@@ -4917,7 +5102,9 @@ def train_mesh_compare(refs: dict, ranks: list, params: dict,
     for arch, shape, lane in lanes:
         key = train_lane_key(arch, shape, lane)
         recs = [r["lanes"][key] for r in ranks]
-        ref = refs[f"{arch} {lane}"]
+        # (a)'s float32 steps are the reference of every float32 lane
+        ref = refs[f"{arch} bfloat16" if lane == "bfloat16"
+                   else f"{arch} float32"]
         model = TRAIN_MESH_MODELS[arch]
         res = {"arch": arch, "layers": model.layers,
                "microbatches": model.microbatches, "seq_len": model.seq,
@@ -4953,6 +5140,16 @@ def train_mesh_compare(refs: dict, ranks: list, params: dict,
         res["reference_dropped"] = ref["dropped"]
         res["route_flips_by_rank"] = [r["route_flips"] for r in recs]
         res.update(params[key])
+        if lane == "int8":
+            res["step1_loss_rel_gap"] = abs(
+                recs[0]["loss"][0] / ref["loss"][0] - 1)
+            for k in ("ef_identity_gap", "ef_identity_bound",
+                      "ef_collapsed_gap", "world_norm_rel_gap"):
+                res[f"{k}_by_rank"] = [r[k] for r in recs]
+            res["codec_ms_by_rank"] = [r["codec_ms"] for r in recs]
+            res["codec_share_of_step"] = [
+                sum(r["codec_ms"][1:]) / 1e3 / sum(r["step_s"][1:])
+                for r in recs]
         out[key] = res
     return out
 
@@ -4965,11 +5162,24 @@ def check_train_mesh(res: dict) -> None:
     Mamba2's SSD) launches a float32 step the expected ones."""
     for key, r in res.items():
         assert r["finite"] and r["losses_equal_on_every_rank"], (key, r)
-        if r["lane"] != "float32":
+        if r["lane"] == "bfloat16":
             continue
-        for k, bound in TRAIN_MESH_TOL.items():
+        for k, bound in (POD_TOL if r["lane"] == "int8"
+                         else TRAIN_MESH_TOL).items():
             assert r[k] <= bound, (key, k, r[k], bound)
         assert not r["leaves_whose_copies_differ"], (key, r)
+        if r["lane"] == "int8":
+            # step 1's loss is taken before the codec has changed a param
+            assert r["step1_loss_rel_gap"] <= \
+                TRAIN_MESH_TOL["loss_rel_gap"], (key, r)
+            assert r["pods_bitwise_equal"], (key, r)
+            for gap, bound, collapsed, world in zip(
+                    r["ef_identity_gap_by_rank"],
+                    r["ef_identity_bound_by_rank"],
+                    r["ef_collapsed_gap_by_rank"],
+                    r["world_norm_rel_gap_by_rank"]):
+                assert gap <= bound < collapsed, (key, r)
+                assert world > POD_TOL["grad_norm_rel_gap"], (key, r)
         if TRAIN_MESH_MODELS[r["arch"]].router_scale is not None:
             assert r["dropped"] == r["reference_dropped"], (key, r)
             assert all(n > 0 for n in r["dropped"]), (key, r)
@@ -4994,17 +5204,17 @@ def phase19(card: str, entry=None, lanes=TRAIN_MESH_LANES) -> dict:
                                  nprocs=TRAIN_MESH_RANKS, join=False,
                                  start_method="spawn")
         pending = {train_lane_key(*x): x for x in lanes
-                   if x[2] == "float32"}
+                   if x[2] != "bfloat16"}
         params = {}
 
         def compare_done() -> None:
             """Each float32 lane whose shards are all written, compared
             while the ranks run the later lanes."""
-            for key, (arch, shape, _) in list(pending.items()):
+            for key, (arch, shape, lane) in list(pending.items()):
                 if all(Path(tmp, f"shards-{key}-{r}.pt").exists()
                        for r in range(TRAIN_MESH_RANKS)):
                     params[key] = train_mesh_param_gaps(
-                        tmp, arch, shape, key, finals[arch])
+                        tmp, arch, shape, key, finals[arch], lane)
                     del pending[key]
                     if all(a != arch for a, _, _ in pending.values()):
                         del finals[arch]

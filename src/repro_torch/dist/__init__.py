@@ -16,11 +16,11 @@ codec and the mesh partition rules.
     family on (``train_specs``: FSDP over "data" on the contraction dim,
     tensor and expert parallelism over "model", Mamba2 by whole SSD
     heads and the RG-LRU by channels, the optimizer moments sharded as
-    their params, the batch's rows split over "data").
+    their params, the batch's rows split over "data"; with a "pod" axis,
+    each pod's shards reduced with the other pods' through the codec, in
+    buckets of each rank's own pieces, ``train.step.shard_buckets``).
 
 Not ported, by design: ``train.step.pod_err_struct`` (dry-run tooling).
-Not yet: a pod group beside a mesh and ``launch.train`` over a mesh
-(ROADMAP item 7.6d).
 """
 
 from . import compression, fault, sharding

@@ -226,6 +226,20 @@ def bucket_flat(leaves: Sequence[torch.Tensor], plan: BucketPlan, b: int
     return F.pad(flat, (0, pad)) if pad else flat
 
 
+def bucket_leaves(flat: torch.Tensor, leaves: Sequence[torch.Tensor],
+                  plan: BucketPlan, b: int) -> List[Tuple[int, torch.Tensor]]:
+    """Bucket ``b``'s flat vector cut back into its leaves' shapes and
+    dtypes (views where the dtype is float32): ``(leaf index, tensor)``
+    for each leaf of the bucket; ``leaves`` give the shapes."""
+    out, off = [], 0
+    for i in plan.groups[b]:
+        n = leaves[i].numel()
+        out.append((i, flat[off:off + n].reshape(leaves[i].shape).to(
+            leaves[i].dtype)))
+        off += n
+    return out
+
+
 def bucketed_compressed_psum(tree: Any, residuals: Sequence[torch.Tensor],
                              group, *, plan: BucketPlan,
                              codec: str = "int8", topk_frac: float = 0.01
@@ -252,11 +266,6 @@ def bucketed_compressed_psum(tree: Any, residuals: Sequence[torch.Tensor],
                                        residuals[b], group, codec=codec,
                                        topk_frac=topk_frac)
         new_residuals.append(new_err)
-        off = 0
-        for i in group_b:
-            leaf = leaves[i]
-            n = leaf.numel()
-            new_leaves[i] = reduced[off:off + n].reshape(leaf.shape).to(
-                leaf.dtype)
-            off += n
+        for i, x in bucket_leaves(reduced, leaves, plan, b):
+            new_leaves[i] = x
     return unflatten(tree, new_leaves), new_residuals

@@ -155,6 +155,36 @@ def norm_share(spec: Spec, mesh: Any):
     return dim, tuple(pieces)
 
 
+def holder_pieces(spec: Spec, shape: Sequence[int], mesh: Any) -> tuple:
+    """The calling rank's block of a leaf of global ``shape`` under
+    ``spec``, cut where the set of ranks that hold it changes: per piece,
+    ``(dim, start, width)`` in the block (None: the whole block) and its
+    holders' key, the sorted mesh axes of size > 1 whose index picks the
+    piece (a ``Copies`` entry's as ``"axis/blocks"``).  Every rank with
+    the same index on those axes holds the same piece.  Only a
+    ``Segments`` dim cuts a block: its split segments are picked by its
+    axis, its whole ones are not."""
+    key, seg = [], None
+    for d, entry in enumerate(spec):
+        if isinstance(entry, Segments):
+            seg = (d, entry)
+        elif isinstance(entry, Copies):
+            if entry.blocks > 1:
+                key.append(f"{entry.axis}/{entry.blocks}")
+        else:
+            key += [a for a in _axes(entry) if mesh.shape[a] > 1]
+    if seg is None:
+        return ((None, tuple(sorted(key))),)
+    (d, entry), n = seg, mesh.shape[seg[1].axis]
+    out, start = [], 0
+    for width, split in entry.parts:
+        width = width // n if split else width
+        out.append(((d, start, width),
+                    tuple(sorted(key + [entry.axis] if split else key))))
+        start += width
+    return tuple(out)
+
+
 def serve_rules(mesh: Any) -> Dict:
     """Serving shards parameters over "model" only; the batch axes stay
     free for request parallelism."""

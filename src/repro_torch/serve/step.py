@@ -50,7 +50,12 @@ step's collectives do not depend on its chunk), the encoder-decoder
 (its self-attention pools and its cross K/V split by KV heads over
 "model" and by rows over "data") and the VLM, whose serve step is the
 dense one (neither package's serve step takes the patch embeddings).
-With model=1 and data=1 the step is ``api.serve_step`` itself.
+With model=1 and data=1 the step is ``api.serve_step`` itself.  On a
+("pod", "data", "model") mesh "pod" is one more batch axis, outermost,
+as in the reference (``fit_batch_axes``): the step serves on the mesh's
+``(pod * data, model)`` view (``launch.mesh.Mesh.merged``), whose data
+shard ``p * data + d`` holds the rows and pages that the reference's
+("pod", "data") split gives it.
 """
 
 from __future__ import annotations
@@ -78,6 +83,8 @@ def make_serve_step(api: ModelAPI, mesh: Any, caches_like: Any, *,
     ``page_table % local_pool``) and lengths, and its parameter shards;
     it returns (logits [B/data, C, V], caches), the vocab gathered."""
     del donate                              # the step updates in place
+    if "pod" in mesh.shape:
+        mesh = mesh.merged
     cfg = api.cfg
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "

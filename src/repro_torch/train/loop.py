@@ -40,8 +40,16 @@ alone holds the ``CheckpointManager`` and saves the gathered global state
 in the leaves and layout of an unsharded run; a restore on rank 0
 broadcasts each global leaf and every rank keeps its shards.  So a
 checkpoint written on one mesh shape resumes on another, or unsharded.
-The fault path does not run over a mesh either; a pod group beside a
-mesh and ``launch.train`` over a mesh wait for ROADMAP item 7.6d.
+Over a ("pod", "data", "model") mesh the step is ``train.step``'s: each
+rank keeps ``batch_rows``; with a compressed pod reduction the state is
+gathered from pod 0's ranks, and the residuals are saved in the layout
+a pod group writes (one ``[P * n]`` buffer a bucket of the global
+``grad_bucket_plan``, pod-major): each rank's residual is cut back into
+its param shards' shapes, gathered into global leaves over its pod
+(``gather_params``), flattened in the plan's order and padded; a
+restore runs the inverse.  So the residuals resume on another pod mesh
+shape, or on a pod group with no mesh.  The fault path does not run
+over a mesh either (ROADMAP item 7.6e).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager
 from ..data.pipeline import TokenPipeline
+from ..dist import compression
 from ..dist.fault import FaultPolicy, HeartbeatMonitor, RemeshPlan, StealPlan
 from ..dist.sharding import gather_params, shard_params
 from ..kernels.common import resolve_device
@@ -63,7 +72,8 @@ from ..models.registry import ModelAPI
 from ..models.spec import init_params
 from ..tree import leaves, map_with_path, unflatten
 from .optimizer import AdamWConfig
-from .step import make_train_step, mesh_rows
+from .step import (batch_rows, grad_bucket_plan, make_train_step,
+                   pod_buckets, shard_mesh)
 
 
 @dataclass
@@ -136,21 +146,63 @@ def _state_specs(param_specs: Any) -> Dict:
 
 
 def gather_state(state: Dict, specs: Dict, mesh: Any) -> Optional[Dict]:
-    """The global train state from every rank's shards, on rank 0 (None
-    on the others): each leaf all-gathered over the mesh, then assembled
-    (``gather_params``; copies of a replicated piece must be bitwise
-    equal).  A collective: every rank calls it."""
-    rank = dist.get_rank()
+    """The global train state (or any tree of shards under ``specs``)
+    from every rank's shards, on the mesh's first rank (None on the
+    others): each leaf all-gathered over the mesh's group, then
+    assembled (``gather_params``; copies of a replicated piece must be
+    bitwise equal).  A collective: every rank of the mesh calls it."""
+    rank = dist.get_rank(mesh.group)
     out = []
 
     def one(_, leaf, spec):
         parts = [torch.empty_like(leaf) for _ in range(mesh.size)]
-        dist.all_gather(parts, leaf.contiguous())
+        dist.all_gather(parts, leaf.contiguous(), group=mesh.group)
         out.append(gather_params(parts, spec, mesh) if rank == 0 else None)
         del parts
 
     map_with_path(one, state, specs)
     return unflatten(state, out) if rank == 0 else None
+
+
+def gather_pod_residuals(errs: List[torch.Tensor], api: ModelAPI,
+                         mesh: Any, specs: Any, buckets, plan
+                         ) -> Optional[List[torch.Tensor]]:
+    """Every rank's residuals on a pod mesh (``buckets``: its
+    ``train.step.pod_buckets``) as the global ``[P * n]`` buffers of
+    ``plan`` (the global ``grad_bucket_plan``), pod-major, on rank 0;
+    None on the others.  A collective: every rank calls it."""
+    view = mesh.in_pod
+    mine = unflatten(api.init_specs(), buckets.unbucket(errs))
+    whole = gather_state(mine, specs, view)        # on the pod's first rank
+    if view.coords != {"data": 0, "model": 0}:
+        return None
+    flat = leaves(whole)
+    rows = [compression.bucket_flat(flat, plan, b)
+            for b in range(plan.num_buckets)]
+    return gather_residuals(rows, mesh.groups["pod"])
+
+
+def scatter_pod_residuals(restored: Optional[List[torch.Tensor]],
+                           api: ModelAPI, mesh: Any, specs: Any, buckets,
+                           plan, device) -> List[torch.Tensor]:
+    """The inverse of ``gather_pod_residuals``: rank 0's global ``[P *
+    n]`` buffers broadcast, this rank's pod's row of each cut into the
+    global leaves, its shards of them bucketed as ``buckets``.  A
+    collective."""
+    pods, p = mesh.shape["pod"], mesh.coords["pod"]
+    like = [torch.empty(s.shape, device="meta")
+            for s in leaves(api.init_specs())]
+    whole: List[Any] = [None] * len(like)
+    for b, n in enumerate(plan.padded_sizes):
+        full = restored[b] if restored is not None else torch.empty(
+            pods * n, dtype=torch.float32, device=device)
+        dist.broadcast(full, src=0)
+        for i, x in compression.bucket_leaves(full[p * n:(p + 1) * n], like,
+                                              plan, b):
+            whole[i] = x
+    shards = shard_params(unflatten(api.init_specs(), whole), specs,
+                          mesh.in_pod)
+    return [x.clone() for x in buckets.bucket(leaves(shards))]
 
 
 def _scatter_state(state: Dict, restored: Optional[Dict], specs: Dict,
@@ -182,28 +234,30 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
     """Run (or resume) training.  ``crash_at`` raises after that step's
     checkpointable state exists — tests use it to exercise restart.
     ``pod_group``: reduce the grads across this group's ranks; ``mesh``:
-    train over a ("data", "model") mesh (module docstring).  Over either,
-    ``ckpt`` belongs to rank 0 alone, and ``monitor`` and ``policy`` are
-    refused (each rank would plan on its own)."""
+    train over a ("data", "model") or ("pod", "data", "model") mesh
+    (module docstring).  Over either, ``ckpt`` belongs to rank 0 alone,
+    and ``monitor`` and ``policy`` are refused (each rank would plan on
+    its own; ROADMAP item 7.6e)."""
     dev = resolve_device(device)
     rank = world = None
     if mesh is not None and pod_group is not None:
-        raise ValueError("a pod group beside a mesh waits for ROADMAP "
-                         "item 7.6d")
+        raise ValueError("a pod group beside a mesh: give the mesh a pod "
+                         "axis, make_mesh((pod, data, model))")
     sharded = mesh is not None and mesh.size > 1
     group = dist.group.WORLD if sharded else pod_group
+    if (sharded or pod_group is not None) and (monitor is not None
+                                               or policy is not None):
+        # the fault path plans on each rank alone: a rank that steps out,
+        # or stops for a remesh, would leave the others blocked in the
+        # group's next collective
+        raise ValueError("a HeartbeatMonitor or FaultPolicy does not run "
+                         "over a pod_group or a mesh (ROADMAP item 7.6e)")
     if group is not None:
         rank = dist.get_rank(group)
         world = dist.get_world_size(group)
         if ckpt is not None and rank != 0:
             raise ValueError(f"rank {rank} was given a CheckpointManager: "
                              "rank 0 alone saves and restores")
-        if monitor is not None or policy is not None:
-            # the fault path plans on each rank alone: a rank that steps
-            # out, or stops for a remesh, would leave the others blocked
-            # in the group's next collective
-            raise ValueError("a HeartbeatMonitor or FaultPolicy does not "
-                             "run over a pod_group or a mesh")
     if pod_group is not None:
         if pipeline.local_batch % world:
             raise ValueError(f"a batch of {pipeline.local_batch} rows does "
@@ -217,11 +271,17 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
         api, opt_cfg, microbatches=loop_cfg.microbatches,
         pod_group=pod_group, codec=loop_cfg.codec, mesh=mesh, **step_kwargs)
     if sharded:
-        take = mesh_rows(pipeline.local_batch, loop_cfg.microbatches,
-                         mesh.shape["data"], mesh.coords["data"])
+        view = shard_mesh(api, mesh, loop_cfg.codec)
+        take = batch_rows(pipeline.local_batch, loop_cfg.microbatches, mesh,
+                          view)
     gen = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
     state = init_state(init_params(api.init_specs(), gen, device=dev),
                        device=dev)
+    # a compressed pod reduction over a mesh: its residuals' buckets
+    pods = sharded and "err" in state
+    if pods:
+        buckets = pod_buckets(api, view, specs, **step_kwargs)
+        global_plan = grad_bucket_plan(api, **step_kwargs)
     if sharded:
         state_specs = _state_specs(specs)
         shapes = api.init_specs()       # each leaf's global shape
@@ -229,7 +289,9 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
             "mu": shapes, "nu": shapes, "step": state["opt"]["step"]}}
     result = LoopResult()
     start = 0
-    restored = ckpt.restore(state) if ckpt is not None else None
+    like = state if not pods else {**state, "err": [
+        torch.empty(0, device=dev) for _ in range(global_plan.num_buckets)]}
+    restored = ckpt.restore(like) if ckpt is not None else None
     has_ckpt = ckpt is not None
     if group is not None:
         # rank 0 tells the group whether it checkpoints and what it restored
@@ -241,8 +303,14 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
         dist.broadcast(head, group=group, group_src=0)
         has_ckpt, found, start, pipe_step = (int(x) for x in head.tolist())
         if found and sharded:
-            state = _scatter_state(state, restored[1] if restored else None,
-                                   state_specs, mesh, global_like)
+            tree = dict(restored[1]) if restored else None
+            err = tree.pop("err", None) if tree else None
+            new = _scatter_state({k: state[k] for k in ("params", "opt")},
+                                 tree, state_specs, view, global_like)
+            if pods:
+                new["err"] = scatter_pod_residuals(
+                    err, api, mesh, specs, buckets, global_plan, dev)
+            state = new
         elif found:
             state = _broadcast_state(
                 state, restored[1] if restored else None, group)
@@ -297,8 +365,16 @@ def run_training(api: ModelAPI, pipeline: TokenPipeline,
             if "err" in state and pod_group is not None:
                 tree = {**state,
                         "err": gather_residuals(state["err"], pod_group)}
+            elif pods:
+                err = gather_pod_residuals(state["err"], api, mesh, specs,
+                                           buckets, global_plan)
+                tree = gather_state(
+                    {k: state[k] for k in ("params", "opt")}, state_specs,
+                    view) if mesh.coords["pod"] == 0 else None
+                if tree is not None:
+                    tree["err"] = err
             elif sharded:
-                tree = gather_state(state, state_specs, mesh)
+                tree = gather_state(state, state_specs, view)
             if ckpt is not None:
                 ckpt.save(step + 1, tree,
                           extra={"pipeline_step": pipeline.snapshot()})

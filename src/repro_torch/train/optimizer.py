@@ -59,10 +59,12 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def sharded_norm(tree: Any, owned: Sequence[Any]) -> torch.Tensor:
-    """The global norm of a tree sharded over the ranks of the default
-    group (the whole mesh): each rank sums the squares of what it owns of
-    each leaf (``owned``, in ``leaves`` order, ``dist.sharding.
+def sharded_norm(tree: Any, owned: Sequence[Any], group=None
+                 ) -> torch.Tensor:
+    """The global norm of a tree sharded over the ranks of ``group`` (the
+    mesh's ``group``, None for the default one; a pod's own ranks where
+    every pod holds the whole tree): each rank sums the squares of what
+    it owns of each leaf (``owned``, in ``leaves`` order, ``dist.sharding.
     norm_share``'s: True for the whole block, False for none of it, or
     ``(dim, pieces)``, the (start, width) pieces of ``dim`` it owns; a
     piece held by several ranks is owned by one), one all-reduce sums the
@@ -78,7 +80,7 @@ def sharded_norm(tree: Any, owned: Sequence[Any]) -> torch.Tensor:
         elif own:
             sq = sq + torch.sum(torch.square(x.float()))
     sq = sq.reshape(1)
-    dist.all_reduce(sq)
+    dist.all_reduce(sq, group=group)
     return torch.sqrt(sq[0])
 
 

@@ -44,25 +44,47 @@ embeddings and the encoder-decoder's frames too, indexed by
 ``mesh_rows``).  ``specs`` is then the parameters' (and each moment's)
 specs; None without a mesh.
 
-Not ported: a pod group beside a mesh (ROADMAP 7.6d),
-``models/shardctx.py``'s activation hints (layout hints to XLA's
-partitioner; eager PyTorch has none) and
-``pod_err_struct`` (the residuals' shapes for the dry run's lowering).
+Given a ("pod", "data", "model") mesh, the step is the reference's
+(``:112-188``).  Where the pod reduction is compressed (``codec`` int8
+or topk, not an encoder-decoder) it is the reference's ``podwise``: the
+params and both moments are whole over "pod" and sharded within each pod
+as above (``include_pod_in_fsdp=False``: the specs of the pod's own
+mesh, ``Mesh.in_pod``); pod ``p`` takes the rows ``[p*B/P, (p+1)*B/P)``
+(the reference's ``P("pod")``) and each of its data ranks its
+``mesh_rows`` of them; the grads and the loss are the pod's (the MoE's
+capacity counted over the pod's own "data"); then each rank reduces its
+shards with the same ranks of the other pods through
+``bucketed_compressed_psum`` over ``groups["pod"]``, in buckets planned
+on its own pieces (``shard_buckets``), with its own
+error-feedback residuals, ``state["err"]``; the loss is averaged over
+the pods, and AdamW's clip norm sums the pod's own ranks, so every pod
+updates its params alike, bitwise.  Uncompressed (``codec="none"``, or
+an encoder-decoder), "pod" joins FSDP and the batch axes (the
+reference's ``train_rules(include_pod_in_fsdp=True)`` and batch axes
+("pod", "data")): the mesh step above on the ``(pod * data, model)``
+view, ``Mesh.merged``.  ``shard_mesh`` names the mesh a step's specs
+and rows are on, ``batch_rows`` the rows.
+
+Not ported: ``models/shardctx.py``'s activation hints (layout hints to
+XLA's partitioner; eager PyTorch has none) and ``pod_err_struct`` (the
+residuals' shapes for the dry run's lowering).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..dist import compression
-from ..dist.sharding import (axis_dim, copies_of, norm_share, shard_params,
-                             train_specs)
+from ..dist.sharding import (axis_dim, copies_of, holder_pieces, norm_share,
+                             shard_block, shard_params, train_specs)
 from ..kernels.common import resolve_device
+from ..launch.mesh import Mesh
 from ..models.registry import ModelAPI
 from ..models.shardctx import training_mesh
 from ..tree import leaves, map_with_path, unflatten
@@ -141,6 +163,43 @@ def exact_mean(grads: Any, group) -> Any:
     return grads
 
 
+def compresses(api: ModelAPI, codec: str) -> bool:
+    """Whether a pod reduction with ``codec`` is compressed: not for
+    ``"none"``, nor for an encoder-decoder, as in the reference (there
+    XLA's partitioner fails on its embedding inside a manual pod region;
+    here the rule is kept for parity)."""
+    if codec not in compression.CODECS + ("none",):
+        raise ValueError(f"unknown codec {codec!r}; expected one of "
+                         f"{compression.CODECS + ('none',)}")
+    return codec != "none" and api.cfg.family != "encdec"
+
+
+def shard_mesh(api: ModelAPI, mesh: Mesh, codec: str) -> Mesh:
+    """The mesh whose specs and rows a train step over ``mesh`` takes:
+    ``mesh`` itself without a pod axis; with one, the pod's own mesh
+    where the pod reduction is compressed, else the ``(pod * data,
+    model)`` view."""
+    if "pod" not in mesh.shape:
+        return mesh
+    return mesh.in_pod if compresses(api, codec) else mesh.merged
+
+
+def batch_rows(n: int, microbatches: int, mesh: Mesh, view: Mesh) -> list:
+    """This rank's rows of a global batch of ``n`` rows, for a step over
+    ``mesh`` sharded on ``view`` (``shard_mesh``): on a pod's own mesh,
+    the pod's contiguous rows and its data rank's ``mesh_rows`` of them;
+    else the view's ``mesh_rows``."""
+    data, index = view.shape["data"], view.coords["data"]
+    if view is not mesh.in_pod:
+        return mesh_rows(n, microbatches, data, index)
+    pods = mesh.shape["pod"]
+    if n % pods:
+        raise ValueError(f"a batch of {n} rows does not split over {pods} "
+                         "pods")
+    lo = mesh.coords["pod"] * (n // pods)
+    return [lo + r for r in mesh_rows(n // pods, microbatches, data, index)]
+
+
 def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, impl: Optional[str] = None,
                     pod_group=None, codec: str = "int8",
@@ -149,34 +208,35 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *,
     """Returns (train_step, init_state, param_specs).
 
     train_step(state, batch) -> (state, metrics), state = {params, opt}
-    and, when the group's reduction is compressed, ``err``;
+    and, when the pod reduction is compressed, ``err``;
     init_state(params, device=...) -> the state, every leaf on ``device``
     (over a mesh: this rank's shards of the global ``params``, and
     moments made on them).  ``batch`` holds this rank's rows
-    (``mesh_rows`` over a mesh).  ``codec`` is one of
+    (``batch_rows`` over a mesh).  ``codec`` is one of
     ``compression.CODECS`` or ``"none"``.  ``param_specs``: the specs
-    of the mesh's shards (``dist.sharding.train_specs``), None without a
-    mesh; a mesh of one rank trains as no mesh does.
+    of the mesh's shards (``dist.sharding.train_specs`` on
+    ``shard_mesh``), None without a mesh; a mesh of one rank trains as
+    no mesh does.  A pod is asked for by ``pod_group`` (one rank a pod)
+    or by the mesh's pod axis, not both.
     """
+    compress = compresses(api, codec)
     if mesh is not None:
         if pod_group is not None:
-            raise ValueError("a pod group beside a mesh waits for ROADMAP "
-                             "item 7.6d")
-        specs = train_specs(api.cfg, mesh, api.init_specs())
-        if mesh.size > 1:
-            return _mesh_train_step(api, opt_cfg, mesh, specs,
+            raise ValueError("a pod group beside a mesh: give the mesh a "
+                             "pod axis, make_mesh((pod, data, model))")
+        view = shard_mesh(api, mesh, codec)
+        specs = train_specs(api.cfg, view, api.init_specs())
+        if view is mesh.in_pod:
+            return _pod_train_step(api, opt_cfg, mesh, specs, microbatches,
+                                   impl, codec, bucket_elems,
+                                   topk_frac) + (specs,)
+        if view.size > 1:
+            return _mesh_train_step(api, opt_cfg, view, specs,
                                     microbatches, impl) + (specs,)
         return make_train_step(api, opt_cfg, microbatches=microbatches,
                                impl=impl)[:2] + (specs,)
-    if codec not in compression.CODECS + ("none",):
-        raise ValueError(f"unknown codec {codec!r}; expected one of "
-                         f"{compression.CODECS + ('none',)}")
     loss_and_grad = make_loss_and_grad(api, microbatches, impl=impl)
-    # an encoder-decoder's pod reduction is uncompressed, as in the
-    # reference (there XLA's partitioner fails on its embedding inside a
-    # manual pod region; here the rule is kept for parity)
-    compress = (pod_group is not None and codec != "none"
-                and api.cfg.family != "encdec")
+    compress = compress and pod_group is not None
     plan = grad_bucket_plan(api, bucket_elems=bucket_elems) \
         if compress else None
 
@@ -279,7 +339,7 @@ def _mesh_train_step(api: ModelAPI, opt_cfg: AdamWConfig, mesh: Any,
     owned = []
     map_with_path(lambda _, __, spec: owned.append(norm_share(spec, mesh)),
                   api.init_specs(), specs)
-    norm = functools.partial(sharded_norm, owned=owned)
+    norm = functools.partial(sharded_norm, owned=owned, group=mesh.group)
     loss_and_grad = make_mesh_loss_and_grad(api, mesh, specs, microbatches,
                                             impl=impl)
 
@@ -292,9 +352,145 @@ def _mesh_train_step(api: ModelAPI, opt_cfg: AdamWConfig, mesh: Any,
         return {"params": params, "opt": opt}, metrics
 
     def init_state(params: Any, device="cuda") -> Dict:
-        dev = resolve_device(device)
-        shards = shard_params(params, specs, mesh)
-        shards = unflatten(shards, [p.to(dev) for p in leaves(shards)])
-        return {"params": shards, "opt": adamw_init(shards)}
+        return {"params": (shards := _shards_on(params, specs, mesh,
+                                                device)),
+                "opt": adamw_init(shards)}
+
+    return train_step, init_state
+
+
+def _shards_on(params: Any, specs: Any, mesh: Mesh, device) -> Any:
+    """This rank's shards of the global ``params`` on ``device``."""
+    dev = resolve_device(device)
+    shards = shard_params(params, specs, mesh)
+    return unflatten(shards, [p.to(dev) for p in leaves(shards)])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardBuckets:
+    """The bucket plan of one rank's shards of a gradient tree
+    (``shard_buckets``): each leaf's block cut into the pieces that one
+    set of ranks holds (``pieces``: per leaf, each piece's ``(dim,
+    start, width)`` in the block, None for the whole block), the pieces
+    in bucket order (``order``: each one's (leaf, piece); ``shapes``:
+    each one's shape), and ``plan`` over them, the pieces its leaves."""
+    pieces: Tuple[Tuple[Optional[Tuple[int, int, int]], ...], ...]
+    order: Tuple[Tuple[int, int], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    plan: compression.BucketPlan
+
+    def units(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The pieces of ``leaves`` (one block a leaf) in bucket order."""
+        cut = [[x if p is None else x.narrow(*p) for p in ps]
+               for x, ps in zip(leaves, self.pieces, strict=True)]
+        return [cut[i][k] for i, k in self.order]
+
+    def join(self, units: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The inverse of ``units``: each leaf's block from its pieces."""
+        slots: List[List[Any]] = [[None] * len(ps) for ps in self.pieces]
+        for (i, k), u in zip(self.order, units, strict=True):
+            slots[i][k] = u
+        return [s[0] if ps[0] is None else torch.cat(s, dim=ps[0][0])
+                for s, ps in zip(slots, self.pieces)]
+
+    def bucket(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each bucket of ``leaves`` (one block a leaf) as one flat
+        float32 vector, zero-padded to whole codec blocks."""
+        units = self.units(leaves)
+        return [compression.bucket_flat(units, self.plan, b)
+                for b in range(self.plan.num_buckets)]
+
+    def unbucket(self, flats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The inverse of ``bucket``: each leaf's block."""
+        like = [torch.empty(s, device="meta") for s in self.shapes]
+        units = [x for b, flat in enumerate(flats)
+                 for _, x in compression.bucket_leaves(flat, like, self.plan, b)]
+        return self.join(units)
+
+
+def shard_buckets(shapes: Sequence[Sequence[int]], specs: Sequence[Any],
+                  mesh: Any, *, bucket_elems: int = compression.DEFAULT_BUCKET_ELEMS
+                  ) -> ShardBuckets:
+    """The buckets of the calling rank's shards (``dist.sharding`` specs
+    ``specs`` on ``mesh``, in ``leaves`` order beside the global
+    ``shapes``).  A piece that several ranks hold (a leaf replicated over
+    an axis, a copied KV head, Mamba2's whole B and C) must be quantized
+    alike on each, or their params part: int8's blocks and top-k's
+    threshold read the whole bucket.  So the pieces of one holders' key
+    (``sharding.holder_pieces``) fill buckets of their own, keys in
+    sorted order, pieces in leaf order, each key's packed as
+    ``plan_buckets`` packs leaves; every holder of a piece then builds
+    its buckets from the same pieces.  On a mesh of one rank every key
+    is ``()``: the plan is ``plan_buckets`` of the whole leaves."""
+    pieces, by_key = [], {}
+    for i, (shape, spec) in enumerate(zip(shapes, specs, strict=True)):
+        local = shard_block(shape, spec, mesh)[0]
+        cut = holder_pieces(spec, shape, mesh)
+        pieces.append(tuple(p for p, _ in cut))
+        for k, (p, key) in enumerate(cut):
+            unit = local if p is None else \
+                local[:p[0]] + (p[2],) + local[p[0] + 1:]
+            by_key.setdefault(key, []).append(((i, k), unit))
+    order: List[Tuple[int, int]] = []
+    units: List[Tuple[int, ...]] = []
+    groups, sizes, padded = [], [], []
+    for key in sorted(by_key):
+        sub = compression.plan_buckets([math.prod(u) for _, u in by_key[key]],
+                           bucket_elems=bucket_elems)
+        groups += [tuple(len(order) + j for j in g) for g in sub.groups]
+        sizes += sub.sizes
+        padded += sub.padded_sizes
+        order += [ik for ik, _ in by_key[key]]
+        units += [u for _, u in by_key[key]]
+    plan = compression.BucketPlan(groups=tuple(groups), sizes=tuple(sizes),
+                                  padded_sizes=tuple(padded))
+    return ShardBuckets(tuple(pieces), tuple(order), tuple(units), plan)
+
+
+def pod_buckets(api: ModelAPI, view: Mesh, specs: Any, *, bucket_elems:
+                int = compression.DEFAULT_BUCKET_ELEMS
+                ) -> ShardBuckets:
+    """The buckets of this rank's grad shards on a pod's own mesh
+    ``view`` (``shard_buckets``)."""
+    like = api.init_specs()
+    flat = []
+    map_with_path(lambda _, __, spec: flat.append(spec), like, specs)
+    return shard_buckets([s.shape for s in leaves(like)], flat, view,
+                         bucket_elems=bucket_elems)
+
+
+def _pod_train_step(api: ModelAPI, opt_cfg: AdamWConfig, mesh: Mesh,
+                    specs: Any, microbatches: int, impl: Optional[str],
+                    codec: str, bucket_elems: int, topk_frac: float):
+    """(train_step, init_state) of a mesh with a compressed pod reduction
+    (module docstring)."""
+    view = mesh.in_pod
+    owned = []
+    map_with_path(lambda _, __, spec: owned.append(norm_share(spec, view)),
+                  api.init_specs(), specs)
+    norm = functools.partial(sharded_norm, owned=owned, group=view.group)
+    loss_and_grad = make_mesh_loss_and_grad(api, view, specs, microbatches,
+                                            impl=impl)
+    buckets = pod_buckets(api, view, specs, bucket_elems=bucket_elems)
+    pod = mesh.groups["pod"]
+
+    def train_step(state: Dict, batch: Dict):
+        loss, grads = loss_and_grad(state["params"], batch)
+        units, err = compression.bucketed_compressed_psum(
+            buckets.units(leaves(grads)), state["err"], pod,
+            plan=buckets.plan, codec=codec, topk_frac=topk_frac)
+        grads = unflatten(grads, buckets.join(units))
+        del units
+        params, opt, metrics = adamw_update(opt_cfg, state["params"], grads,
+                                            state["opt"], norm=norm)
+        del grads
+        metrics["loss"] = group_mean(loss, pod)
+        return {"params": params, "opt": opt, "err": err}, metrics
+
+    def init_state(params: Any, device="cuda") -> Dict:
+        shards = _shards_on(params, specs, view, device)
+        return {"params": shards, "opt": adamw_init(shards),
+                "err": compression.init_residuals(
+                    buckets.plan, device=leaves(shards)[0].device)}
 
     return train_step, init_state

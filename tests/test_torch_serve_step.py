@@ -22,7 +22,9 @@ compared modulo the local pool.
 
 qwen2-72b (QKV bias), qwen2-1.5b (tied embeddings), minitron-8b (relu2)
 and starcoder2-7b (layernorm, biases, window 32) at SMOKE width: 4 heads
-over 2 KV heads, so model=2 splits whole heads.
+over 2 KV heads, so model=2 splits whole heads.  qwen2-1.5b also runs on
+a ("pod", "data", "model") mesh of (2, 1, 2), where the reference takes
+"pod" as the outer batch axis and the port serves on the (2, 2) view.
 """
 
 import dataclasses
@@ -47,6 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 300                        # seconds, each process
 ARCHS = ("qwen2-72b", "qwen2-1.5b", "minitron-8b", "starcoder2-7b")
 MESHES = ((1, 2), (2, 1), (2, 2))
+POD_MESH, POD_ARCH = (2, 1, 2), "qwen2-1.5b"
 B, MAX_SEQ, PAGE, C = 4, 32, 8, 8
 N_NEW = (8, 3, 1, 5)
 STEPS = 3                            # the chunk, then two decodes
@@ -106,10 +109,11 @@ _JAX_SCRIPT = textwrap.dedent("""
             node[last] = jnp.asarray(ref[key])
     save = {}
     for shape in meshes.split(","):
-        d, m = (int(x) for x in shape.split("x"))
-        devs = np.array(jax.devices()[:d * m]).reshape(d, m)
-        mesh = jax.sharding.Mesh(devs, ("data", "model"),
-                                 axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        dims = tuple(int(x) for x in shape.split("x"))
+        devs = np.array(jax.devices()[:int(np.prod(dims))]).reshape(dims)
+        mesh = jax.sharding.Mesh(
+            devs, ("pod", "data", "model")[3 - len(dims):],
+            axis_types=(jax.sharding.AxisType.Auto,) * len(dims))
         for variant in ("gspmd", "shard_map"):
             with jax.set_mesh(mesh):
                 caches = api.init_caches(%(B)d, %(MAX_SEQ)d,
@@ -144,12 +148,13 @@ _RANK_SCRIPT = textwrap.dedent("""
     import torch
     import torch.distributed as dist
 
-    d, m = (int(x) for x in sys.argv[1].split("x"))
+    shape = tuple(int(x) for x in sys.argv[1].split("x"))
     rank, store_path, out_dir = int(sys.argv[2]), sys.argv[3], sys.argv[4]
     archs = sys.argv[5].split(",")
+    world = int(np.prod(shape))
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, d * m),
-                            rank=rank, world_size=d * m)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
 
     from repro_torch import convert
     from repro_torch.configs import get_config
@@ -158,7 +163,7 @@ _RANK_SCRIPT = textwrap.dedent("""
     from repro_torch.models import build_model
     from repro_torch.serve.step import make_serve_step
 
-    mesh = make_mesh((d, m))
+    mesh = make_mesh(shape)
     ref = np.load(out_dir + "/inputs.npz")
     save = {}
     for arch in archs:
@@ -177,21 +182,22 @@ _RANK_SCRIPT = textwrap.dedent("""
         params = convert.params_from_numpy(params, device="cpu")
         caches = api.init_caches(%(B)d, %(MAX_SEQ)d, %(PAGE)d, device="cpu")
         step, pspecs, cspecs = make_serve_step(api, mesh, caches)
-        params = shard_params(params, pspecs, mesh)
-        caches = shard_params(caches, cspecs, mesh)
+        view = mesh.merged or mesh            # a pod mesh serves on it
+        params = shard_params(params, pspecs, view)
+        caches = shard_params(caches, cspecs, view)
         rows = cspecs["lengths"]              # the batch's spec
         for s in range(%(STEPS)d):
             tok = torch.from_numpy(ref[arch + f"/tokens{s}"])
             n = %(N_NEW)r if s == 0 else (1,) * %(B)d
             n_new = torch.tensor(n, dtype=torch.int32)
-            logits, caches = step(params, shard_params(tok, rows, mesh),
-                                  caches, shard_params(n_new, rows, mesh))
+            logits, caches = step(params, shard_params(tok, rows, view),
+                                  caches, shard_params(n_new, rows, view))
             save[f"{arch}/logits{s}"] = logits.numpy()
         for k in ("page_table", "lengths"):
             save[f"{arch}/caches/{k}"] = caches[k].numpy()
         for i, pool in enumerate(caches["group"]["b0_attn"]):
             save[f"{arch}/caches/group/b0_attn/{i}"] = pool.numpy()
-    np.savez(f"{out_dir}/rank-{d}x{m}-{rank}.npz", **save)
+    np.savez(f"{out_dir}/rank-{sys.argv[1]}-{rank}.npz", **save)
     dist.destroy_process_group()
 """ % dict(B=B, MAX_SEQ=MAX_SEQ, PAGE=PAGE, STEPS=STEPS, N_NEW=N_NEW))
 
@@ -235,19 +241,25 @@ def runs(tmp_path_factory):
     the port's ranks (a gloo group a mesh)."""
     out = tmp_path_factory.mktemp("mesh")
     wait_all([popen([_INPUTS_SCRIPT, str(out), ",".join(ARCHS)], env())])
-    shapes = ",".join(f"{d}x{m}" for d, m in MESHES)
-    procs = [popen([_JAX_SCRIPT, str(out), arch, shapes], env(4))
-             for arch in ARCHS]
-    for d, m in MESHES:
-        store = out / f"store-{d}x{m}"
-        procs += [popen([_RANK_SCRIPT, f"{d}x{m}", str(r), str(store),
-                         str(out), ",".join(ARCHS)], env())
-                  for r in range(d * m)]
+    procs = [popen([_JAX_SCRIPT, str(out), arch, ",".join(
+        tag(s) for s in MESHES + ((POD_MESH,) if arch == POD_ARCH else ()))],
+        env(4)) for arch in ARCHS]
+    runs_on = [(mesh, ARCHS) for mesh in MESHES] + [(POD_MESH, (POD_ARCH,))]
+    for mesh, archs in runs_on:
+        store = out / f"store-{tag(mesh)}"
+        procs += [popen([_RANK_SCRIPT, tag(mesh), str(r), str(store),
+                         str(out), ",".join(archs)], env())
+                  for r in range(int(np.prod(mesh)))]
     wait_all(procs)
     jax_out = {a: np.load(out / f"jax-{a}.npz") for a in ARCHS}
-    ranks = {(d, m): [np.load(out / f"rank-{d}x{m}-{r}.npz")
-                      for r in range(d * m)] for d, m in MESHES}
+    ranks = {mesh: [np.load(out / f"rank-{tag(mesh)}-{r}.npz")
+                    for r in range(int(np.prod(mesh)))]
+             for mesh, _ in runs_on}
     return jax_out, ranks
+
+
+def tag(mesh) -> str:
+    return "x".join(map(str, mesh))
 
 
 def shape_mesh(d: int, m: int) -> Mesh:
@@ -264,15 +276,29 @@ def close(got: np.ndarray, want: np.ndarray, what: str) -> None:
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_step_matches_reference_variants(runs, arch, mesh):
+    check_mesh_step(runs, arch, mesh)
+
+
+def test_pod_mesh_serves_on_the_merged_view(runs):
+    """A (2, 1, 2) mesh: "pod" is the outer batch axis, so the ranks
+    serve as a (2, 2) mesh, pod-major, and match the reference's pod
+    mesh within the same bound."""
+    check_mesh_step(runs, POD_ARCH, POD_MESH)
+
+
+def check_mesh_step(runs, arch: str, mesh) -> None:
+    """The ranks' gathered logits and caches of ``arch`` on ``mesh``
+    against both reference variants (module docstring)."""
     jax_out, ranks = runs
-    d, m = mesh
+    *pods, d, m = mesh
+    d *= pods[0] if pods else 1          # the (pod * data, model) view
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype=torch.float32)
     api = build_model(cfg)
     caches = api.init_caches(B, MAX_SEQ, PAGE, device="cpu")
     mesh_ = shape_mesh(d, m)
     _, _, cspecs = make_serve_step(api, mesh_, caches)
-    shards = ranks[mesh]
+    shards = ranks[tuple(mesh)]
     # every rank of a data shard holds the same gathered logits, bitwise
     for r, a in enumerate(shards):
         twin = shards[(r // m) * m]
@@ -294,21 +320,21 @@ def test_mesh_step_matches_reference_variants(runs, arch, mesh):
         d if "data" in cspecs["lengths"] else 1)
     ref = jax_out[arch]
     for variant in ("gspmd", "shard_map"):
-        tag = f"{d}x{m}/{variant}"
+        tag_ = f"{tag(mesh)}/{variant}"
         for s in range(STEPS):
-            want = ref[f"{tag}/logits{s}"]
+            want = ref[f"{tag_}/logits{s}"]
             n = N_NEW if s == 0 else (1,) * B
             for b in range(B):         # valid positions; pads are free
                 close(logits[s][b, :n[b]], want[b, :n[b]],
-                      f"{tag} logits step {s} row {b}")
+                      f"{tag_} logits step {s} row {b}")
         for n in names:
-            want = ref[f"{tag}/caches/{n}"]
+            want = ref[f"{tag_}/caches/{n}"]
             if n == "page_table":      # page-local, as shard_map returns it
                 np.testing.assert_array_equal(got[n], want % local_pool)
             elif n == "lengths":
                 np.testing.assert_array_equal(got[n], want)
             else:
-                close(got[n], want, f"{tag} {n}")
+                close(got[n], want, f"{tag_} {n}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -335,3 +335,17 @@ def test_checkpoint_volume_holds_the_kept_steps_and_one_more():
         mgr.save(step, tree)
     assert torch.equal(mgr.restore(tree)[1]["x"], tree["x"])
     assert mgr.latest_step() == 4 and store.stats.copied_bytes == 0
+
+
+@pytest.mark.parametrize("nbytes", [1 << 20, 5_046_798_340, 18_520_000_000])
+def test_checkpoint_volume_metadata_holds_every_data_block(nbytes):
+    """The K-Split checkpoint (16 B a mapped block) fits the home region
+    however many data blocks are mapped: with 2 GiB staging files a
+    remount maps their preallocated blocks beside the committed
+    checkpoint, which at a 5 GB state outnumbered the blocks of keep + 2
+    checkpoints, the region's old size."""
+    from repro_torch.core.volume import BLOCK_SIZE
+    geometry, size = launch_train.checkpoint_geometry(
+        nbytes, keep=1, staging_file_bytes=2 << 30, staging_prealloc=2)
+    data_blocks = size // BLOCK_SIZE - geometry.data_base()
+    assert geometry.meta_blocks * BLOCK_SIZE >= 16 * data_blocks + (1 << 20)

@@ -509,16 +509,27 @@ def test_other_families_raise(arch, item):
     """The other families train over the mesh
     (``tests/test_torch_train_mesh_state.py`` and
     ``tests/test_torch_train_mesh_encdec.py`` hold them to the
-    reference); a pod group beside a mesh still raises for them."""
+    reference), with a pod axis too (``item``, done:
+    ``tests/test_torch_train_pod_mesh.py``).  What still raises for
+    them: a pod group beside a mesh, which points at the mesh's pod axis
+    and no longer waits for ``item``, and a monitor or a policy over a
+    mesh (ROADMAP item 7.6e)."""
     api = build_model(get_config(arch, smoke=True))
     assert callable(make_train_step(api, AdamWConfig(),
                                     mesh=shape_mesh(2, 2))[0])
-    with pytest.raises(ValueError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="pod axis") as err:
         make_train_step(api, AdamWConfig(), mesh=shape_mesh(2, 2),
                         pod_group=object())
-    with pytest.raises(ValueError, match=f"item {item}"):
+    assert item not in str(err.value)
+    with pytest.raises(ValueError, match="pod axis") as err:
         run_training(api, None, LoopConfig(), AdamWConfig(), device="cpu",
                      mesh=shape_mesh(2, 2), pod_group=object())
+    assert item not in str(err.value)
+    for fault in ("monitor", "policy"):
+        with pytest.raises(ValueError, match="item 7.6e"):
+            run_training(api, None, LoopConfig(), AdamWConfig(),
+                         device="cpu", mesh=shape_mesh(2, 2),
+                         **{fault: object()})
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b"])
@@ -533,11 +544,13 @@ def test_moe_family_builds_a_mesh_step(arch):
 
 
 def test_a_pod_group_beside_a_mesh_raises():
+    """One way to ask for a pod: the mesh's pod axis, not a group beside
+    it."""
     api = smoke_api("qwen2-1.5b")
-    with pytest.raises(ValueError, match="item 7.6d"):
+    with pytest.raises(ValueError, match=r"make_mesh\(\(pod, data, model"):
         make_train_step(api, AdamWConfig(), mesh=shape_mesh(2, 2),
                         pod_group=object())
-    with pytest.raises(ValueError, match="item 7.6d"):
+    with pytest.raises(ValueError, match=r"make_mesh\(\(pod, data, model"):
         run_training(api, None, LoopConfig(), AdamWConfig(), device="cpu",
                      mesh=shape_mesh(2, 2), pod_group=object())
 

@@ -14,7 +14,9 @@ their own, and what their gates can tell apart.
                                [--broken-norm-sum] [--broken-gate-sum]
                                [--broken-bc-entry] [--broken-cross-entry]
                                [--broken-segment-norm] [--noise]
-                               [--train-archs ARCH,...]
+                               [--train-archs ARCH,...] [--pod]
+                               [--broken-pod-residuals]
+                               [--broken-pod-norm] [--broken-pod-rows]
 
 ``--phase17`` runs ``chip_smoke.phase17`` on every model of
 ``MESH_MODELS`` (or the ``--models`` keys): (a) unsharded in this
@@ -44,7 +46,8 @@ that differ where the reference's top-2 gap exceeds the noise:
 
 ``--phase19`` runs ``chip_smoke.phase19`` (the mesh train step on four
 gloo ranks against the unsharded step), gated, on the lanes of
-``--train-archs`` (default: all of ``TRAIN_MESH_LANES``; internvl2-1b's
+``--train-archs`` (default: ``TRAIN_MESH_LANES`` and qwen2-1.5b's
+float32 (1, 4) lane, which the script's time left here; internvl2-1b's
 lane, ``TRAIN_MESH_GATE_LANES``, runs only when named); its broken
 copies, patched into the spawned ranks and logged ungated, give the
 readings ``TRAIN_MESH_TOL`` lies below:
@@ -75,6 +78,20 @@ readings ``TRAIN_MESH_TOL`` lies below:
   * ``--broken-segment-norm``: the clip norm's old count
     (``first_holder``), which drops the z, x and dt blocks of Mamba2's
     ``Segments`` leaves on model ranks 1..m-1.
+
+``--pod`` runs phase 19's pod lanes alone (``POD_LANES``: qwen2-1.5b
+at (pod, data, model) = (2, 1, 2) under int8 and uncompressed), gated;
+its broken copies, logged ungated, run those lanes too:
+
+  * ``--broken-pod-residuals``: after every pod reduction pod 1's ranks
+    take pod 0's residuals (the reference's collapsed residuals,
+    ``repro/dist/sharding.py:60-67``): the error-feedback identity breaks;
+  * ``--broken-pod-norm``: the clip norm sums over the default group,
+    every pod's pieces, so it reads sqrt(2) too large;
+  * ``--broken-pod-rows``: every pod takes pod 0's rows of the batch
+    (``train.step.batch_rows``), so half the batch is never read: the
+    identity and the pods' bitwise equality hold, the gaps to the
+    unsharded step do not.
 
 ``--broken-train-count``, ``--broken-router-entry`` and
 ``--broken-latent-entry`` run the deepseek-v2-lite-16b lane alone;
@@ -304,6 +321,45 @@ def broken_segment_norm_entry(rank, world, tmp, lanes):
     cs._train_mesh_rank_entry(rank, world, tmp, lanes)
 
 
+def broken_pod_residuals_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with every pod's residuals replaced by pod 0's
+    after each pod reduction."""
+    import torch.distributed as dist
+    from repro_torch.dist import compression
+    inner = compression.bucketed_compressed_psum
+
+    def collapsed(tree, residuals, group, **kw):
+        out, new = inner(tree, residuals, group, **kw)
+        for e in new:
+            dist.broadcast(e, group=group, group_src=0)
+        return out, new
+
+    compression.bucketed_compressed_psum = collapsed
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_pod_norm_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with the clip norm over the default group."""
+    from repro_torch.train import step
+    inner = step.sharded_norm
+    step.sharded_norm = lambda tree, owned, group=None: inner(tree, owned)
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
+def broken_pod_rows_entry(rank, world, tmp, lanes):
+    """Phase 19's ranks with every pod taking pod 0's rows."""
+    import dataclasses
+    from repro_torch.train import step
+    inner = step.batch_rows
+
+    def pod0(n, microbatches, mesh, view):
+        return inner(n, microbatches, dataclasses.replace(
+            mesh, coords={**mesh.coords, "pod": 0}), view)
+
+    step.batch_rows = pod0
+    cs._train_mesh_rank_entry(rank, world, tmp, lanes)
+
+
 def path_gaps(arch: str) -> dict:
     """Phase 19 (a)'s three unsharded float32 steps of ``arch`` through
     the kernels and through their plain versions: the largest relative
@@ -350,9 +406,13 @@ def path_gaps(arch: str) -> dict:
 
 def train_readings(out: dict) -> list:
     return [{k: r.get(k) for k in (
-        "arch", "mesh", "lane", "loss_rel_gap", "grad_norm_rel_gap",
+        "arch", "mesh", "lane", "loss_rel_gap", "step1_loss_rel_gap",
+        "grad_norm_rel_gap",
         "param_abs_gap", "param_abs_gap_leaf", "leaves_whose_copies_differ",
-        "dropped",
+        "pods_bitwise_equal", "ef_identity_gap_by_rank",
+        "ef_identity_bound_by_rank", "ef_collapsed_gap_by_rank",
+        "world_norm_rel_gap_by_rank", "codec_ms_by_rank",
+        "codec_share_of_step", "dropped",
         "reference_dropped", "step_s_median_2_3", "peak_mem_gb_by_rank",
         "seconds_by_rank")}
             for r in out["lanes"].values()]
@@ -442,7 +502,9 @@ def main() -> int:
                  "broken-data-mean", "broken-train-count",
                  "broken-router-entry", "broken-latent-entry",
                  "broken-norm-sum", "broken-gate-sum", "broken-bc-entry",
-                 "broken-cross-entry", "broken-segment-norm", "noise"):
+                 "broken-cross-entry", "broken-segment-norm", "noise", "pod",
+                 "broken-pod-residuals", "broken-pod-norm",
+                 "broken-pod-rows"):
         ap.add_argument(f"--{flag}", action="store_true")
     ap.add_argument("--models", default=None,
                     help="comma-separated MESH_MODELS keys (default: all)")
@@ -459,7 +521,9 @@ def main() -> int:
                  or args.broken_router_entry or args.broken_latent_entry
                  or args.broken_norm_sum or args.broken_gate_sum
                  or args.broken_bc_entry or args.broken_cross_entry
-                 or args.broken_segment_norm or args.noise)
+                 or args.broken_segment_norm or args.noise or args.pod
+                 or args.broken_pod_residuals or args.broken_pod_norm
+                 or args.broken_pod_rows)
     if not torch.cuda.is_available():
         print("mesh_gate: needs a CUDA card", file=sys.stderr)
         return 2
@@ -572,8 +636,9 @@ def main() -> int:
             "overflowing router, gspmd counts shard-locally", ds,
             broken_count_entry, scaled_init))
     archs = args.train_archs.split(",") if args.train_archs else None
-    lanes = cs.TRAIN_MESH_LANES if archs is None else tuple(
-        x for x in cs.TRAIN_MESH_GATE_LANES if x[0] in archs)
+    lanes = tuple(x for x in cs.TRAIN_MESH_GATE_LANES
+                  if (x[0] in archs if archs else x[0] != "internvl2-1b"))
+
     def arch_lanes(arch: str) -> tuple:
         return tuple(x for x in cs.TRAIN_MESH_LANES if x[0] == arch)
 
@@ -586,6 +651,9 @@ def main() -> int:
     if args.phase19:
         attempt("phase19", lambda: emit(lane="phase 19", readings=(
             train_readings(cs.phase19(card, lanes=lanes)))))
+    if args.pod:
+        attempt("pod", lambda: emit(lane="phase 19 pod lanes", readings=(
+            train_readings(cs.phase19(card, lanes=cs.POD_LANES)))))
     for flag, entry, what, on in (
             (args.broken_copies, broken_copies_entry,
              "copied KV heads' grads not summed", lanes),
@@ -608,7 +676,13 @@ def main() -> int:
              "no entry on the encoder's output",
              arch_lanes("whisper-large-v3")),
             (args.broken_segment_norm, broken_segment_norm_entry,
-             "the clip norm's old count of Segments leaves", mamba_lanes)):
+             "the clip norm's old count of Segments leaves", mamba_lanes),
+            (args.broken_pod_residuals, broken_pod_residuals_entry,
+             "every pod keeps pod 0's residuals", cs.POD_LANES),
+            (args.broken_pod_norm, broken_pod_norm_entry,
+             "the clip norm over every pod's pieces", cs.POD_LANES),
+            (args.broken_pod_rows, broken_pod_rows_entry,
+             "every pod takes pod 0's rows", cs.POD_LANES)):
         if flag:
             attempt(what, lambda entry=entry, what=what, on=on: emit(
                 lane=what, readings=train_readings(

@@ -4,7 +4,7 @@ rank a card.
 
     torchrun --standalone --nproc-per-node 4 tools/mesh_train.py \
         [--arch minitron-8b] [--layers N] [--meshes 2x2,1x4] [--steps 4] \
-        [--out build/mesh_train.json]
+        [--codec int8|topk|none] [--out build/mesh_train.json]
 
 For each mesh of ``--meshes`` the ranks train ``--arch`` (default
 minitron-8b at all 32 layers: ~7.7 G parameters, whose float32 params,
@@ -30,7 +30,13 @@ losses, trained tokens/s and the median step time of steps 2 to the
 last (host clock to the loss on the host), each rank's peak memory and
 flash (Mamba2: ``ssd_chunk``) launches a step, and a CUPTI window over
 one more step: each rank's device busy time against its host's wall
-time (the idle share), the kernels' and NCCL's time.  Rank 0 builds the kernels while the
+time (the idle share), the kernels' and NCCL's time.  A mesh of
+``--meshes`` may have a pod axis, ``PxDxM``: the pod reduction runs
+through ``--codec`` (default int8) on each rank's own buckets, or
+uncompressed, where "pod" joins FSDP and the batch (``--codec none``);
+each pod takes its rows of the batch (``batch_rows``), and the codec's
+time a step (CUDA events around ``bucketed_compressed_psum``) and its
+share of the step are logged.  Rank 0 builds the kernels while the
 others wait at a barrier; rank 0 writes the summary to ``--out`` after
 each mesh (a later mesh that runs out of memory leaves the earlier ones)
 and prints it last.  A collective that waits 300 s fails the run.  Needs
@@ -61,12 +67,14 @@ import chip_smoke as cs  # noqa: E402
 from mesh_serve import local_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
+from repro_torch.dist import compression  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.train import AdamWConfig  # noqa: E402
 from repro_torch.train.optimizer import adamw_init  # noqa: E402
-from repro_torch.train.step import make_train_step, mesh_rows  # noqa: E402
+from repro_torch.train.step import (batch_rows, make_train_step,  # noqa: E402
+                                    pod_buckets, shard_mesh)
 from repro_torch.tree import leaves  # noqa: E402
 
 
@@ -76,25 +84,54 @@ def seq_len(cfg) -> int:
     return cs.WHISPER_MAX_SEQ if cfg.family == "encdec" else cs.TRAIN_S
 
 
-def train_on(api, shape, steps: int) -> dict:
+class CodecTimer:
+    """CUDA events around every ``bucketed_compressed_psum`` while it is
+    entered: the codec's milliseconds, one entry a step."""
+
+    def __enter__(self):
+        self.ms, self.inner = [], compression.bucketed_compressed_psum
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.inner(*a, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            return out
+
+        compression.bucketed_compressed_psum = timed
+        return self
+
+    def __exit__(self, *exc):
+        compression.bucketed_compressed_psum = self.inner
+
+
+def train_on(api, shape, steps: int, codec: str) -> dict:
     """One mesh: this rank's shards drawn, ``steps`` timed steps, then a
     profiled one."""
     cfg = api.cfg
     mesh = make_mesh(shape)
-    data = mesh.shape["data"]
-    microbatches = cs.TRAIN_BATCH // data     # one sequence a data rank
+    view = shard_mesh(api, mesh, codec)
+    # one sequence a data rank: the pods' and data ranks' product
+    microbatches = cs.TRAIN_BATCH // (mesh.shape.get("pod", 1)
+                                      * mesh.shape["data"])
     step, _, specs = make_train_step(
         api, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps + 1),
-        microbatches=microbatches, mesh=mesh)
+        microbatches=microbatches, mesh=mesh, codec=codec)
     cs.release()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = local_params(api, specs, mesh, torch.float32)
+    params = local_params(api, specs, view, torch.float32)
     state = {"params": params, "opt": adamw_init(params)}
+    if view is mesh.in_pod:
+        state["err"] = compression.init_residuals(
+            pod_buckets(api, view, specs).plan, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     shard_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
-    take = mesh_rows(cs.TRAIN_BATCH, microbatches, data, mesh.coords["data"])
+    take = batch_rows(cs.TRAIN_BATCH, microbatches, mesh, view)
     pipe = TokenPipeline(cfg, global_batch=cs.TRAIN_BATCH,
                          seq_len=seq_len(cfg), seed=0)
     batches = [{k: torch.from_numpy(v[take]).cuda()
@@ -110,10 +147,11 @@ def train_on(api, shape, steps: int) -> dict:
         launches.append(dict(common.LAUNCHES))
 
     dist.barrier()
-    for b in batches[:steps]:
-        t0 = time.perf_counter()
-        one(b)
-        step_s.append(time.perf_counter() - t0)
+    with CodecTimer() as codec_t:
+        for b in batches[:steps]:
+            t0 = time.perf_counter()
+            one(b)
+            step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     profile = cs.profiled_window(lambda: one(batches[steps]), 1, {
         "flash_attention": list(cs.FLASH_KERNELS.values()),
@@ -128,6 +166,10 @@ def train_on(api, shape, steps: int) -> dict:
            "step_s_median_2_last": median,
            "tokens_per_s": cs.TRAIN_BATCH * seq_len(cfg) / median,
            "peak_mem_gb": peak, "launches_per_step": launches[0],
+           "codec": codec if "err" in state else "none",
+           "codec_ms": codec_t.ms,
+           "codec_share_2_last": sum(codec_t.ms[1:]) / 1e3
+           / sum(step_s[1:]) if codec_t.ms else 0.0,
            "launches_ok": all({k: n.get(k, 0) for k in want} == want
                               for n in launches),
            "finite": all(math.isfinite(x) for x in losses),
@@ -143,6 +185,9 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--meshes", default="2x2,1x4")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--codec", default="int8",
+                    choices=compression.CODECS + ("none",),
+                    help="the pod reduction's codec on a PxDxM mesh")
     ap.add_argument("--out", default=str(ROOT / "build" / "mesh_train.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -176,12 +221,12 @@ def main() -> int:
     for text in args.meshes.split(","):
         shape = tuple(int(x) for x in text.split("x"))
         mine = {"rank": rank, "build_s": build_s,
-                **train_on(api, shape, args.steps)}
+                **train_on(api, shape, args.steps, args.codec)}
         r = [None] * world
         dist.all_gather_object(r, mine)
         out["runs"].append({
-            "mesh": r[0]["mesh"], "losses": r[0]["losses"],
-            "tokens_per_s": r[0]["tokens_per_s"],
+            "mesh": r[0]["mesh"], "codec": r[0]["codec"],
+            "losses": r[0]["losses"], "tokens_per_s": r[0]["tokens_per_s"],
             "step_s_median_2_last": r[0]["step_s_median_2_last"],
             "same_losses_on_every_rank": all(
                 x["losses"] == r[0]["losses"] for x in r),
